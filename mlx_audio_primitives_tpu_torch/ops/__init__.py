@@ -1,0 +1,1 @@
+"""Op modules of the PyTorch port (counterparts of the JAX package's `ops/`)."""
