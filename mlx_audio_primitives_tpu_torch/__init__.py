@@ -2,20 +2,41 @@
 
 Librosa-compatible audio primitives on PyTorch tensors, with the JAX
 package's signatures and conventions, so a call site moves between the two
-packages unchanged. Every op runs on the device of its input: pass a tensor
-moved with ``.to("cuda")`` to run on the GPU; a NumPy array becomes a CPU
-tensor. On a CUDA tensor the main path runs four hand-written CUDA kernels
-(`kernels/`, sources in `csrc/`), built with nvcc on first use.
+packages unchanged.
 
-This package holds the STFT / ISTFT / mel slice of the JAX package and
-exports that slice's part of the JAX package's top-level names. It imports
-neither JAX nor the JAX package.
+Placement: every op runs on the device of its input tensor, and a
+non-tensor input (a NumPy array, a list) goes to ``cuda``, as ``jnp.asarray``
+places data on the TPU; without a CUDA device such an input raises.
+Passing a CPU tensor runs an op on the CPU; :func:`set_default_device`
+(``"cpu"``) sends non-tensor inputs there instead. On a CUDA tensor the
+ops run six hand-written CUDA kernels (`kernels/`, sources in `csrc/`),
+built with nvcc on first use.
+
+This package holds the STFT / ISTFT / mel slice and the spectral-feature
+slice (magnitude STFT, spectral features, MFCC, deltas, framing) of the JAX
+package and exports their part of its top-level names;
+``magnitude_spectrogram`` is reached as ``ops.stft.magnitude_spectrogram``,
+as in the JAX package. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+from ._config import set_default_device
 from .ops.convert import amplitude_to_db, db_to_amplitude, db_to_power, power_to_db
+from .ops.features import (  # noqa: F401
+    poly_features,
+    spectral_bandwidth,
+    spectral_centroid,
+    spectral_contrast,
+    spectral_flatness,
+    spectral_rolloff,
+    stack_memory,
+    sync,
+    zero_crossing_rate,
+)
+from .ops.framing import deemphasis, frame, preemphasis, rms
 from .ops.mel import hz_to_mel, mel_filterbank, mel_to_hz, melspectrogram
+from .ops.mfcc import dct, delta, mfcc
 from .ops.stft import check_nola, istft, magnitude, magphase, phase, stft  # noqa: F401
 from .ops.windows import get_window
 
@@ -33,9 +54,27 @@ __all__ = [
     "melspectrogram",
     "hz_to_mel",
     "mel_to_hz",
+    # Spectral features
+    "spectral_centroid",
+    "spectral_bandwidth",
+    "spectral_rolloff",
+    "spectral_flatness",
+    "spectral_contrast",
+    "zero_crossing_rate",
+    # MFCC
+    "mfcc",
+    "delta",
+    "dct",
+    # Time-domain
+    "frame",
+    "rms",
+    "preemphasis",
+    "deemphasis",
     # Conversions
     "power_to_db",
     "db_to_power",
     "amplitude_to_db",
     "db_to_amplitude",
+    # Placement of non-tensor inputs
+    "set_default_device",
 ]

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc, load them through ctypes, and run
 them under autograd.
 
-Every ``csrc/*.cu`` file is compiled in one nvcc call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), at first use, into ``build/torch_kernels/<hash>/`` beside the
-package. The hash covers the sources, the headers and the flags, so an edit
-rebuilds; a file lock keeps concurrent processes from building twice.
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), at first use,
+into ``build/torch_kernels/<hash>/`` beside the package. The hash covers the
+sources, the headers and the flags, so an edit rebuilds; a file lock keeps
+concurrent processes from building twice.
 
 Each kernel is described by a :class:`Kernel`: its C launcher, the argument
 types, its source, the TPU kernel it replaces, and ``launches``, the count
@@ -35,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libmapt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Largest grid y extent: the kernels put the clip index there.
 MAX_BATCH = 65535
@@ -87,16 +88,42 @@ def build() -> Path:
     return lib
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[list[int], str]:
+    """Run the commands at once; wait for all; return their codes and their
+    output, one command after another."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    return [p.returncode for p in procs], log
+
+
 def _compile(out_dir: Path, lib: Path) -> None:
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    codes, log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                           for src, o in zip(sources, objs)])
+    if not any(codes):
+        tmp = out_dir / f"{LIB_NAME}.{tag}"
+        link_codes, link_log = _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                                          *map(str, objs)]])
+        codes, log = codes + link_codes, log + link_log
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{log[-6000:]}")
+    (out_dir / "nvcc.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if any(codes):
+        raise RuntimeError(f"nvcc failed with codes {codes}:\n{log[-6000:]}")
     os.replace(tmp, lib)
     build_info.update(dir=str(out_dir), seconds=seconds, log=log)
 

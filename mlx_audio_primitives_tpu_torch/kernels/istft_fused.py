@@ -7,11 +7,16 @@ window, overlap-add and envelope divide in one kernel.
 
 Source note (`csrc/istft_fused.cu`, ``istft_kernel``). Replaces
 ``istft_pallas`` (its ``pallas_call`` in ``_istft_grouped_core``). The JAX
-package's transposed and natural intakes (``istft_pallas_t``,
-``istft_pallas_nat``) compute the same function from other layouts; this
-kernel reads the spectrum through its strides, so it takes the
-``(B, F, n_bins)`` transpose of the public ``(B, n_bins, F)`` spectrum in
-place: there is no swapaxes copy and no group-layout gather. One block owns
+package's transposed and natural intakes (``istft_pallas_t``, its
+``pallas_call`` in ``_istft_t_core``, and ``istft_pallas_nat``, in
+``_istft_nat_core``) compute the same function from the natural
+``(B, n_bins, F)`` spectrum; this kernel reads the spectrum through its
+strides, so :func:`istft_fused_t` and :func:`istft_fused_nat` hand it the
+``(B, F, n_bins)`` transpose of that spectrum in place: there is no
+swapaxes copy and no group-layout gather. Frames that start at or past the
+output's end add nothing and are never read, which is what the JAX entries'
+frame trim does. The JAX group-layout entry ``istft_pallas_grouped_t``
+takes a TPU layout that has no counterpart here. One block owns
 RB output hop-rows of one clip and walks the RB + C - 1 frames that cover
 them in batches: inverse FP32 FFT in shared memory (the real-input split of
 `csrc/fft_common.cuh` run backwards), synthesis window, then each thread
@@ -109,3 +114,41 @@ def istft_fused(
     if not on_cuda(S, win, env):
         return istft_plain(S, win, env, **kw)
     return with_plain_backward(_launch, istft_plain, S, win, env, **kw)
+
+
+def istft_fused_t(
+    S: torch.Tensor,  # (B, n_bins, F) natural spectrum, frames minor
+    win: torch.Tensor,
+    env: torch.Tensor,
+    *,
+    n_fft: int,
+    hop_length: int,
+    padded_length: int,
+    fast_gemm: bool = False,
+    kara: bool = False,
+) -> torch.Tensor:
+    """``(B, n_bins, F) -> (B, padded_length)``, the counterpart of
+    ``istft_pallas_t``: ``istft_kernel`` on the natural spectrum through its
+    strides (no copy). The kernel is FP32-exact, so ``fast_gemm`` and
+    ``kara`` (the TPU kernel's GEMM modes) are accepted and change
+    nothing."""
+    del fast_gemm, kara
+    return istft_fused(S.transpose(1, 2), win, env, n_fft=n_fft, hop_length=hop_length,
+                       padded_length=padded_length)
+
+
+def istft_fused_nat(
+    S: torch.Tensor,  # (B, n_bins, F) natural spectrum, frames minor
+    win: torch.Tensor,
+    env: torch.Tensor,
+    *,
+    n_fft: int,
+    hop_length: int,
+    padded_length: int,
+    kara: bool = True,
+) -> torch.Tensor:
+    """The counterpart of ``istft_pallas_nat``: the same function and the
+    same launch as :func:`istft_fused_t`; ``kara`` is accepted and changes
+    nothing."""
+    return istft_fused_t(S, win, env, n_fft=n_fft, hop_length=hop_length,
+                         padded_length=padded_length, kara=kara)

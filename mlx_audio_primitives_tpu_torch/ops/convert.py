@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+from ..utils import dispatch
 
 ArrayLike = Any
 
@@ -30,7 +31,7 @@ def _to_db(
 ) -> torch.Tensor:
     if amin <= 0:
         raise ValueError(f"amin must be positive, got {amin}")
-    S = torch.as_tensor(S, dtype=REAL_DTYPE)
+    S = dispatch.to_tensor(S, REAL_DTYPE)
     if callable(ref):
         ref_value = torch.as_tensor(ref(S), dtype=S.dtype, device=S.device)
         ref_clamped = torch.clamp(ref_value, min=amin)
@@ -59,7 +60,7 @@ def power_to_db(
 
 def db_to_power(S_db: ArrayLike, ref: float = 1.0) -> torch.Tensor:
     """Invert :func:`power_to_db`: ``ref * 10**(S_db / 10)``."""
-    S_db = torch.as_tensor(S_db, dtype=REAL_DTYPE)
+    S_db = dispatch.to_tensor(S_db, REAL_DTYPE)
     return ref * torch.pow(10.0, S_db / 10.0)
 
 
@@ -75,5 +76,5 @@ def amplitude_to_db(
 
 def db_to_amplitude(S_db: ArrayLike, ref: float = 1.0) -> torch.Tensor:
     """Invert :func:`amplitude_to_db`: ``ref * 10**(S_db / 20)``."""
-    S_db = torch.as_tensor(S_db, dtype=REAL_DTYPE)
+    S_db = dispatch.to_tensor(S_db, REAL_DTYPE)
     return ref * torch.pow(10.0, S_db / 20.0)

@@ -179,7 +179,7 @@ def filterbank_spectrogram(
         # validate eagerly: an explicit fft_mode must never be swallowed by
         # the kernel dispatch below
         _resolve_fft_mode(fft_mode, n_fft)
-    y = torch.as_tensor(y, dtype=REAL_DTYPE).contiguous()
+    y = dispatch.to_tensor(y, REAL_DTYPE).contiguous()
     win = torch.as_tensor(win, dtype=REAL_DTYPE, device=y.device).contiguous()
     fb_t = torch.as_tensor(fb, dtype=REAL_DTYPE, device=y.device).t().contiguous()
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,

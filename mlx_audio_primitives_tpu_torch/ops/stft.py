@@ -2,7 +2,8 @@
 
 Counterpart of `mlx_audio_primitives_tpu/ops/stft.py`, with the same
 signatures, defaults, errors and output conventions (complex64
-``(B, n_bins, F)``). Every op runs on the device of its input tensor.
+``(B, n_bins, F)``). Every op runs on the device of its input tensor; a
+non-tensor input goes to the default device (`utils/dispatch.py::to_tensor`).
 
 Paths, chosen per call as in the JAX package:
 
@@ -10,6 +11,11 @@ Paths, chosen per call as in the JAX package:
   radix shape gate admits and no explicit ``fft_mode`` pins a plain path;
   otherwise the plain composition (pad, frame, window, then
   ``torch.fft.rfft`` or, for ``fft_mode='matmul'``, an FP32 DFT GEMM).
+* ``magnitude_spectrogram``: ``|stft|`` without the complex intermediate,
+  through the STFT kernel's magnitude emit (K2m) under the radix gate, else
+  the plain composition ``|rfft(window * frames)|``
+  (`kernels/stft_radix.py::stft_magnitude_plain`, the JAX package's
+  ``_magnitude_core``).
 * ``istft``: three tiers. The fused ISTFT kernel (K3,
   `kernels/istft_fused.py`) under the radix gate; the inverse transform
   plus the overlap-add kernel (K4, `kernels/overlap_add.py`) for other hops
@@ -31,7 +37,12 @@ from .._config import COMPLEX_DTYPE, REAL_DTYPE, WINDOW_SUM_EPSILON
 from ..kernels.dft import forward_basis, inverse_basis, irfft_frames
 from ..kernels.istft_fused import istft_fused, istft_plain
 from ..kernels.overlap_add import ola_supported, overlap_add_fused
-from ..kernels.stft_radix import stft_fused, stft_plain
+from ..kernels.stft_radix import (
+    stft_fused,
+    stft_magnitude_fused,
+    stft_magnitude_plain,
+    stft_plain,
+)
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ._frames import num_frames, window_envelope
@@ -110,10 +121,11 @@ def _validate_stft_params(
 
 
 def _as_batched(y: ArrayLike, n_fft: int, center: bool) -> tuple[torch.Tensor, bool]:
-    """Promote to a contiguous (B, L) float32 tensor on the input's device
-    (a NumPy array becomes a CPU tensor) and check the center=False length
+    """Promote to a contiguous (B, L) float32 tensor (a tensor keeps its
+    device, anything else goes to the default device, see
+    :func:`..utils.dispatch.to_tensor`) and check the center=False length
     bound. Returns ``(y_2d, input_is_1d)``."""
-    y = torch.as_tensor(y, dtype=REAL_DTYPE)
+    y = dispatch.to_tensor(y, REAL_DTYPE)
     if y.dim() not in (1, 2):
         raise ValueError(f"y must be 1D or 2D, got {y.dim()}D")
     input_is_1d = y.dim() == 1
@@ -181,6 +193,39 @@ def stft(
     return out[0] if input_is_1d else out
 
 
+def magnitude_spectrogram(
+    y: ArrayLike,
+    n_fft: int = 2048,
+    hop_length: int | None = None,
+    win_length: int | None = None,
+    window: str | ArrayLike = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+    use_pallas: bool | None = None,
+    fast_gemm: bool | None = None,
+) -> torch.Tensor:
+    """``|stft(y)|`` as float32 ``(n_bins, F)`` / ``(B, n_bins, F)``, without
+    the complex intermediate: the spectral features' magnitude path.
+
+    ``use_pallas`` selects the magnitude kernel (see :mod:`..utils.dispatch`).
+    The port's kernels are FP32-exact, so ``fast_gemm`` (the JAX kernel's
+    bf16-split GEMM mode) is accepted and changes nothing."""
+    del fast_gemm
+    if hop_length is None:
+        hop_length = n_fft // 4
+    if win_length is None:
+        win_length = n_fft
+    _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
+    y, input_is_1d = _as_batched(y, n_fft, center)
+    win = _get_padded_window(window, win_length, n_fft, y.device)
+    kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
+    if dispatch.resolve_use_pallas(use_pallas, y.device) and dispatch.radix_shape_ok(n_fft, hop_length):
+        out = stft_magnitude_fused(y, win, **kw)
+    else:
+        out = stft_magnitude_plain(y, win, **kw)
+    return out[0] if input_is_1d else out
+
+
 def istft(
     stft_matrix: ArrayLike,
     hop_length: int | None = None,
@@ -199,7 +244,7 @@ def istft(
     ISTFT kernel under the radix gate, else the overlap-add kernel within
     its gate, else the plain composition.
     """
-    S = torch.as_tensor(stft_matrix).to(COMPLEX_DTYPE).resolve_conj()
+    S = dispatch.to_tensor(stft_matrix, COMPLEX_DTYPE).resolve_conj()
     if S.dim() not in (2, 3):
         raise ValueError(f"stft_matrix must be 2D or 3D, got {S.dim()}D")
     input_is_2d = S.dim() == 2
@@ -271,12 +316,12 @@ def istft(
 
 def magnitude(stft_matrix: ArrayLike) -> torch.Tensor:
     """Magnitude of a complex STFT."""
-    return torch.as_tensor(stft_matrix).abs()
+    return dispatch.to_tensor(stft_matrix).abs()
 
 
 def phase(stft_matrix: ArrayLike) -> torch.Tensor:
     """Phase (radians) of a complex STFT via arctan2(imag, real)."""
-    S = torch.as_tensor(stft_matrix)
+    S = dispatch.to_tensor(stft_matrix)
     return torch.atan2(S.imag, S.real)
 
 
@@ -293,7 +338,7 @@ def check_nola(
     if hop_length > n_fft:
         # hops larger than the window leave uncovered gaps: NOLA fails
         return False
-    win = get_window(window, n_fft, fftbins=True).cpu().numpy().astype(np.float64)
+    win = get_window(window, n_fft, fftbins=True, device="cpu").numpy().astype(np.float64)
     step = hop_length
     n_bins = n_fft // step
     binsums = sum(win[ii * step : (ii + 1) * step] ** 2 for ii in range(n_bins))
@@ -314,7 +359,7 @@ def magphase(D: ArrayLike, power: float = 1.0) -> tuple[torch.Tensor, torch.Tens
     """Split a complex spectrogram into ``(|D|**power, unit phasors)`` with
     ``mag * phase == D`` when ``power=1`` (librosa `magphase` semantics).
     Zero-magnitude cells get phase ``1+0j`` rather than NaN."""
-    D = torch.as_tensor(D)
+    D = dispatch.to_tensor(D)
     mag = D.abs()
     tiny = float(np.finfo(np.float32).tiny)
     ph = torch.where(
@@ -329,6 +374,7 @@ def magphase(D: ArrayLike, power: float = 1.0) -> tuple[torch.Tensor, torch.Tens
 __all__ = [
     "stft",
     "istft",
+    "magnitude_spectrogram",
     "magnitude",
     "phase",
     "check_nola",

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE, WINDOW_CACHE_SIZE
+from ..utils import dispatch
 from ..utils.cache import table_cache
 
 # Generalized-cosine coefficients (Harris 1978), as in scipy.signal.windows.
@@ -97,14 +98,18 @@ def get_window(
     - ``fftbins=True`` gives a periodic (DFT-even) window, ``False`` a
       symmetric one.
 
-    ``device`` places the result (CPU when None; an array window keeps its
-    own device when None). Named windows are cached per device.
+    ``device`` places the result. When None, a named window is a CPU table
+    and an array window keeps its own device (a NumPy array goes to the
+    default device, as every entry point's input does). Named windows are
+    cached per device.
     """
     if isinstance(window, (torch.Tensor, np.ndarray)):
         if window.shape[0] != n_fft:
             raise ValueError(
                 f"Window array length ({window.shape[0]}) must match n_fft ({n_fft})"
             )
+        if device is None:
+            return dispatch.to_tensor(window, REAL_DTYPE)
         return torch.as_tensor(window, dtype=REAL_DTYPE, device=device)
 
     beta: float | None = None

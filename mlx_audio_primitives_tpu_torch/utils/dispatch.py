@@ -1,11 +1,12 @@
 """Per-call routing between the hand-written CUDA kernels and the plain
-PyTorch compositions.
+PyTorch compositions, and where a non-tensor input is placed.
 
 Counterpart of `mlx_audio_primitives_tpu/utils/dispatch.py`. There the
 Pallas kernels are the fast path and the XLA compositions the
 always-available one; here the CUDA kernels under `kernels/` are the fast
-path and plain torch ops the other. A call is routed by the device of its
-input tensor, never by a global device choice:
+path and plain torch ops the other. :func:`to_tensor` places a non-tensor
+input on ``_config.DEFAULT_DEVICE``; after that a call is routed by the
+device of its input tensor, never by a global device choice:
 
 * ``use_pallas=None`` takes the kernel for a CUDA tensor wherever the
   kernel's shape gate admits the shape, and the plain composition for a
@@ -30,8 +31,26 @@ import os
 
 import torch
 
+from .. import _config
+
 #: False when ``MLX_AUDIO_TPU_DISABLE_PALLAS=1``: no kernel is ever selected.
 KERNELS_ENABLED: bool = os.environ.get("MLX_AUDIO_TPU_DISABLE_PALLAS", "0") != "1"
+
+
+def to_tensor(x, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """An entry point's input as a tensor. A tensor keeps its device (only
+    ``dtype`` changes); anything else goes to ``_config.DEFAULT_DEVICE``,
+    ``cuda`` unless the caller set another. With the default at ``cuda`` and
+    no CUDA device this raises: an op never falls back to the CPU unasked."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None or x.dtype == dtype else x.to(dtype)
+    dev = _config.DEFAULT_DEVICE
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device for a non-tensor input: pass a CPU tensor, or call "
+            "set_default_device('cpu') to run NumPy inputs on the CPU"
+        )
+    return torch.as_tensor(x, dtype=dtype, device=dev)
 
 
 def resolve_use_pallas(flag: bool | None, device: torch.device) -> bool:

@@ -18,3 +18,23 @@ def validate_non_negative(value: float | int, name: str) -> None:
     if value < 0:
         raise ValueError(f"{name} must be non-negative, got {value}")
 
+
+
+def validate_range(
+    value: float | int,
+    name: str,
+    low: float | None = None,
+    high: float | None = None,
+    inclusive: bool = True,
+) -> None:
+    """Raise ValueError unless ``low <= value <= high`` (or strict if not inclusive)."""
+    if low is not None:
+        if inclusive and value < low:
+            raise ValueError(f"{name} must be >= {low}, got {value}")
+        if not inclusive and value <= low:
+            raise ValueError(f"{name} must be > {low}, got {value}")
+    if high is not None:
+        if inclusive and value > high:
+            raise ValueError(f"{name} must be <= {high}, got {value}")
+        if not inclusive and value >= high:
+            raise ValueError(f"{name} must be < {high}, got {value}")

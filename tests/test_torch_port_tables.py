@@ -18,6 +18,8 @@ from torch_port_util import launch_counts, max_rel, same_bits, signals
 import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_table
+from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
+from mlx_audio_primitives_tpu_torch.ops import stft as tap_stft
 from mlx_audio_primitives_tpu_torch.ops.mel import filterbank_spectrogram
 from mlx_audio_primitives_tpu_torch.ops.stft import _istft_envelope_table
 from mlx_audio_primitives_tpu_torch.utils import dispatch
@@ -199,9 +201,14 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
 
 def test_cpu_calls_launch_nothing():
     before = launch_counts()
-    assert set(before) == {"mel_fused_kernel", "stft_kernel", "istft_kernel", "overlap_add_kernel"}
+    assert set(before) == {"mel_fused_kernel", "stft_kernel", "stft_mag_kernel", "istft_kernel",
+                           "overlap_add_kernel", "select_extremes_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
     tap.istft(S, hop_length=128, use_pallas=True)
     tap.melspectrogram(y, n_fft=512, hop_length=128, n_mels=16, use_pallas=True)
+    mag = tap_stft.magnitude_spectrogram(y, n_fft=512, hop_length=128, use_pallas=True)
+    quantile_extreme_means_fused(mag.transpose(1, 2), 3, 3)
+    tap.spectral_centroid(y, n_fft=512, hop_length=128)
+    tap.spectral_contrast(y, n_fft=512, hop_length=128)
     assert launch_counts() == before

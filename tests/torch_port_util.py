@@ -10,8 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import mlx_audio_primitives_tpu_torch as tap
+
 # Keep each xdist worker on one CPU thread: the suite runs six workers.
 torch.set_num_threads(1)
+
+# The port places non-tensor inputs on ``cuda`` by default; these tests pass
+# NumPy arrays and ask for the CPU here, in one place.
+tap.set_default_device("cpu")
 
 
 def signals(seed: int, shape: tuple[int, ...]) -> np.ndarray:
