@@ -9,8 +9,9 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
    source, all at once (timed);
 3. each kernel against its plain PyTorch twin on the card, at the main
-   paths' shapes, with its launch counter checked (K3 also through its
-   natural-spectrum entries ``istft_fused_t`` / ``istft_fused_nat``);
+   paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
+   counter checked (K3 also through its natural-spectrum entries
+   ``istft_fused_t`` / ``istft_fused_nat``);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -22,10 +23,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
       zero-crossing rate and RMS, the first 4 clips against a float64 CPU
       oracle;
-5. CUDA-event times of each path (kernels and plain) and of each kernel
-   alone against its plain twin and, where one PyTorch call computes the
-   same function, that call; each kernel's bound from the bytes and
-   operations of its shapes;
+5. CUDA-event times of each path (kernels and plain), of the centroid
+   against the route it does not take (its two moments out of K1), and of
+   each kernel alone against its plain twin and, where one PyTorch call
+   computes the same function, that call; each kernel's bound from the
+   bytes and operations of its shapes;
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -162,6 +164,15 @@ def default_bands() -> list[tuple[int, int, int]]:
     return [b for b in bands if b is not None and b[2] > 1]
 
 
+def moments_weight(dev: torch.device) -> torch.Tensor:
+    """The ``(n_bins, 2)`` weight ``[1, f]`` whose contraction with ``|X|``
+    gives a centroid's two moments ``(sum S, sum f*S)``."""
+    from mlx_audio_primitives_tpu_torch.ops.features import _get_frequencies
+
+    freq = _get_frequencies(SR, N_FFT, device=dev)
+    return torch.stack([torch.ones_like(freq), freq], dim=1)
+
+
 def kernels_vs_plain(gen: torch.Generator) -> dict:
     """Phase 3: each kernel against its plain twin; returns max errors."""
     phase("3. kernels against their plain twins")
@@ -195,6 +206,16 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         print(f"K1 mel_fused {shape} power={power}: rel err {e:.3e} (limit 1e-5)")
         check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its plain twin")
         errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
+
+    # K1 at the feature path's 64 x 30 s with MFCC's mel weight; <= 1e-5
+    y = torch.randn(FEATURES, generator=gen, device=dev)
+    got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, **kw)
+    ref = k1.melspectrogram_plain(y, win, fb_t, **kw)
+    e = rel_err(got, ref)
+    print(f"K1 mel_fused {FEATURES} power=2.0: rel err {e:.3e} (limit 1e-5)")
+    check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its plain twin")
+    errs[k1.KERNEL.name] = max(errs[k1.KERNEL.name], abs_err(got, ref))
+    del got, ref
 
     # K2: one 30 s clip and the headline batch; <= 1e-5 of max |S|
     for shape in ((1, LONG), HEADLINE):
@@ -426,13 +447,18 @@ def feature_set(ap, y: torch.Tensor) -> dict:
     }
 
 
-def feature_oracle(y: torch.Tensor) -> dict:
+def feature_oracle(y: torch.Tensor, mag32: torch.Tensor) -> dict:
     """The same features in float64 on the CPU, from the float32 clips:
     float64 ``|rfft|`` of the Hann-windowed frames, the feature formulas,
-    ``np.sort`` for the contrast quantiles, scipy's Savitzky-Golay filter
-    for the deltas. The host tables (mel filterbank, DCT basis, contrast
-    band table) are the port's float64 builders, which the CPU tests hold
-    bit-equal to the JAX package's."""
+    scipy's Savitzky-Golay filter for the deltas. The contrast starts from
+    ``mag32``, the port's float32 magnitude of the same clips, as the JAX
+    package's contrast test does: a band's valley may be ~1e-4 of its peak,
+    where float32 rounding of the spectrum (~3e-7 of the peak) moves the dB
+    contrast by up to ~2e-4 of its max whatever computes it. That magnitude
+    is itself held against the float64 one (key ``magnitude``). The host
+    tables (mel filterbank, DCT basis, contrast band table) are the port's
+    float64 builders, which the CPU tests hold bit-equal to the JAX
+    package's."""
     from scipy.signal import savgol_filter
 
     from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
@@ -454,13 +480,15 @@ def feature_oracle(y: torch.Tensor) -> dict:
     flatness = np.exp(np.log(power).mean(1, keepdims=True)) / (power.mean(1, keepdims=True) + 1e-10)
     from mlx_audio_primitives_tpu_torch.ops.features import contrast_bands
 
-    valleys, peaks = [], []
-    for start, stop, k in contrast_bands(freq[:, 0], 200.0, 6, 0.02):
-        srt = np.sort(mag[:, start:stop, :], axis=1)
-        valleys.append(srt[:, :k].mean(1))
-        peaks.append(srt[:, -k:].mean(1))
-    contrast = (10 * np.log10(np.maximum(np.stack(peaks, 1), 1e-10))
+    def contrast(m: np.ndarray) -> np.ndarray:
+        valleys, peaks = [], []
+        for start, stop, k in contrast_bands(freq[:, 0], 200.0, 6, 0.02):
+            srt = np.sort(m[:, start:stop, :], axis=1)
+            valleys.append(srt[:, :k].mean(1))
+            peaks.append(srt[:, -k:].mean(1))
+        return (10 * np.log10(np.maximum(np.stack(peaks, 1), 1e-10))
                 - 10 * np.log10(np.maximum(np.stack(valleys, 1), 1e-10)))
+
     fb = _mel_filterbank_table.host(SR, N_FFT, N_MELS, 0.0, SR / 2.0, False, "slaney")
     db = 10 * np.log10(np.maximum(np.einsum("mk,bkf->bmf", fb, mag**2), 1e-10))
     floor = db.max() - 80.0
@@ -477,7 +505,8 @@ def feature_oracle(y: torch.Tensor) -> dict:
         "delta1": savgol_filter(mfcc, 9, 1, deriv=1, axis=-1, mode="interp"),
         "delta2": savgol_filter(mfcc, 9, 2, deriv=2, axis=-1, mode="interp"),
         "centroid": centroid, "bandwidth": bandwidth, "rolloff": rolloff,
-        "flatness": flatness, "contrast": contrast, "zcr": zcr, "rms": rms,
+        "flatness": flatness, "contrast": contrast(mag32.double().cpu().numpy()),
+        "zcr": zcr, "rms": rms, "magnitude": mag, "contrast_of_f64_magnitude": contrast(mag),
     }
 
 
@@ -485,6 +514,7 @@ def feature_path(gen: torch.Generator) -> dict:
     """Phase 4b: the spectral-feature entry points on CUDA tensors."""
     phase(f"4b. public spectral-feature path on cuda tensors, {FEATURES[0]} clips of 30 s")
     import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.ops.stft import magnitude_spectrogram
 
     y = torch.randn(FEATURES, generator=gen, device=torch.device("cuda", 0))
     reset_counts()
@@ -493,7 +523,8 @@ def feature_path(gen: torch.Generator) -> dict:
     launches = read_counts("spectral-feature", FEATURE_PATH)
 
     n_frames = 1 + LONG // HOP
-    ref = feature_oracle(y[:N_ORACLE])
+    out["magnitude"] = magnitude_spectrogram(y, n_fft=N_FFT, hop_length=HOP)
+    ref = feature_oracle(y[:N_ORACLE], out["magnitude"][:N_ORACLE])
     for name, got in out.items():
         check(got.shape[0] == FEATURES[0] and got.shape[-1] == n_frames,
               f"{name}: shape {tuple(got.shape)}")
@@ -514,8 +545,12 @@ def feature_path(gen: torch.Generator) -> dict:
             check(e == 0.0, "zcr is not exact")
         else:
             e = float(np.abs(g - r).max() / np.abs(r).max())
-            print(f"{name} {tuple(got.shape)}: rel err vs f64 oracle {e:.3e} (limit 1e-4)")
+            source = " on the port's f32 magnitude" if name == "contrast" else ""
+            print(f"{name} {tuple(got.shape)}: rel err vs f64 oracle{source} {e:.3e} (limit 1e-4)")
             check(e <= 1e-4, f"{name} misses its contract")
+    r = ref["contrast_of_f64_magnitude"]
+    e = float(np.abs(out["contrast"][:N_ORACLE].double().cpu().numpy() - r).max() / np.abs(r).max())
+    print(f"contrast against the oracle's own f64 magnitude, not held to a limit: rel err {e:.3e}")
     return launches
 
 
@@ -575,11 +610,30 @@ def times(gen: torch.Generator, card: str) -> dict:
         plain_b = cuda_ms(lambda: fn(False), 2, reps)
         print(f"{label}: kernel path {kern_a:.4f} / {kern_b:.4f}, plain path {plain_a:.4f} / {plain_b:.4f}")
 
+    # the centroid of 64 x 30 s, sum(f*S)/sum(S) over K2m's magnitude,
+    # against the JAX package's route: its two moments out of K1 with the
+    # weight [1, f]
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    w_moments = moments_weight(dev)
+
+    def centroid_k1():
+        M = k1.melspectrogram_fused(y_feat, win, w_moments, power=1.0, **kw)
+        return M[:, 1:2] / (M[:, 0:1] + 1e-10)
+
+    def centroid_k2m():
+        return ap.spectral_centroid(y_feat, sr=SR, n_fft=N_FFT, hop_length=HOP)
+
+    e = rel_err(centroid_k1(), centroid_k2m())
+    check(e <= 1e-5, f"the centroid's two routes disagree: {e:.3e}")
+    k1_a, m_a, m_b, k1_b = (cuda_ms(centroid_k1), cuda_ms(centroid_k2m), cuda_ms(centroid_k2m),
+                            cuda_ms(centroid_k1))
+    print(f"centroid 64 x 30 s: spectral_centroid (K2m route) {m_a:.4f} / {m_b:.4f}, "
+          f"K1 moments route {k1_a:.4f} / {k1_b:.4f} (routes agree to {e:.3e} of max)")
+
     # each kernel alone against its plain twin and its library call, at the
     # main paths' shapes, with its bound at that shape
-    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
     fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
-    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     n_bins = N_FFT // 2 + 1
     St = S.transpose(1, 2)
     T = LONG + N_FFT
@@ -727,15 +781,17 @@ def main() -> None:
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
     launches = {name: log_mel[name] + features[name] for name in log_mel}
-    rows = [(k, k.name, k.replaces) for k in _build.KERNELS]
+    rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "launches": launches[k.name]} for k in _build.KERNELS]
+    # the natural-spectrum entries launch K3; no main path calls them, in
+    # either package, so they count no launches of their own
     k3 = next(k for k in _build.KERNELS if k.name == "istft_kernel")
-    rows += [(k3, f"{k3.name}[{entry}]", f"mlx_audio_primitives_tpu/kernels/istft_fused.py:{line}")
+    rows += [{"name": f"{k3.name}[{entry}]", "route": "cuda", "source": k3.source,
+              "replaces": f"mlx_audio_primitives_tpu/kernels/istft_fused.py:{line}",
+              "launches": 0, "entry_of": k3.name}
              for entry, line in (("istft_fused_t", 742), ("istft_fused_nat", 1111))]
-    # the natural-spectrum entries launch K3: their launches are K3's
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k.source, "replaces": replaces,
-         "launches": launches[k.name], "max_abs_err": errs[name], **timing[name]}
-        for k, name, replaces in rows
+        {**row, "max_abs_err": errs[row["name"]], **timing[row["name"]]} for row in rows
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

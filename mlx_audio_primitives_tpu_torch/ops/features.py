@@ -9,14 +9,16 @@ kernels of this path are:
 
 * the spectrogram of the S-or-y protocol: ``magnitude_spectrogram``, the
   STFT kernel's magnitude emit (K2m, `kernels/stft_radix.py`);
-* the centroid's two moments ``(sum S, sum f*S)``: the fused filterbank
-  kernel (K1, `kernels/mel_fused.py`) with the ``(n_bins, 2)`` weight
-  ``[1, f]`` at power 1, so the spectrogram never reaches device memory;
 * the contrast bands' quantile means: the extreme-selection kernel (K5,
   `kernels/select_extremes.py`), reading each band of the natural
   ``(B, n_bins, F)`` magnitude in place.
 
-Elsewhere each takes its plain composition. The JAX package computes the
+Elsewhere each takes its plain composition. The JAX package takes the
+centroid's two moments out of its fused filterbank kernel with the weight
+``[1, f]``; the port's filterbank kernel (K1) contracts whole 128-column
+tiles, so on the H100 that route is slower than the magnitude and two
+reductions (3.3 ms against 2.0 ms at 64 x 30 s, ``chip_smoke.py`` phase 5),
+and the centroid has the one route. The JAX package computes the
 dB and geometric-mean logs with its own polynomials
 (`kernels/precise_math.py`) because the TPU's ``log10`` is imprecise; the
 port uses ``torch.log10`` and ``torch.pow``. ``use_cpp``/``use_mlx`` are
@@ -31,18 +33,12 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
-from ..kernels.mel_fused import melspectrogram_fused
 from ..kernels.select_extremes import quantile_extreme_means_fused, select_supported
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.validation import validate_positive, validate_range
 from ._frames import frame_signal_batched, pad_signal
-from .stft import (
-    _as_batched,
-    _get_padded_window,
-    _validate_stft_params,
-    magnitude_spectrogram,
-)
+from .stft import magnitude_spectrogram
 
 ArrayLike = Any
 
@@ -82,35 +78,6 @@ def _compute_spectrogram(
     return S
 
 
-def _moments_fused(
-    y: torch.Tensor, freq: torch.Tensor, *, n_fft, hop_length, win_length, window, center,
-    pad_mode,
-) -> tuple[torch.Tensor, torch.Tensor] | None:
-    """``(M0, M1) = (sum S, sum f*S)`` per frame through the fused
-    filterbank kernel with the ``[1, f]`` weight pair at power 1, each
-    ``(B?, 1, F)``. None where the kernel does not apply (a CPU tensor, a
-    shape outside the radix gate, a ``freq`` of the wrong length): the
-    caller then takes the spectrogram formula."""
-    if freq.dim() != 1 or freq.shape[0] != n_fft // 2 + 1:
-        return None
-    if not (dispatch.resolve_use_pallas(None, y.device)
-            and dispatch.radix_shape_ok(n_fft, hop_length)):
-        return None
-    if win_length is None:
-        win_length = n_fft
-    # the same ValueErrors as the spectrogram path, not kernel-shape errors
-    _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
-    y, input_is_1d = _as_batched(y, n_fft, center)
-    win = _get_padded_window(window, win_length, n_fft, y.device)
-    fb_t = torch.stack([torch.ones_like(freq), freq], dim=1)  # (n_bins, 2)
-    M = melspectrogram_fused(y, win, fb_t, n_fft=n_fft, hop_length=hop_length, center=center,
-                             pad_mode=pad_mode, power=1.0)  # (B, 2, F)
-    M0, M1 = M[:, 0:1, :], M[:, 1:2, :]
-    if input_is_1d:
-        M0, M1 = M0[0], M1[0]
-    return M0, M1
-
-
 def spectral_centroid(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -123,18 +90,7 @@ def spectral_centroid(
     pad_mode: str = "constant",
     freq: ArrayLike | None = None,
 ) -> torch.Tensor:
-    """Spectral centroid ``sum(f*S)/sum(S)`` per frame, shape ``(..., 1, F)``.
-    From ``y`` on a CUDA tensor the two moments come out of the fused
-    filterbank kernel, so the spectrogram is never written."""
-    if S is None and y is not None:
-        y = dispatch.to_tensor(y, REAL_DTYPE)
-        out = _moments_fused(
-            y, _freq(freq, sr, n_fft, y.device), n_fft=n_fft, hop_length=hop_length,
-            win_length=win_length, window=window, center=center, pad_mode=pad_mode,
-        )
-        if out is not None:
-            M0, M1 = out
-            return M1 / (M0 + 1e-10)
+    """Spectral centroid ``sum(f*S)/sum(S)`` per frame, shape ``(..., 1, F)``."""
     S = _compute_spectrogram(y, S, n_fft, hop_length, win_length, window, center, pad_mode)
     freq = _freq(freq, sr, n_fft, S.device)
     is_batched = S.dim() == 3
