@@ -2,16 +2,23 @@
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+``python3 chip_smoke.py --host-path DIR`` prints only the STFT wrapper's host
+time per call for the port package under DIR (an unpacked earlier commit,
+say), for comparing two wrappers on one card.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
-   source, all at once (timed);
+   source, all at once (timed); for each K2/K2m instance, ptxas's registers
+   and spill bytes (a spill fails the run), its threads, frames per tile,
+   shared memory per block and resident warps per SM;
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
-   ``istft_fused_t`` / ``istft_fused_nat``);
+   ``istft_fused_t`` / ``istft_fused_nat``; K2/K2m also at the smallest
+   n_fft, at frame counts that are not whole tiles and at odd clip
+   lengths);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -26,8 +33,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (its two moments out of K1), and of
    each kernel alone against its plain twin and, where one PyTorch call
-   computes the same function, that call; each kernel's bound from the
-   bytes and operations of its shapes;
+   computes the same function, that call (K2 also at 64 x 30 s, against
+   ``torch.stft``); each kernel's bound from the bytes and operations of
+   its shapes, timed plain, library, kernel, kernel, library, plain; the
+   STFT wrapper's host time per call; device times of K2 and of
+   ``torch.stft`` on one 30 s clip and at 64 x 30 s, and of K2m;
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -124,6 +134,47 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 1000, runs: int = 5) -> float:
+    """Host microseconds per call of ``fn()``: the median over ``runs`` runs
+    of ``calls`` calls that are not synchronised (the enqueue cost), each
+    run after a synchronised warm-up. The host's cores are shared, so single
+    runs vary by tens of percent."""
+    per_run = []
+    for _ in range(runs):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_run.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return statistics.median(per_run)
+
+
+def kernel_device_ms(fn, kernel: str | None, calls: int = 20) -> float:
+    """Device time (ms) per call of ``fn()`` over ``calls`` calls, from
+    ``torch.profiler``: of the launches of ``kernel`` (each call launches it
+    once), or of every device operation the call runs when ``kernel`` is
+    None (a library call). The host path, which the CUDA-event time of one
+    small call includes, is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and (kernel is None or re.search(rf"::{kernel}[<(]", e.name))]
+    if kernel is not None:
+        check(len(us) == calls, f"the profiler saw {len(us)} launches of {kernel}, expected {calls}")
+    return sum(us) / 1e3 / calls
+
+
 def environment() -> str:
     phase("1. environment")
     if not torch.cuda.is_available():
@@ -150,9 +201,50 @@ def build() -> None:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s) "
           f"in {_build.build_info['dir']}")
-    for ln in _build.build_info.get("log", "").splitlines():
+    log = _build.build_info.get("log", "")
+    for ln in log.splitlines():
         if re.search(r"Function properties|registers|spill", ln):
             print("  ptxas:", ln.strip())
+    stft_occupancy(log)
+
+
+def ptxas_stft(log: str) -> dict:
+    """ptxas's registers and spill bytes of each K2/K2m instance, keyed by
+    (kernel name, log2 of the complex FFT size)."""
+    rows, entry, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*stft_kernelI(6float2|f)Li(\d+)E", ln)
+        if m:
+            entry = ("stft_kernel" if m.group(1) == "6float2" else "stft_mag_kernel", int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), spill)
+            entry, spill = None, 0
+    return rows
+
+
+def stft_occupancy(log: str) -> None:
+    """K2/K2m per FFT size: registers and spill bytes (ptxas), threads,
+    frames per tile, shared memory per block and resident warps per SM at
+    the hop the sizes run with here. Fails on any spill."""
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+
+    rows = ptxas_stft(log)
+    check(len(rows) == 14, f"ptxas reported {len(rows)} K2/K2m instances, expected 14")
+    for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
+        hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
+        g = k2.launch_geometry(n_fft, hop, torch.device("cuda", 0))
+        for name in (k2.KERNEL.name, k2.KERNEL_MAG.name):
+            regs, spill = rows[(name, n_fft.bit_length() - 2)]
+            warps = g["blocks_per_sm"][name] * g["threads"] // 32
+            print(f"  {name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes spilled, "
+                  f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
+                  f"{g['smem_bytes']} B shared per block, {warps} warps per SM")
+            check(spill == 0, f"{name} spills at n_fft {n_fft}")
 
 
 def default_bands() -> list[tuple[int, int, int]]:
@@ -342,6 +434,26 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
               f"K1 rel {e1:.3e}, K2 rel {e2:.3e}, K2m rel {e2m:.3e}, K3 abs {e3:.3e}")
         check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5 and e3 <= 1e-5,
               "a kernel disagrees with its plain twin")
+
+    # K2 and K2m at the edges of their tiling: the smallest size the gate
+    # admits, frame counts that are not whole 16-frame tiles, and odd clip
+    # lengths, whose clip starts are not 16-byte aligned; same limits
+    for n_fft, hop, pad_mode, center, shape in (
+        (128, 128, "constant", True, (3, 5001)),
+        (2048, 512, "reflect", True, (3, 33333)),
+        (1024, 256, "edge", True, (5, 44101)),
+        (4096, 1024, "constant", False, (3, 77777)),
+    ):
+        y = torch.randn(shape, generator=gen, device=dev)
+        w = _get_padded_window("hann", n_fft, n_fft, dev)
+        kwx = dict(n_fft=n_fft, hop_length=hop, center=center, pad_mode=pad_mode)
+        Sx = run(k2.KERNEL, k2.stft_fused, y, w, **kwx)
+        e2 = rel_err(Sx, k2.stft_plain(y, w, **kwx))
+        Mx = run(k2.KERNEL_MAG, k2.stft_magnitude_fused, y, w, **kwx)
+        e2m = rel_err(Mx, k2.stft_magnitude_plain(y, w, **kwx))
+        print(f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape}, {Sx.shape[-1]} frames: "
+              f"K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
+        check(e2 <= 1e-5 and e2m <= 1e-5, "K2/K2m disagree with their plain twins")
     return errs
 
 
@@ -660,6 +772,8 @@ def times(gen: torch.Generator, card: str) -> dict:
         k1.KERNEL.name: (4 * (B1 * L1 + N_FFT + n_bins * N_MELS + B1 * N_MELS * F1),
                          B1 * F1 * (fft_frame + 3 * n_bins + 2 * n_bins * N_MELS)),
         k2.KERNEL.name: (4 * (LONG + N_FFT) + 8 * n_bins * F30, F30 * fft_frame),
+        f"{k2.KERNEL.name}[64 x 30 s]": (4 * (Bf * Lf + N_FFT) + 8 * Bf * n_bins * R,
+                                         Bf * R * fft_frame),
         k2.KERNEL_MAG.name: (4 * (Bf * Lf + N_FFT + Bf * n_bins * R),
                              Bf * R * (fft_frame + 4 * n_bins)),
         k3.KERNEL.name: (8 * n_bins * F30 + 4 * (N_FFT + 2 * T),
@@ -678,6 +792,10 @@ def times(gen: torch.Generator, card: str) -> dict:
         (k2.KERNEL.name, "30 s clip", lambda: k2.stft_fused(y_long, win, **kw),
          lambda: k2.stft_plain(y_long, win, **kw),
          lambda: torch.stft(y_long, N_FFT, HOP, window=win, center=True, pad_mode="constant",
+                            return_complex=True)),
+        (f"{k2.KERNEL.name}[64 x 30 s]", "64 x 30 s", lambda: k2.stft_fused(y_feat, win, **kw),
+         lambda: k2.stft_plain(y_feat, win, **kw),
+         lambda: torch.stft(y_feat, N_FFT, HOP, window=win, center=True, pad_mode="constant",
                             return_complex=True)),
         (k2.KERNEL_MAG.name, "64 x 30 s", lambda: k2.stft_magnitude_fused(y_feat, win, **kw),
          lambda: k2.stft_magnitude_plain(y_feat, win, **kw), None),
@@ -699,11 +817,33 @@ def times(gen: torch.Generator, card: str) -> dict:
          lambda: [k5.quantile_extreme_means_fused(v, k, k) for v, k in bands],
          lambda: [k5.quantile_extreme_means_plain(v, k, k) for v, k in bands], None),
     )
+    # the STFT wrapper's host cost: 1000 calls on a 1 s clip, no sync; and
+    # K2's device time on one 30 s clip, where the CUDA-event time of a call
+    # is mostly its host path
+    y_1s = y_head[:1].contiguous()
+    print(f"K2 wrapper host path: {host_us(lambda: k2.stft_fused(y_1s, win, **kw)):.2f} us per call "
+          f"(median of 5 runs of 1000 calls of a 1 s clip, no sync)")
+    def lib_stft(y):
+        return torch.stft(y, N_FFT, HOP, window=win, center=True, pad_mode="constant",
+                          return_complex=True)
+
+    for label, y, calls in (("one 30 s clip", y_long, 20), ("64 x 30 s", y_feat, 5)):
+        print(f"device time per call, {label} (torch.profiler, {calls} calls): K2 "
+              f"{kernel_device_ms(lambda: k2.stft_fused(y, win, **kw), 'stft_kernel', calls):.4f} ms, "
+              f"torch.stft {kernel_device_ms(lambda: lib_stft(y), None, calls):.4f} ms (all its "
+              f"device operations)")
+    print(f"K2m device time, 64 x 30 s (torch.profiler, 5 calls): "
+          f"{kernel_device_ms(lambda: k2.stft_magnitude_fused(y_feat, win, **kw), 'stft_kernel', 5):.4f} ms")
     out = {}
     for name, shape, kern, twin, lib in cases:
-        p_a, k_a, k_b, p_b = cuda_ms(twin), cuda_ms(kern), cuda_ms(kern), cuda_ms(twin)
-        lib_ms = cuda_ms(lib) if lib is not None else None
-        bound_ms, bound_by = _bound(*work[name.split("[")[0]])
+        # in turns, so that a slow spell of the shared host falls on all three
+        p_a = cuda_ms(twin)
+        l_a = cuda_ms(lib) if lib is not None else None
+        k_a, k_b = cuda_ms(kern), cuda_ms(kern)
+        l_b = cuda_ms(lib) if lib is not None else None
+        p_b = cuda_ms(twin)
+        lib_ms = statistics.median([l_a, l_b]) if lib is not None else None
+        bound_ms, bound_by = _bound(*(work.get(name) or work[name.split("[")[0]]))
         print(f"{name} at {shape}: kernel {k_a:.4f} / {k_b:.4f}, plain {p_a:.4f} / {p_b:.4f}, "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}, "
               f"bound {bound_ms:.4f} ({bound_by})")
@@ -768,7 +908,28 @@ def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
               ", ".join(f"{n.split('::')[1].split('(')[0]} {us / 1e3:.4f}" for _, n, us in first))
 
 
+def host_path(root: str) -> None:
+    """``--host-path ROOT``: the K2 wrapper's host time per call (as in phase
+    5) for the port package under ``ROOT``, such as an unpacked earlier
+    commit, so two wrappers can be compared in one run on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
+
+    dev = torch.device("cuda", 0)
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    y = torch.randn((1, SR), generator=torch.Generator(device="cuda").manual_seed(0), device=dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    us = host_us(lambda: k2.stft_fused(y, win, **kw))
+    print(f"K2 wrapper host path of {os.path.dirname(k2.__file__)}: {us:.2f} us per call "
+          f"(median of 5 runs of 1000 calls of a 1 s clip, no sync)")
+
+
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--host-path":
+        host_path(sys.argv[2])
+        return
     card = environment()
     build()
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -190,4 +190,330 @@ static inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// ---------------------------------------------------------------------------
+// Register-resident front end (K2; K1 and K3 keep frames_fft / fft_inplace).
+//
+// The complex FFT of M = 2^log_m points runs as a few in-place
+// decimation-in-frequency passes. A group of T = M / kRegPoints threads owns
+// one frame; each thread holds kRegPoints points in registers, and a pass of
+// radix R = 2^b does kRegPoints / R radix-R butterflies per thread in
+// registers (compile-time W_16 constants). Pass p reads its points at
+// stride S_p = M >> (bits of passes 0..p), transforms them, multiplies output
+// q of butterfly i by W_{R*S_p}^{i*q} (per-pass tables staged from the
+// float64-built host table, stage_twiddles) and writes them back to the
+// positions it read: each exchange between passes is one write, one
+// barrier of the threads that own the frame, one read. The first pass reads
+// the windowed frame straight from the staged signal segment, so nothing is
+// scattered; the transform ends in mixed-radix digit-reversed order, which
+// the emit undoes in its read index (rdigit_rev).
+// tests/test_torch_port_stft_plan.py models these index maps in NumPy.
+//
+// Frame buffer layout: point p of a frame at rpidx(p) = p + p/16 (one float2
+// of padding per 16 points), frames rframe_stride(M) apart (an odd number of
+// float2, so the emit's reads of 16 frames fall on distinct banks).
+constexpr int kRegBits = 4;
+constexpr int kRegPoints = 1 << kRegBits;
+
+static __host__ __device__ constexpr int plan_passes(int log_m) {
+  return (log_m + kRegBits - 1) / kRegBits;
+}
+
+// radix bits of pass p: the log_m bits spread as evenly as the passes allow,
+// larger radices last (log_m 10: 3, 3, 4). The last pass has stride 1 and
+// no twiddles, so the pass that holds all 16 of a thread's points at once
+// loads no twiddle beside them (64 registers, no spill, at n_fft 2048).
+static __host__ __device__ constexpr int plan_bits(int log_m, int p) {
+  return log_m / plan_passes(log_m) +
+         (p >= plan_passes(log_m) - log_m % plan_passes(log_m) ? 1 : 0);
+}
+
+// bits consumed by passes 0..p: pass p's stride is M >> plan_shift(log_m, p)
+static __host__ __device__ constexpr int plan_shift(int log_m, int p) {
+  int s = 0;
+  for (int q = 0; q <= p; ++q) s += plan_bits(log_m, q);
+  return s;
+}
+
+static __host__ __device__ constexpr int brev_bits(int x, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((x >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+static __host__ __device__ __forceinline__ int rpidx(int p) { return p + (p >> 4); }
+
+static __host__ __device__ constexpr int rframe_stride(int m) { return m + (m >> 4) + 1; }
+
+// exp(-2*pi*i*j/16), j in [0, 8): the in-radix constants, float64 values
+// rounded once to float
+static __device__ __forceinline__ float2 w16(int j) {
+  constexpr float c1 = 0.92387953251128674f, c2 = 0.70710678118654752f,
+                  c3 = 0.38268343236508977f;
+  switch (j) {
+    case 0: return make_float2(1.f, 0.f);
+    case 1: return make_float2(c1, -c3);
+    case 2: return make_float2(c2, -c2);
+    case 3: return make_float2(c3, -c1);
+    case 4: return make_float2(0.f, -1.f);
+    case 5: return make_float2(-c3, -c1);
+    case 6: return make_float2(-c2, -c2);
+    default: return make_float2(-c1, -c3);
+  }
+}
+
+// In-register DFT of the R = 2^B <= 16 points v[O .. O+R-1], natural order
+// in and out: a radix-2 DIF network (stage ST pairs points h = R >> (ST+1)
+// apart, W_{2h}^j = W_16^{j*8/h}), then a bit-reversal. The network, the
+// reversal and every other walk over a thread's points below are template
+// recursions, so each index into v is a compile-time constant and v stays
+// in registers (a rolled loop would put it in local memory).
+template <int B, int O, int ST = 0, int X = 0>
+static __device__ __forceinline__ void dif_network(float2 (&v)[kRegPoints]) {
+  constexpr int R = 1 << B;
+  if constexpr (ST < B && X < R / 2) {
+    constexpr int h = R >> (ST + 1);
+    constexpr int j = X & (h - 1);
+    constexpr int lo = O + 2 * (X - j) + j;  // block X / h of 2h points, offset j
+    constexpr int e = j * (8 >> (B - 1 - ST));
+    const float2 a = v[lo], b = v[lo + h];
+    const float2 d = csub(a, b);
+    v[lo] = cadd(a, b);
+    if constexpr (e == 0)
+      v[lo + h] = d;
+    else if constexpr (e == 4)
+      v[lo + h] = make_float2(d.y, -d.x);
+    else
+      v[lo + h] = cmul(d, w16(e));
+    dif_network<B, O, ST, X + 1>(v);
+  } else if constexpr (ST + 1 < B) {
+    dif_network<B, O, ST + 1, 0>(v);
+  }
+}
+
+template <int B, int O, int Q = 0>
+static __device__ __forceinline__ void brev_copy(float2 (&v)[kRegPoints], const float2 (&t)[1 << B]) {
+  if constexpr (Q < (1 << B)) {
+    constexpr int src = brev_bits(Q, B);
+    v[O + Q] = t[src];
+    brev_copy<B, O, Q + 1>(v, t);
+  }
+}
+
+template <int B, int O, int Q = 0>
+static __device__ __forceinline__ void take(float2 (&t)[1 << B], const float2 (&v)[kRegPoints]) {
+  if constexpr (Q < (1 << B)) {
+    t[Q] = v[O + Q];
+    take<B, O, Q + 1>(t, v);
+  }
+}
+
+template <int B, int O>
+static __device__ __forceinline__ void dft_regs(float2 (&v)[kRegPoints]) {
+  dif_network<B, O>(v);
+  float2 t[1 << B];
+  take<B, O>(t, v);
+  brev_copy<B, O>(v, t);
+}
+
+// W_M^j for 0 <= j < M from the host table tw[e] = W_N^e, e = 0..M (N = 2M):
+// W_M^j = W_N^{2j}, and W_N^e = -W_N^{e-M} past the half circle (exact)
+static __device__ __forceinline__ float2 w_m_from_host(const float2* __restrict__ tw, int j,
+                                                       int m) {
+  const int e = 2 * j;
+  if (e <= m) return tw[e];
+  const float2 w = tw[e - m];
+  return make_float2(-w.x, -w.y);
+}
+
+// Position of point r of the c-th butterfly of thread t in pass PASS:
+// butterfly u = t + c*T, block u / S, offset i = u % S, point r at stride S
+template <int LOG_M, int PASS>
+static __device__ __forceinline__ int rpass_pos(int t, int c, int r) {
+  constexpr int LOG_S = LOG_M - plan_shift(LOG_M, PASS);
+  constexpr int T = (1 << LOG_M) >> kRegBits;
+  const int u = t + c * T;
+  return ((u >> LOG_S) << (LOG_S + plan_bits(LOG_M, PASS))) + (u & ((1 << LOG_S) - 1)) +
+         (r << LOG_S);
+}
+
+// rpidx(rpass_pos(t, c, r)): where the stride is a multiple of 16 the
+// padding of point r is a constant offset from point 0's
+template <int LOG_M, int PASS>
+static __device__ __forceinline__ int rpass_addr(int t, int c, int r) {
+  constexpr int S = 1 << (LOG_M - plan_shift(LOG_M, PASS));
+  if constexpr (S % 16 == 0)
+    return rpidx(rpass_pos<LOG_M, PASS>(t, c, 0)) + r * (S + S / 16);
+  else
+    return rpidx(rpass_pos<LOG_M, PASS>(t, c, r));
+}
+
+// The twiddles of pass p, W_{R*S}^{i*q} = W_M^{i*q*M/(R*S)} for q = 1..R-1
+// and i < S, staged as table[(q-1)*S + i] at offset rtw_offset(log_m, p) of
+// one shared array (fewer than M entries in all): lanes with consecutive i
+// read consecutive words, so the reads are free of bank conflicts
+static __host__ __device__ constexpr int rtw_size(int log_m, int p) {
+  return ((1 << plan_bits(log_m, p)) - 1) * ((1 << log_m) >> plan_shift(log_m, p));
+}
+
+static __host__ __device__ constexpr int rtw_offset(int log_m, int p) {
+  int o = 0;
+  for (int q = 0; q < p; ++q) o += rtw_size(log_m, q);
+  return o;
+}
+
+// Stage the tables of passes PASS.. from the host table (threads tid of nt)
+template <int LOG_M, int PASS = 0>
+static __device__ __forceinline__ void stage_twiddles(float2* twp,
+                                                      const float2* __restrict__ tw_host,
+                                                      int tid, int nt) {
+  if constexpr (PASS < plan_passes(LOG_M)) {
+    constexpr int M = 1 << LOG_M;
+    constexpr int LOG_S = LOG_M - plan_shift(LOG_M, PASS);
+    constexpr int STEP = M >> (LOG_S + plan_bits(LOG_M, PASS));
+    float2* table = twp + rtw_offset(LOG_M, PASS);
+    for (int x = tid; x < rtw_size(LOG_M, PASS); x += nt)
+      table[x] = w_m_from_host(tw_host, (x & ((1 << LOG_S) - 1)) * ((x >> LOG_S) + 1) * STEP, M);
+    stage_twiddles<LOG_M, PASS + 1>(twp, tw_host, tid, nt);
+  }
+}
+
+// v[O + q] *= table[(q-1)*S + i] for q = Q .. R-1
+template <int S, int O, int Q, int R>
+static __device__ __forceinline__ void rtwiddle(float2 (&v)[kRegPoints], const float2* table,
+                                                int i) {
+  if constexpr (Q < R) {
+    v[O + Q] = cmul(v[O + Q], table[(Q - 1) * S + i]);
+    rtwiddle<S, O, Q + 1, R>(v, table, i);
+  }
+}
+
+// Butterfly C of pass PASS on the thread's registers v[C*R .. C*R+R-1]:
+// the radix-R DFT, then output q times W_{R*S}^{i*q}. Every pass has radix
+// 8 or 16 (plan_bits >= 3 for log_m >= 6), so a thread does one or two
+// butterflies per pass, and each is a separate force-inlined instance:
+// register arrays indexed with template constants stay in registers.
+template <int LOG_M, int PASS, int C>
+static __device__ __forceinline__ void rbutterfly(float2 (&v)[kRegPoints], const float2* twp,
+                                                  int t) {
+  constexpr int M = 1 << LOG_M;
+  constexpr int R = 1 << plan_bits(LOG_M, PASS);
+  constexpr int S = M >> plan_shift(LOG_M, PASS);
+  constexpr int T = M >> kRegBits;
+  static_assert(R == 8 || R == 16, "passes are radix 8 or 16");
+  dft_regs<plan_bits(LOG_M, PASS), C * R>(v);
+  if constexpr (S > 1)
+    rtwiddle<S, C * R, 1, R>(v, twp + rtw_offset(LOG_M, PASS), (t + C * T) & (S - 1));
+}
+
+// Load (STORE false) or store the points of butterfly C of pass PASS
+// between the thread's registers and the frame at fb
+template <int LOG_M, int PASS, int C, bool STORE, int RI = 0>
+static __device__ __forceinline__ void rmove(float2 (&v)[kRegPoints], float2* fb, int t) {
+  constexpr int R = 1 << plan_bits(LOG_M, PASS);
+  if constexpr (RI < R) {
+    float2& x = fb[rpass_addr<LOG_M, PASS>(t, C, RI)];
+    if constexpr (STORE)
+      x = v[C * R + RI];
+    else
+      v[C * R + RI] = x;
+    rmove<LOG_M, PASS, C, STORE, RI + 1>(v, fb, t);
+  }
+}
+
+// Barrier of one group of GT threads that owns whole frames: named barrier
+// 1 + g (0 is __syncthreads'), or the whole block when GT is 0. The passes
+// of a frame exchange points only among its own threads, so groups run
+// their passes without waiting for each other.
+template <int GT>
+static __device__ __forceinline__ void group_sync(int g) {
+  if constexpr (GT == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(GT) : "memory");
+}
+
+// Passes PASS.. of the frame at fb (frame buffer layout above); each reads
+// what the previous pass wrote, behind a group barrier; the last pass ends
+// without one. A butterfly is loaded, transformed and stored before the
+// next one is loaded (its points are its own in this pass), so one
+// butterfly's points are live at a time.
+template <int LOG_M, int PASS, int C>
+static __device__ __forceinline__ void rstep(float2 (&v)[kRegPoints], float2* fb,
+                                             const float2* twp, int t) {
+  rmove<LOG_M, PASS, C, false>(v, fb, t);
+  rbutterfly<LOG_M, PASS, C>(v, twp, t);
+  rmove<LOG_M, PASS, C, true>(v, fb, t);
+}
+
+template <int LOG_M, int PASS, int GT>
+static __device__ __forceinline__ void rexchange_passes(float2* fb, float2 (&v)[kRegPoints],
+                                                        const float2* twp, int t, int g) {
+  if constexpr (PASS < plan_passes(LOG_M)) {
+    group_sync<GT>(g);
+    rstep<LOG_M, PASS, 0>(v, fb, twp, t);
+    if constexpr (plan_bits(LOG_M, PASS) < kRegBits) rstep<LOG_M, PASS, 1>(v, fb, twp, t);
+    rexchange_passes<LOG_M, PASS + 1, GT>(fb, v, twp, t, g);
+  }
+}
+
+// Where bin k (0 <= k < M) of the transform sits after the last pass: its
+// mixed-radix digits, least significant first, are the passes' output
+// indices q_p, and q_p sits at stride S_p. All radices are powers of two,
+// so this is a permutation of k's bits: rdigit_rev(a + b) =
+// rdigit_rev(a) + rdigit_rev(b) when a and b share no bit.
+static __host__ __device__ constexpr int rdigit_rev(int log_m, int k) {
+  int p = 0;
+  for (int j = 0; j < plan_passes(log_m); ++j) {
+    p += (k & ((1 << plan_bits(log_m, j)) - 1)) << (log_m - plan_shift(log_m, j));
+    k >>= plan_bits(log_m, j);
+  }
+  return p;
+}
+
+// Asynchronous copies from device to shared memory (cp.async, sm_80+)
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage samples s0 .. s0+len-1 of the clip yb (length L, NumPy padding
+// outside it) in seg; return the offset in seg at which sample s0 sits.
+// A segment inside the clip goes by cp.async: a 16-byte-aligned body and
+// scalar head and tail, the shared copy shifted so that both sides share
+// their alignment (seg must hold len + 3 floats). A segment that touches
+// the clip's edges is staged with plain loads through padded_sample. The
+// caller makes the copy visible: cp_async_wait_all(), then a barrier.
+static __device__ __forceinline__ int stage_segment(const float* __restrict__ yb, long long L,
+                                                    long long s0, int len, int mode,
+                                                    float* seg, int tid, int nt) {
+  if (s0 < 0 || s0 + len > L) {
+    for (int i = tid; i < len; i += nt) seg[i] = padded_sample(yb, L, s0 + i, mode);
+    return 0;
+  }
+  const float* g = yb + s0;
+  const int mis = static_cast<int>((reinterpret_cast<size_t>(g) >> 2) & 3);  // floats past 16 B
+  const int head = (4 - mis) & 3;
+  const int n16 = (len - head) >> 2;
+  const int tail = len - head - 4 * n16;
+  float* d = seg + mis;
+  if (tid < head) cp_async4(d + tid, g + tid);
+  for (int i = tid; i < n16; i += nt) cp_async16(d + head + 4 * i, g + head + 4 * i);
+  if (tid < tail) cp_async4(d + head + 4 * n16 + tid, g + head + 4 * n16 + tid);
+  cp_async_commit();
+  return mis;
+}
+
 }  // namespace mapt

@@ -218,5 +218,9 @@ class _PlainBackward(torch.autograd.Function):
 def with_plain_backward(launch: Callable, plain: Callable, *tensors: torch.Tensor,
                         **kwargs) -> torch.Tensor:
     """``launch(*tensors, **kwargs)``, differentiated as
-    ``plain(*tensors, **kwargs)``: no backward kernels."""
-    return _PlainBackward.apply(launch, plain, kwargs, *tensors)
+    ``plain(*tensors, **kwargs)``: no backward kernels. Without a gradient
+    to record (grad mode off, or no input requires one) the launch runs
+    directly, without the autograd ``Function``'s per-call cost."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _PlainBackward.apply(launch, plain, kwargs, *tensors)
+    return launch(*tensors, **kwargs)

@@ -2,23 +2,26 @@
 their plain twins.
 
 Counterpart of `mlx_audio_primitives_tpu/kernels/stft_radix.py` (the module
-keeps that name so the two are easy to pair; the port's kernel is a plain
-radix-2 FFT, not the TPU's radix-decimated DFT): ``(B, L)`` signal and
-padded window -> complex64 ``(B, n_bins, F)``.
+keeps that name so the two are easy to pair; the port's kernel is a
+register-resident FFT, not the TPU's radix-decimated DFT): ``(B, L)``
+signal and padded window -> complex64 ``(B, n_bins, F)``.
 
 Source note (`csrc/stft.cu`, ``stft_kernel``). Replaces ``stft_pallas``:
 both TPU cores, the grouped emit (``pallas_call`` in ``_stft_radix_core``)
 and the transposed emit (``pallas_call`` in ``_stft_radix_core_t``), and
 the gathers that naturalize their layouts, become one kernel that writes
-natural bin order. Staging, padding, windowing and the shared-memory FP32
-FFT are K1's (`csrc/fft_common.cuh::frames_fft`); each bin goes to the
-output interleaved (re, im), which ``torch.view_as_real`` of the complex64
-output receives. What bounds it on this card: the FFT's shared-memory
-butterflies (5*n_fft*log2(n_fft) flops per frame, each stage a pass over
-shared memory between barriers) and the output write, 8 bytes per bin per
-frame, 4x the input it reads. The design reads the input once per tile
-and writes each bin once, frames fastest across threads so neighbouring
-threads store neighbouring addresses.
+natural bin order; each bin goes to the output interleaved (re, im), which
+``torch.view_as_real`` of the complex64 output receives. What bounds it on
+this card: the output write, 8 bytes per bin per frame, 4x the input it
+reads, against 2.5*n_fft*log2(n_fft) flops per frame. The design keeps the
+FFT off the critical path of the stores: the register-resident front end
+of `csrc/fft_common.cuh` (16 points per thread, in-place radix-8/16
+passes, one shared-memory exchange and one barrier of the frame's threads
+between passes, per-pass twiddle tables staged once per block from the
+float64 host table), 16-frame tiles stored frames fastest, and a
+persistent grid whose blocks copy the next tile's signal segment with
+``cp.async`` while the current one is stored.
+`tests/test_torch_port_stft_plan.py` models the passes' index maps.
 
 K2m (``stft_mag_kernel``, the same source) replaces
 ``stft_magnitude_pallas``, which reaches the same two TPU cores and
@@ -31,12 +34,14 @@ against ~5 GFLOP of FFT, 0.08 ms at the FP32 peak.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .._config import COMPLEX_DTYPE
 from ..ops._frames import windowed_frames
 from ..utils.dispatch import on_cuda, radix_shape_ok
-from ._build import I32, I64, MAX_BATCH, Kernel, P, register, require, with_plain_backward
+from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 from .mel_fused import PAD_CODES
 
@@ -55,6 +60,21 @@ KERNEL_MAG = register(Kernel(
     # stft_magnitude_pallas (:128) reaches the pallas_calls at :624 and :390
     replaces="mlx_audio_primitives_tpu/kernels/stft_radix.py:128",
 ))
+
+
+def launch_geometry(n_fft: int, hop_length: int, device: torch.device) -> dict:
+    """K2/K2m's launch at ``(n_fft, hop_length)`` on a CUDA ``device``:
+    threads per block, frames per tile, dynamic shared memory per block
+    (bytes) and resident blocks per SM of each emit."""
+    fn = library().stft_geometry
+    fn.argtypes = [I32, I32, I32, P]
+    fn.restype = I32
+    info = (ctypes.c_int * 5)()
+    err = fn(n_fft, hop_length, device.index, ctypes.cast(info, P))
+    if err != 0:
+        raise RuntimeError(f"stft_geometry failed: CUDA error {err}")
+    return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
+                blocks_per_sm={KERNEL.name: info[3], KERNEL_MAG.name: info[4]})
 
 
 def stft_plain(
@@ -90,14 +110,11 @@ def _launcher(kernel: Kernel, dtype: torch.dtype):
         if win.shape[0] != n_fft:
             raise ValueError(f"{kernel.name} needs a ({n_fft},) window, got {tuple(win.shape)}")
         B, L = y.shape
-        if B > MAX_BATCH:
-            raise ValueError(f"{kernel.name} takes at most {MAX_BATCH} clips, got {B}")
         pad = n_fft // 2 if center else 0
         F = 1 + (L + 2 * pad - n_fft) // hop_length
         tw = rfft_twiddles(n_fft, device=y.device)
         out = torch.empty((B, n_fft // 2 + 1, F), dtype=dtype, device=y.device)
-        out_ptr = (torch.view_as_real(out) if out.is_complex() else out).data_ptr()
-        kernel.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), out_ptr,
+        kernel.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), out.data_ptr(),
                       B, n_fft, hop_length, F, pad, PAD_CODES[pad_mode])
         return out
 
