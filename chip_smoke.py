@@ -4,21 +4,22 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --host-path DIR`` prints only the STFT wrapper's host
 time per call for the port package under DIR (an unpacked earlier commit,
-say), for comparing two wrappers on one card.
+say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
+prints only phase 5's device times of K1 and K2m.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
-   source, all at once (timed); for each K2/K2m instance, ptxas's registers
-   and spill bytes (a spill fails the run), its threads, frames per tile,
-   shared memory per block and resident warps per SM;
+   source, all at once (timed); for each K1/K2/K2m instance, ptxas's
+   registers and spill bytes (a spill fails the run), its threads, frames
+   per tile, shared memory per block and resident warps per SM;
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
-   ``istft_fused_t`` / ``istft_fused_nat``; K2/K2m also at the smallest
+   ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
-   lengths);
+   lengths, K1 at column counts around its 16-column tiles);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -35,9 +36,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    each kernel alone against its plain twin and, where one PyTorch call
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
-   its shapes, timed plain, library, kernel, kernel, library, plain; the
-   STFT wrapper's host time per call; device times of K2 and of
-   ``torch.stft`` on one 30 s clip and at 64 x 30 s, and of K2m;
+   its shapes (K1's contraction as three TF32 tensor-core products), timed
+   plain, library, kernel, kernel, library, plain; the STFT wrapper's host
+   time per call; device times of K2 and of ``torch.stft`` on one 30 s
+   clip and at 64 x 30 s, of K2m, and of K1 beside K2m on the same clips
+   at the scale configuration and at 64 x 30 s;
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -73,6 +76,7 @@ N_ORACLE = 4  # clips of the feature path held against the float64 oracle
 # Published H100 SXM peaks (NVIDIA data sheet) for each kernel's bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 
 #: the kernels each public path must launch
 LOG_MEL_PATH = ("mel_fused_kernel", "stft_kernel", "istft_kernel", "overlap_add_kernel")
@@ -205,17 +209,20 @@ def build() -> None:
     for ln in log.splitlines():
         if re.search(r"Function properties|registers|spill", ln):
             print("  ptxas:", ln.strip())
-    stft_occupancy(log)
+    fft_occupancy(log)
 
 
-def ptxas_stft(log: str) -> dict:
-    """ptxas's registers and spill bytes of each K2/K2m instance, keyed by
-    (kernel name, log2 of the complex FFT size)."""
+def ptxas_rows(log: str) -> dict:
+    """ptxas's registers and spill bytes of each K1/K2/K2m instance, keyed
+    by (kernel name, log2 of the complex FFT size)."""
+    names = {"mel_fused_kernelI": "mel_fused_kernel", "stft_kernelI6float2": "stft_kernel",
+             "stft_kernelIf": "stft_mag_kernel"}
     rows, entry, spill = {}, None, 0
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*stft_kernelI(6float2|f)Li(\d+)E", ln)
+        m = re.search(r"Compiling entry function '\S*?(mel_fused_kernelI|stft_kernelI6float2|"
+                      r"stft_kernelIf)Li(\d+)E", ln)
         if m:
-            entry = ("stft_kernel" if m.group(1) == "6float2" else "stft_mag_kernel", int(m.group(2)))
+            entry = (names[m.group(1)], int(m.group(2)))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and entry:
@@ -227,23 +234,27 @@ def ptxas_stft(log: str) -> dict:
     return rows
 
 
-def stft_occupancy(log: str) -> None:
-    """K2/K2m per FFT size: registers and spill bytes (ptxas), threads,
-    frames per tile, shared memory per block and resident warps per SM at
-    the hop the sizes run with here. Fails on any spill."""
+def fft_occupancy(log: str) -> None:
+    """K1, K2 and K2m per FFT size: registers and spill bytes (ptxas),
+    threads, frames per tile, shared memory per block and resident warps per
+    SM at the hop the sizes run with here. Fails on any spill."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
 
-    rows = ptxas_stft(log)
-    check(len(rows) == 14, f"ptxas reported {len(rows)} K2/K2m instances, expected 14")
+    rows = ptxas_rows(log)
+    check(len(rows) == 21, f"ptxas reported {len(rows)} K1/K2/K2m instances, expected 21")
+    dev = torch.device("cuda", 0)
     for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
         hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
-        g = k2.launch_geometry(n_fft, hop, torch.device("cuda", 0))
-        for name in (k2.KERNEL.name, k2.KERNEL_MAG.name):
+        g2 = k2.launch_geometry(n_fft, hop, dev)
+        g1 = k1.launch_geometry(n_fft, hop, dev)
+        for name, g, per_sm in ((k1.KERNEL.name, g1, g1["blocks_per_sm"]),
+                                (k2.KERNEL.name, g2, g2["blocks_per_sm"][k2.KERNEL.name]),
+                                (k2.KERNEL_MAG.name, g2, g2["blocks_per_sm"][k2.KERNEL_MAG.name])):
             regs, spill = rows[(name, n_fft.bit_length() - 2)]
-            warps = g["blocks_per_sm"][name] * g["threads"] // 32
             print(f"  {name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes spilled, "
                   f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
-                  f"{g['smem_bytes']} B shared per block, {warps} warps per SM")
+                  f"{g['smem_bytes']} B shared per block, {per_sm * g['threads'] // 32} warps per SM")
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
 
 
@@ -403,7 +414,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
-    # that are not whole 128-column tiles; same limits
+    # that are not whole 16-column m-tiles; same limits
     for n_fft, hop, pad_mode, center, shape, n_cols in (
         (256, 128, "constant", True, (3, 5000), 40),
         (512, 128, "reflect", True, (2, 20000), 200),
@@ -435,25 +446,31 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5 and e3 <= 1e-5,
               "a kernel disagrees with its plain twin")
 
-    # K2 and K2m at the edges of their tiling: the smallest size the gate
-    # admits, frame counts that are not whole 16-frame tiles, and odd clip
-    # lengths, whose clip starts are not 16-byte aligned; same limits
-    for n_fft, hop, pad_mode, center, shape in (
-        (128, 128, "constant", True, (3, 5001)),
-        (2048, 512, "reflect", True, (3, 33333)),
-        (1024, 256, "edge", True, (5, 44101)),
-        (4096, 1024, "constant", False, (3, 77777)),
+    # K1, K2 and K2m at the edges of their tiling: the smallest size the
+    # gate admits, frame counts that are not whole 16-frame tiles, and odd
+    # clip lengths, whose clip starts are not 16-byte aligned; K1 with
+    # column counts around its 16-column m-tiles (2, the moments weight's;
+    # 17 and 129, one past an m-tile and past 128); same limits
+    for n_fft, hop, pad_mode, center, shape, n_cols in (
+        (128, 128, "constant", True, (3, 5001), 2),
+        (2048, 512, "reflect", True, (3, 33333), 17),
+        (1024, 256, "edge", True, (5, 44101), 129),
+        (4096, 1024, "constant", False, (3, 77777), 2),
     ):
         y = torch.randn(shape, generator=gen, device=dev)
         w = _get_padded_window("hann", n_fft, n_fft, dev)
+        fbt = torch.rand((n_fft // 2 + 1, n_cols), generator=gen, device=dev)
         kwx = dict(n_fft=n_fft, hop_length=hop, center=center, pad_mode=pad_mode)
+        got = run(k1.KERNEL, k1.melspectrogram_fused, y, w, fbt, **kwx)
+        e1 = rel_err(got, k1.melspectrogram_plain(y, w, fbt, **kwx))
         Sx = run(k2.KERNEL, k2.stft_fused, y, w, **kwx)
         e2 = rel_err(Sx, k2.stft_plain(y, w, **kwx))
         Mx = run(k2.KERNEL_MAG, k2.stft_magnitude_fused, y, w, **kwx)
         e2m = rel_err(Mx, k2.stft_magnitude_plain(y, w, **kwx))
         print(f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape}, {Sx.shape[-1]} frames: "
-              f"K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
-        check(e2 <= 1e-5 and e2m <= 1e-5, "K2/K2m disagree with their plain twins")
+              f"K1 ({n_cols} cols) rel {e1:.3e}, K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
+        check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5,
+              "K1/K2/K2m disagree with their plain twins")
     return errs
 
 
@@ -666,16 +683,34 @@ def feature_path(gen: torch.Generator) -> dict:
     return launches
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over the memory rate
-    or FP32 operations over the FP32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the largest of the bytes over
+    the memory rate, the FP32 operations over the FP32 peak and the TF32
+    tensor-core operations over the TF32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / PEAK_FP32_FLOPS, tf32_ops / PEAK_TF32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _rfft_flops(n: int) -> float:
     """A real FFT of n points: 2.5 n log2 n (half a complex FFT's 5 n log2 n)."""
     return 2.5 * n * np.log2(n)
+
+
+def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
+             fb_t: torch.Tensor, kw: dict) -> None:
+    """K1's device time (torch.profiler) at the scale configuration and at
+    64 x 30 s, beside K2m's on the same clips: K2m runs the same FFT front
+    end, so the difference is roughly K1's power rows and contraction."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+
+    for label, y, calls in (("scale (256, 88200)", y_scale, 20), ("64 x 30 s", y_feat, 5)):
+        t1 = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw), k1.KERNEL.name,
+                              calls)
+        t2m = kernel_device_ms(lambda: k2.stft_magnitude_fused(y, win, **kw), "stft_kernel", calls)
+        print(f"device time per call, {label} (torch.profiler, {calls} calls): K1 ({fb_t.shape[1]} "
+              f"cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference {t1 - t2m:.4f} ms")
 
 
 def times(gen: torch.Generator, card: str) -> dict:
@@ -768,9 +803,13 @@ def times(gen: torch.Generator, card: str) -> dict:
     R = 1 + Lf // HOP
     F441 = frames.shape[1]
     fft_frame = N_FFT + _rfft_flops(N_FFT)  # window, then the transform
+    # K1: the FFT, window and power rows in FP32, the contraction as three
+    # TF32 tensor-core products (3xTF32); its FP32-only bound (the
+    # contraction on the CUDA cores) is printed beside it
+    k1_bytes = 4 * (B1 * L1 + N_FFT + n_bins * N_MELS + B1 * N_MELS * F1)
+    k1_contraction = B1 * F1 * 2 * n_bins * N_MELS
     work = {
-        k1.KERNEL.name: (4 * (B1 * L1 + N_FFT + n_bins * N_MELS + B1 * N_MELS * F1),
-                         B1 * F1 * (fft_frame + 3 * n_bins + 2 * n_bins * N_MELS)),
+        k1.KERNEL.name: (k1_bytes, B1 * F1 * (fft_frame + 3 * n_bins), 3 * k1_contraction),
         k2.KERNEL.name: (4 * (LONG + N_FFT) + 8 * n_bins * F30, F30 * fft_frame),
         f"{k2.KERNEL.name}[64 x 30 s]": (4 * (Bf * Lf + N_FFT) + 8 * Bf * n_bins * R,
                                          Bf * R * fft_frame),
@@ -834,6 +873,7 @@ def times(gen: torch.Generator, card: str) -> dict:
               f"device operations)")
     print(f"K2m device time, 64 x 30 s (torch.profiler, 5 calls): "
           f"{kernel_device_ms(lambda: k2.stft_magnitude_fused(y_feat, win, **kw), 'stft_kernel', 5):.4f} ms")
+    k1_split(y_scale, y_feat, win, fb_t, kw)
     out = {}
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three
@@ -844,9 +884,13 @@ def times(gen: torch.Generator, card: str) -> dict:
         p_b = cuda_ms(twin)
         lib_ms = statistics.median([l_a, l_b]) if lib is not None else None
         bound_ms, bound_by = _bound(*(work.get(name) or work[name.split("[")[0]]))
+        extra = ""
+        if name == k1.KERNEL.name:
+            fp32_ms, _ = _bound(k1_bytes, work[name][1] + k1_contraction)
+            extra = f" on the TF32 tensor cores; FP32-only bound {fp32_ms:.4f}"
         print(f"{name} at {shape}: kernel {k_a:.4f} / {k_b:.4f}, plain {p_a:.4f} / {p_b:.4f}, "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}, "
-              f"bound {bound_ms:.4f} ({bound_by})")
+              f"bound {bound_ms:.4f} ({bound_by}{extra})")
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
@@ -926,9 +970,31 @@ def host_path(root: str) -> None:
           f"(median of 5 runs of 1000 calls of a 1 s clip, no sync)")
 
 
+def k1_split_of(root: str) -> None:
+    """``--k1-split ROOT``: phase 5's K1 and K2m device times for the port
+    package under ``ROOT``, such as an unpacked earlier commit."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    print(f"K1 of {os.path.dirname(k1.__file__)}:")
+    k1_split(torch.randn(SCALE, generator=gen, device=dev),
+             torch.randn(FEATURES, generator=gen, device=dev), win, fb_t, kw)
+
+
 def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--host-path":
         host_path(sys.argv[2])
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--k1-split":
+        k1_split_of(sys.argv[2])
         return
     card = environment()
     build()

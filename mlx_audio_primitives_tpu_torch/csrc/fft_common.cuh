@@ -1,6 +1,7 @@
 // Shared device code of the port's FFT kernels (K1 mel_fused, K2 stft,
-// K3 istft_fused): padded signal reads, an in-place FFT over a batch of
-// frames in shared memory, and the real-input split.
+// K3 istft_fused): padded signal reads, the register-resident forward FFT
+// front end of K1 and K2 (below), and K3's in-place FFT over a batch of
+// frames in shared memory with its inverse real-input pack.
 //
 // Real FFT of N points (N a power of two) through one complex FFT of
 // M = N/2 points: z[n] = x[2n] + i*x[2n+1], Z = FFT_M(z), then
@@ -11,7 +12,7 @@
 // tw[k] = exp(-2*pi*i*k/N) for k = 0..N/2, built in float64), so no kernel
 // evaluates a transcendental. Build without --use_fast_math.
 //
-// Shared-memory layout of a frame buffer: point p of frame f sits at
+// K3's frame buffer layout: point p of frame f sits at
 // buf[f * frame_stride(M) + pidx(p)]. pidx inserts one float2 of padding
 // every 32 points, which spreads the bit-reversed and power-of-two-strided
 // accesses of the FFT over the banks.
@@ -21,7 +22,7 @@
 
 namespace mapt {
 
-constexpr int kThreads = 256;  // every FFT kernel runs 256-thread blocks
+constexpr int kThreads = 256;  // K3 runs 256-thread blocks
 
 static __host__ __device__ __forceinline__ int pidx(int p) { return p + (p >> 5); }
 
@@ -128,47 +129,6 @@ static __device__ void fft_inplace(float2* buf, int stride, int nf, int log_m,
   }
 }
 
-// K1 and K2's front end: stage the signal segment of frames f0 .. f0+nf-1
-// ((nf-1)*hop + N samples, centre padding applied on the fly) in `seg`,
-// then window, pack and bit-reverse each frame into `buf` and FFT it.
-// Frame f is the segment at offset f*hop, so framing is index math. Ends
-// with __syncthreads(); `seg` is free afterwards.
-static __device__ void frames_fft(const float* __restrict__ yb, long long L,
-                                  const float* __restrict__ win,
-                                  const float2* __restrict__ tw, float* seg,
-                                  float2* buf, int n_fft, int log_m, int hop,
-                                  long long f0, int pad, int mode, int nf) {
-  const int m = 1 << log_m;
-  const int stride = frame_stride(m);
-  const int seg_len = (nf - 1) * hop + n_fft;
-  const long long s0 = f0 * hop - pad;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < seg_len; i += blockDim.x)
-    seg[i] = padded_sample(yb, L, s0 + i, mode);
-  __syncthreads();
-  for (int i = threadIdx.x; i < (nf << log_m); i += blockDim.x) {
-    const int f = i >> log_m, n = i & (m - 1);
-    const float2 x = *reinterpret_cast<const float2*>(seg + f * hop + 2 * n);  // hop is even
-    buf[f * stride + pidx(bitrev(n, log_m))] =
-        make_float2(win[2 * n] * x.x, win[2 * n + 1] * x.y);
-  }
-  __syncthreads();
-  fft_inplace<false>(buf, stride, nf, log_m, tw, n_fft);
-}
-
-// Bin k (0 <= k <= M) of the real FFT from the packed complex FFT z of
-// one frame (pidx layout).
-static __device__ __forceinline__ float2 rfft_bin(const float2* z, int k, int m,
-                                                  const float2* __restrict__ tw) {
-  const float2 a = z[pidx(k & (m - 1))];
-  const float2 b = z[pidx((m - k) & (m - 1))];
-  const float er = 0.5f * (a.x + b.x), ei = 0.5f * (a.y - b.y);
-  const float dr = 0.5f * (a.x - b.x), di = 0.5f * (a.y + b.y);
-  // O = d / i = (di, -dr); X = E + W * O
-  const float2 o = cmul(tw[k], make_float2(di, -dr));
-  return make_float2(er + o.x, ei + o.y);
-}
-
 // Packed inverse input Z[k] (0 <= k < M) from half-spectrum bins x = X[k],
 // y = X[M-k]; the 1/M of the inverse transform is folded in. The caller has
 // zeroed the imaginary parts of X[0] and X[M] (irfft semantics).
@@ -191,7 +151,7 @@ static inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Register-resident front end (K2; K1 and K3 keep frames_fft / fft_inplace).
+// Register-resident front end (K1 and K2; K3 keeps fft_inplace).
 //
 // The complex FFT of M = 2^log_m points runs as a few in-place
 // decimation-in-frequency passes. A group of T = M / kRegPoints threads owns
@@ -445,14 +405,24 @@ static __device__ __forceinline__ void rstep(float2 (&v)[kRegPoints], float2* fb
   rmove<LOG_M, PASS, C, true>(v, fb, t);
 }
 
-template <int LOG_M, int PASS, int GT>
+// FRESH: take the thread index afresh in each pass (fresh_index), so that
+// no pass's addresses are computed ahead of it and held in registers
+// through the passes before it.
+static __device__ __forceinline__ int fresh_index(int v) {
+  int r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
+template <int LOG_M, int PASS, int GT, bool FRESH = false>
 static __device__ __forceinline__ void rexchange_passes(float2* fb, float2 (&v)[kRegPoints],
                                                         const float2* twp, int t, int g) {
   if constexpr (PASS < plan_passes(LOG_M)) {
     group_sync<GT>(g);
+    if constexpr (FRESH) t = fresh_index(t);
     rstep<LOG_M, PASS, 0>(v, fb, twp, t);
     if constexpr (plan_bits(LOG_M, PASS) < kRegBits) rstep<LOG_M, PASS, 1>(v, fb, twp, t);
-    rexchange_passes<LOG_M, PASS + 1, GT>(fb, v, twp, t, g);
+    rexchange_passes<LOG_M, PASS + 1, GT, FRESH>(fb, v, twp, t, g);
   }
 }
 
@@ -514,6 +484,70 @@ static __device__ __forceinline__ int stage_segment(const float* __restrict__ yb
   if (tid < tail) cp_async4(d + head + 4 * n16 + tid, g + head + 4 * n16 + tid);
   cp_async_commit();
   return mis;
+}
+
+// The tile geometry of K1 and K2 at M = 2^LOG_M complex points, and its
+// shared memory: a block holds FT frame buffers, the passes' twiddle
+// tables and the signal segment of its FT frames.
+constexpr int kSmemLimit = 227 * 1024;
+constexpr int kMaxThreads = 1024;
+
+template <int LOG_M>
+struct Geometry {
+  static constexpr int M = 1 << LOG_M;
+  static constexpr int T = M >> kRegBits;  // threads per frame
+  // at most 1024 threads (64 registers each for one block per SM); from
+  // n_fft 4096 on, 512 (the magnitude emit needs more than 64 registers)
+  static constexpr int MAX_NT = LOG_M >= 11 ? kMaxThreads / 2 : kMaxThreads;
+  static constexpr int FT = (MAX_NT / T) < 16 ? (MAX_NT / T) : 16;  // frames per tile
+  static constexpr int LOG_FT = FT == 16 ? 4 : FT == 8 ? 3 : FT == 4 ? 2 : FT == 2 ? 1 : 0;
+  static constexpr int NT = FT * T;  // threads per block
+  // threads of a barrier group between passes: whole frames, at most 128
+  // threads where a frame allows (so at most 8 named barriers); 0 when the
+  // group is the block
+  static constexpr int GT_ = T > (NT < 128 ? NT : 128) ? T : (NT < 128 ? NT : 128);
+  static constexpr int GT = GT_ == NT ? 0 : GT_;
+  static constexpr int FS = rframe_stride(M);
+  // frame buffers, then the passes' twiddle tables (room for M entries; M
+  // is even, so the segment after it starts 16-byte aligned)
+  static constexpr int TW_OFF = FT * FS;
+  static constexpr int SEG_OFF_BYTES = 8 * ((TW_OFF + M + 1) & ~1);
+  static size_t smem(int hop) {
+    const int seg_cap = ((FT - 1) * hop + 2 * M + 3 + 3) & ~3;
+    return SEG_OFF_BYTES + sizeof(float) * static_cast<size_t>(seg_cap);
+  }
+};
+
+// Pass 0's points of butterfly C, packed and windowed, from the frame at fr
+// in the staged segment (PAIRS: fr is 8-byte aligned, read float2s)
+template <int LOG_M, int C, bool PAIRS, int RI = 0>
+static __device__ __forceinline__ void load_frame(float2 (&v)[kRegPoints], const float* fr,
+                                                  const float2* __restrict__ win2, int t) {
+  constexpr int R0 = 1 << plan_bits(LOG_M, 0);
+  if constexpr (RI < R0) {
+    const int n = rpass_pos<LOG_M, 0>(t, C, RI);
+    const float2 w = __ldg(win2 + n);
+    const float2 x = PAIRS ? reinterpret_cast<const float2*>(fr)[n]
+                           : make_float2(fr[2 * n], fr[2 * n + 1]);
+    v[C * R0 + RI] = make_float2(w.x * x.x, w.y * x.y);
+    load_frame<LOG_M, C, PAIRS, RI + 1>(v, fr, win2, t);
+  }
+}
+
+// Pass 0 of the frame, one butterfly at a time: segment -> registers ->
+// the frame buffer at fb
+template <int LOG_M, bool PAIRS>
+static __device__ __forceinline__ void first_pass(float2 (&v)[kRegPoints], const float* fr,
+                                                  const float2* __restrict__ win2, float2* fb,
+                                                  const float2* twp, int t) {
+  load_frame<LOG_M, 0, PAIRS>(v, fr, win2, t);
+  rbutterfly<LOG_M, 0, 0>(v, twp, t);
+  rmove<LOG_M, 0, 0, true>(v, fb, t);
+  if constexpr (plan_bits(LOG_M, 0) < kRegBits) {
+    load_frame<LOG_M, 1, PAIRS>(v, fr, win2, t);
+    rbutterfly<LOG_M, 0, 1>(v, twp, t);
+    rmove<LOG_M, 0, 1, true>(v, fb, t);
+  }
 }
 
 }  // namespace mapt

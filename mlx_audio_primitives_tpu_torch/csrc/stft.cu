@@ -11,10 +11,11 @@
 // for K2, 4 for K2m; at 64 x 30 s clips two thirds or more of the bytes the
 // function moves) against ~5 GFLOP of FFT, so bytes. The FFT must therefore
 // hide behind the stores, which a shared-memory FFT with a barrier per
-// radix-4 pass (frames_fft, still K1's) did not. The design:
+// radix-4 pass did not. The design, whose front end K1 shares:
 //
-// - the register-resident front end of fft_common.cuh: a group of
-//   T = M/16 threads owns one frame, 16 points per thread; at n_fft 2048 three
+// - the register-resident front end of fft_common.cuh (Geometry,
+//   first_pass, rexchange_passes): a group of T = M/16 threads owns one
+//   frame, 16 points per thread; at n_fft 2048 three
 //   passes (radix 8, 8, 16), three writes to shared memory and four barriers
 //   per tile of frames, no bit-reversed scatter, twiddles from the float64
 //   host table staged in shared memory once per block;
@@ -32,67 +33,6 @@
 #include "fft_common.cuh"
 
 namespace {
-
-constexpr int kSmemLimit = 227 * 1024;
-constexpr int kMaxThreads = 1024;
-
-template <int LOG_M>
-struct Geometry {
-  static constexpr int M = 1 << LOG_M;
-  static constexpr int T = M >> mapt::kRegBits;  // threads per frame
-  // at most 1024 threads (64 registers each for one block per SM); from
-  // n_fft 4096 on, 512 (the magnitude emit needs more than 64 registers)
-  static constexpr int MAX_NT = LOG_M >= 11 ? kMaxThreads / 2 : kMaxThreads;
-  static constexpr int FT = (MAX_NT / T) < 16 ? (MAX_NT / T) : 16;  // frames per tile
-  static constexpr int LOG_FT = FT == 16 ? 4 : FT == 8 ? 3 : FT == 4 ? 2 : FT == 2 ? 1 : 0;
-  static constexpr int NT = FT * T;  // threads per block
-  // threads of a barrier group between passes: whole frames, at most 128
-  // threads where a frame allows (so at most 8 named barriers); 0 when the
-  // group is the block
-  static constexpr int GT_ = T > (NT < 128 ? NT : 128) ? T : (NT < 128 ? NT : 128);
-  static constexpr int GT = GT_ == NT ? 0 : GT_;
-  static constexpr int FS = mapt::rframe_stride(M);
-  // frame buffers, then the passes' twiddle tables (room for M entries; M
-  // is even, so the segment after it starts 16-byte aligned)
-  static constexpr int TW_OFF = FT * FS;
-  static constexpr int SEG_OFF_BYTES = 8 * ((TW_OFF + M + 1) & ~1);
-  static size_t smem(int hop) {
-    const int seg_cap = ((FT - 1) * hop + 2 * M + 3 + 3) & ~3;
-    return SEG_OFF_BYTES + sizeof(float) * static_cast<size_t>(seg_cap);
-  }
-};
-
-// Pass 0's points of butterfly C, packed and windowed, from the frame at fr
-// in the staged segment (PAIRS: fr is 8-byte aligned, read float2s)
-template <int LOG_M, int C, bool PAIRS, int RI = 0>
-__device__ __forceinline__ void load_frame(float2 (&v)[mapt::kRegPoints], const float* fr,
-                                           const float2* __restrict__ win2, int t) {
-  constexpr int R0 = 1 << mapt::plan_bits(LOG_M, 0);
-  if constexpr (RI < R0) {
-    const int n = mapt::rpass_pos<LOG_M, 0>(t, C, RI);
-    const float2 w = __ldg(win2 + n);
-    const float2 x = PAIRS ? reinterpret_cast<const float2*>(fr)[n]
-                           : make_float2(fr[2 * n], fr[2 * n + 1]);
-    v[C * R0 + RI] = make_float2(w.x * x.x, w.y * x.y);
-    load_frame<LOG_M, C, PAIRS, RI + 1>(v, fr, win2, t);
-  }
-}
-
-// Pass 0 of the frame, one butterfly at a time: segment -> registers ->
-// the frame buffer at fb
-template <int LOG_M, bool PAIRS>
-__device__ __forceinline__ void first_pass(float2 (&v)[mapt::kRegPoints], const float* fr,
-                                           const float2* __restrict__ win2, float2* fb,
-                                           const float2* twp, int t) {
-  load_frame<LOG_M, 0, PAIRS>(v, fr, win2, t);
-  mapt::rbutterfly<LOG_M, 0, 0>(v, twp, t);
-  mapt::rmove<LOG_M, 0, 0, true>(v, fb, t);
-  if constexpr (mapt::plan_bits(LOG_M, 0) < mapt::kRegBits) {
-    load_frame<LOG_M, 1, PAIRS>(v, fr, win2, t);
-    mapt::rbutterfly<LOG_M, 0, 1>(v, twp, t);
-    mapt::rmove<LOG_M, 0, 1, true>(v, fb, t);
-  }
-}
 
 // OUT is float2 (complex64, K2) or float (magnitude, K2m)
 template <typename OUT>
@@ -135,13 +75,13 @@ __device__ __forceinline__ void emit_pairs(const float2* z, const float2* __rest
 }
 
 template <typename OUT, int LOG_M>
-__global__ void __launch_bounds__(Geometry<LOG_M>::NT)
+__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT)
 stft_kernel(const float* __restrict__ y, long long L,
             const float* __restrict__ win,
             const float2* __restrict__ tw_g,
             OUT* __restrict__ out,
             int hop, int F, int pad, int mode, int tiles, int total) {
-  using G = Geometry<LOG_M>;
+  using G = mapt::Geometry<LOG_M>;
   constexpr int M = G::M, T = G::T, FT = G::FT, NT = G::NT, FS = G::FS;
   extern __shared__ float4 smem4[];
   float2* buf = reinterpret_cast<float2*>(smem4);
@@ -170,9 +110,9 @@ stft_kernel(const float* __restrict__ y, long long L,
     // (float2 reads unless an odd clip length left the segment odd-aligned)
     const float* fr = seg + off + fs * hop;
     if (off & 1)
-      first_pass<LOG_M, false>(v, fr, win2, fb, twp, t);
+      mapt::first_pass<LOG_M, false>(v, fr, win2, fb, twp, t);
     else
-      first_pass<LOG_M, true>(v, fr, win2, fb, twp, t);
+      mapt::first_pass<LOG_M, true>(v, fr, win2, fb, twp, t);
     // the later passes, each group of frames behind its own barriers
     mapt::rexchange_passes<LOG_M, 1, G::GT>(fb, v, twp, t, G::GT ? tid / G::GT : 0);
     __syncthreads();
@@ -208,10 +148,10 @@ cudaError_t open_smem(int device) {
   static bool opened[kMaxDevices];
   if (opened[device]) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(stft_kernel<float2, LOG_M>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(stft_kernel<float, LOG_M>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
   opened[device] = err == cudaSuccess;
   return err;
 }
@@ -221,11 +161,11 @@ cudaError_t open_smem(int device) {
 template <typename OUT, int LOG_M>
 int launch_m(const float* y, long long L, const float* win, const float* tw, OUT* out,
              int B, int hop, int F, int pad, int mode, int device, cudaStream_t stream) {
-  using G = Geometry<LOG_M>;
+  using G = mapt::Geometry<LOG_M>;
   static size_t sized[kMaxDevices];
   static int slots[kMaxDevices];
   const size_t smem = G::smem(hop);
-  if (smem > kSmemLimit || device < 0 || device >= kMaxDevices)
+  if (smem > mapt::kSmemLimit || device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (sized[device] != smem) {
     int per_sm = 0, sms = 0;
@@ -255,7 +195,7 @@ int launch_m(const float* y, long long L, const float* win, const float* tw, OUT
 // block, resident blocks per SM for K2, the same for K2m}
 template <int LOG_M>
 int geometry_m(int hop, int device, int* info) {
-  using G = Geometry<LOG_M>;
+  using G = mapt::Geometry<LOG_M>;
   const size_t smem = G::smem(hop);
   info[0] = G::NT;
   info[1] = G::FT;

@@ -6,25 +6,27 @@ Counterpart of `mlx_audio_primitives_tpu/kernels/mel_fused.py`:
 
 Source note (`csrc/mel_fused.cu`, ``mel_fused_kernel``). Replaces
 ``melspectrogram_pallas`` (its ``pallas_call`` in ``_mel_radix_core``).
-One block takes one clip and a tile of FB frames (16 at n_fft 2048). In
-sub-batches it stages the padded signal segment in shared memory (framing
-is index math), runs an FP32 FFT of n_fft/2 complex points per frame in
-shared memory plus the real-input split, and keeps one ``|X|^p`` row per
-frame in shared memory; then it contracts the FB rows with W, streamed
-through shared memory in double-buffered tiles, each thread holding a
-register tile of FB/8 frames x 4 columns. Frames and spectrum never reach
-device memory; the output is written as ``(B, n_cols, F)`` with no separate
-transpose.
+A persistent grid walks (clip, tile of FT frames) pairs, FT = 16 up to
+n_fft 2048. Each tile runs K2's register-resident FFT front end
+(`csrc/fft_common.cuh`: the padded segment staged with ``cp.async`` while
+the previous tile is contracted, ``first_pass``, ``rexchange_passes``),
+then writes each frame's ``|X|^p`` row in natural bin order over the
+frame's own spectrum, split into TF32 hi and lo parts, and contracts the
+FT rows with W on the tensor cores: 3xTF32 ``mma.sync`` (lo*hi + hi*lo +
+hi*hi in FP32 accumulators), 16 weight columns by 8 frames per product.
+A warp owns one 16-column m-tile and a slice of the bins; the number of
+m-tiles is ``ceil(n_cols / 16)``, so the cost follows W's columns (a
+2-column weight costs one m-tile), and the slices' partial sums meet in
+shared memory. Frames, spectra and power rows never reach device memory;
+the output is written as ``(B, n_cols, F)`` with no separate transpose.
 
-What bounds it on this card. The contraction is ~11.6 GFLOP at the scale
-configuration (256 x 4 s clips at 22.05 kHz, n_fft 2048, 128 mels;
-2 * n_bins * n_cols per frame) on the CUDA cores in FP32, limited by
-shared-memory loads per FMA; the FFT front end is limited by latency: each
-radix-4 pass is a shared-memory round trip between block barriers, with
-two blocks per SM. The layout keeps two blocks per SM and reads each W
-element from device memory once per FB frames; tensor-core schemes with
-FP32 accuracy (3xTF32, bf16x3) and a register-resident FFT are the next
-steps (measurements in ``PERF.md``).
+What bounds it on this card. At the scale configuration (256 x 4 s clips
+at 22.05 kHz, n_fft 2048, 128 mels) the three TF32 products are 35 GFLOP
+(0.07 ms at the TF32 peak) and the bytes 0.03 ms; W is read from L2 once
+per 16-frame tile (1.5 GB there), straight into the tensor-core fragments,
+since the frame buffers fill shared memory. That traffic and the front end
+(no overlap with the contraction inside a block) are what remain
+(measurements in ``PERF.md``).
 
 The TPU kernel's radix decimation, folded filterbank (``fold_filterbank``),
 128-lane group layout, VMEM block picker and DMA double buffering have no
@@ -33,11 +35,15 @@ counterpart: this kernel emits natural bin order, so W is used as given.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops._frames import windowed_frames
 from ..utils.dispatch import on_cuda, radix_shape_ok
-from ._build import I32, I64, MAX_BATCH, Kernel, P, register, require, with_plain_backward
+from ._build import (
+    I32, I64, MAX_BATCH, Kernel, P, library, register, require, with_plain_backward,
+)
 from .dft import rfft_frames, rfft_twiddles
 
 KERNEL = register(Kernel(
@@ -49,6 +55,21 @@ KERNEL = register(Kernel(
 
 #: pad_mode -> the kernels' padding code (fft_common.cuh::padded_sample)
 PAD_CODES = {"constant": 0, "reflect": 1, "edge": 2}
+
+
+def launch_geometry(n_fft: int, hop_length: int, device: torch.device) -> dict:
+    """K1's launch at ``(n_fft, hop_length)`` on a CUDA ``device``: threads
+    per block, frames per tile, dynamic shared memory per block (bytes) and
+    resident blocks per SM."""
+    fn = library().mel_fused_geometry
+    fn.argtypes = [I32, I32, I32, P]
+    fn.restype = I32
+    info = (ctypes.c_int * 4)()
+    err = fn(n_fft, hop_length, device.index, ctypes.cast(info, P))
+    if err != 0:
+        raise RuntimeError(f"mel_fused_geometry failed: CUDA error {err}")
+    return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
+                blocks_per_sm=info[3])
 
 
 def melspectrogram_plain(
@@ -115,8 +136,9 @@ def melspectrogram_fused(
 
     Requires the radix shape gate (`utils/dispatch.py::radix_shape_ok`) and
     ``power`` in {1, 2}; any window and any dense ``fb_t`` (the contraction
-    loops over column tiles, so shared memory does not grow with the
-    columns). The backward differentiates the plain twin."""
+    walks ``ceil(n_cols / 16)`` column tiles, so shared memory does not grow
+    with the columns and time follows them). The backward differentiates
+    the plain twin."""
     if not radix_shape_ok(n_fft, hop_length):
         raise ValueError(
             f"fused mel kernel requires pow2 n_fft = C*hop, hop = R2*128, "

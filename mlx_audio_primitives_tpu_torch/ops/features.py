@@ -11,14 +11,16 @@ kernels of this path are:
   STFT kernel's magnitude emit (K2m, `kernels/stft_radix.py`);
 * the contrast bands' quantile means: the extreme-selection kernel (K5,
   `kernels/select_extremes.py`), reading each band of the natural
-  ``(B, n_bins, F)`` magnitude in place.
+  ``(B, n_bins, F)`` magnitude in place;
+* the centroid of a signal ``y``: its two moments ``(sum S, sum f*S)``
+  out of the fused filterbank kernel (K1, `kernels/mel_fused.py`) with the
+  weight ``[1, f]`` and power 1, as the JAX package takes them
+  (``_moments_fused``), so the magnitude never reaches device memory. K1's
+  contraction walks ``ceil(n_cols / 16)`` column tiles, so the two columns
+  cost one tile (``chip_smoke.py`` phase 5 times this route against the
+  magnitude and two reductions).
 
-Elsewhere each takes its plain composition. The JAX package takes the
-centroid's two moments out of its fused filterbank kernel with the weight
-``[1, f]``; the port's filterbank kernel (K1) contracts whole 128-column
-tiles, so on the H100 that route is slower than the magnitude and two
-reductions (3.3 ms against 2.0 ms at 64 x 30 s, ``chip_smoke.py`` phase 5),
-and the centroid has the one route. The JAX package computes the
+Elsewhere each takes its plain composition. The JAX package computes the
 dB and geometric-mean logs with its own polynomials
 (`kernels/precise_math.py`) because the TPU's ``log10`` is imprecise; the
 port uses ``torch.log10`` and ``torch.pow``. ``use_cpp``/``use_mlx`` are
@@ -33,12 +35,13 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+from ..kernels.mel_fused import melspectrogram_fused
 from ..kernels.select_extremes import quantile_extreme_means_fused, select_supported
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.validation import validate_positive, validate_range
 from ._frames import frame_signal_batched, pad_signal
-from .stft import magnitude_spectrogram
+from .stft import _as_batched, _get_padded_window, _validate_stft_params, magnitude_spectrogram
 
 ArrayLike = Any
 
@@ -90,7 +93,18 @@ def spectral_centroid(
     pad_mode: str = "constant",
     freq: ArrayLike | None = None,
 ) -> torch.Tensor:
-    """Spectral centroid ``sum(f*S)/sum(S)`` per frame, shape ``(..., 1, F)``."""
+    """Spectral centroid ``sum(f*S)/sum(S)`` per frame, shape ``(..., 1, F)``.
+
+    From a signal on a CUDA device (radix shapes) both moments come out of
+    the fused filterbank kernel (K1) with the weight ``[1, f]``; otherwise,
+    and for an ``S`` input, from the magnitude and two reductions."""
+    if S is None and y is not None:
+        moments = _moments_fused(y, sr, freq, n_fft=n_fft, hop_length=hop_length,
+                                 win_length=win_length, window=window, center=center,
+                                 pad_mode=pad_mode)
+        if moments is not None:
+            M0, M1 = moments
+            return M1 / (M0 + 1e-10)
     S = _compute_spectrogram(y, S, n_fft, hop_length, win_length, window, center, pad_mode)
     freq = _freq(freq, sr, n_fft, S.device)
     is_batched = S.dim() == 3
@@ -100,6 +114,42 @@ def spectral_centroid(
     total = torch.sum(S, dim=1, keepdim=True) + 1e-10
     out = weighted / total
     return out if is_batched else out[0]
+
+
+@table_cache("centroid_moments_weight", maxsize=16)
+def _moments_weight(sr: int, n_fft: int) -> np.ndarray:
+    """``(n_bins, 2)`` weight ``[1, f]`` on the rfft bin grid, float64 on
+    the host (cached per device as float32)."""
+    freq = _get_frequencies.host(sr, n_fft)
+    return np.stack([np.ones_like(freq), freq], axis=1)
+
+
+def _moments_fused(y, sr, freq, *, n_fft, hop_length, win_length, window, center, pad_mode):
+    """``(M0, M1) = (sum S, sum f*S)`` per frame, each ``(..., 1, F)``, from
+    the fused filterbank kernel with the weight ``[1, f]`` at power 1; None
+    where the kernel does not take the call (kernels off or not on CUDA, a
+    shape outside the radix gate, a ``freq`` other than one value per bin),
+    and the caller takes the magnitude route."""
+    if win_length is None:
+        win_length = n_fft
+    # the same argument checks as the magnitude route, so both raise alike
+    _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
+    y, input_is_1d = _as_batched(y, n_fft, center)
+    if not (dispatch.resolve_use_pallas(None, y.device)
+            and dispatch.radix_shape_ok(n_fft, hop_length)):
+        return None
+    if freq is None:
+        w = _moments_weight(sr, n_fft, device=y.device)
+    else:
+        freq = torch.as_tensor(freq, dtype=REAL_DTYPE, device=y.device)
+        if freq.dim() != 1 or freq.shape[0] != n_fft // 2 + 1:
+            return None
+        w = torch.stack([torch.ones_like(freq), freq], dim=1).contiguous()
+    win = _get_padded_window(window, win_length, n_fft, y.device)
+    M = melspectrogram_fused(y, win, w, n_fft=n_fft, hop_length=hop_length, center=center,
+                             pad_mode=pad_mode, power=1.0)  # (B, 2, F)
+    M0, M1 = M[:, 0:1], M[:, 1:2]
+    return (M0[0], M1[0]) if input_is_1d else (M0, M1)
 
 
 def spectral_bandwidth(

@@ -87,6 +87,27 @@ def test_feature_matches_jax(name, kw, case, jax_route, port_route):
     assert max_rel(got, ref) <= FEAT_TOL
 
 
+@pytest.mark.parametrize("case", list(_INPUTS))
+def test_centroid_route(case, port_route, monkeypatch):
+    """On the kernel routes the centroid of a signal takes both moments out
+    of the fused filterbank kernel (K1) with the ``[1, f]`` weight at power
+    1, as the JAX package does; an ``S`` input and the plain route take the
+    magnitude and two reductions. Either way it matches the JAX package's
+    kernel path."""
+    calls = []
+    real = tap_features.melspectrogram_fused
+
+    def spy(y, win, w, **kw):
+        calls.append((tuple(w.shape), kw["power"]))
+        return real(y, win, w, **kw)
+
+    monkeypatch.setattr(tap_features, "melspectrogram_fused", spy)
+    got = tap.spectral_centroid(**_INPUTS[case](), sr=SR, **KW)
+    assert max_rel(got, _jax("spectral_centroid", case, "kernels", sr=SR)) <= FEAT_TOL
+    takes_k1 = port_route == "kernels" and case != "S"
+    assert calls == ([((KW["n_fft"] // 2 + 1, 2), 1.0)] if takes_k1 else [])
+
+
 def _bins(hz: np.ndarray, n_fft: int) -> np.ndarray:
     return np.rint(np.asarray(hz, np.float64) / (SR / n_fft)).astype(np.int64)
 

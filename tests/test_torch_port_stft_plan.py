@@ -111,9 +111,11 @@ def rdigit_rev(log_m: int, k: np.ndarray) -> np.ndarray:
     return p
 
 
-def model_rfft(frames: np.ndarray, win: np.ndarray) -> np.ndarray:
-    """K2's bins of ``(nf, N)`` float32 frames, window ``(N,)``: ``(nf, M+1)``
-    complex64, through the kernel's passes in its order."""
+def model_passes(frames: np.ndarray, win: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The frame buffers after the last pass, ``(nf, rframe_stride(M))``
+    complex64 in the kernels' padded layout (digit-reversed order), and the
+    float32 host twiddles ``tw[k] = W_N^k``, k <= M, of ``(nf, N)`` float32
+    frames and window ``(N,)``: the passes of K1 and K2 in their order."""
     nf, n_fft = frames.shape
     m = n_fft // 2
     log_m = m.bit_length() - 1
@@ -140,6 +142,17 @@ def model_rfft(frames: np.ndarray, win: np.ndarray) -> np.ndarray:
             q = np.arange(1, r_count)
             v[..., 1:] = v[..., 1:] * table[(q - 1) * s + i[..., None]][None]
         buf[:, rpidx(pos)] = v
+    return buf, tw
+
+
+def model_rfft(frames: np.ndarray, win: np.ndarray) -> np.ndarray:
+    """K2's bins of ``(nf, N)`` float32 frames, window ``(N,)``: ``(nf, M+1)``
+    complex64, through the kernel's passes in its order."""
+    nf, n_fft = frames.shape
+    m = n_fft // 2
+    log_m = m.bit_length() - 1
+    t_count = m >> REG_BITS
+    buf, tw = model_passes(frames, win)
     # the emit (emit_pairs): thread k0 < T owns bins k = k0 + J*T <= M/2 and
     # finds Z[k], Z[M-k] through the bit-disjoint split of the digit
     # reversal; X[k] = E + W_N^k O and X[M-k] = conj(E - W_N^k O)
