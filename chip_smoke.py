@@ -30,9 +30,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       30 s at 22,050 Hz (n_fft 2048, hop 512): MFCC (20) with deltas of
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
       zero-crossing rate and RMS, the first 4 clips against a float64 CPU
-      oracle;
+      oracle, with its launches counted (K1 2, K2m 4, K5 4);
 5. CUDA-event times of each path (kernels and plain), of the centroid
-   against the route it does not take (its two moments out of K1), and of
+   against the route it does not take (K2m's magnitude and two
+   reductions), and of
    each kernel alone against its plain twin and, where one PyTorch call
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
@@ -81,6 +82,10 @@ PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 #: the kernels each public path must launch
 LOG_MEL_PATH = ("mel_fused_kernel", "stft_kernel", "istft_kernel", "overlap_add_kernel")
 FEATURE_PATH = ("mel_fused_kernel", "stft_mag_kernel", "select_extremes_kernel")
+#: the feature path's launches: K1 for MFCC's mel and the centroid's
+#: moments, K2m for bandwidth, rolloff, flatness and contrast, K5 for the
+#: four contrast bands that take it
+FEATURE_LAUNCHES = {"mel_fused_kernel": 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -650,6 +655,9 @@ def feature_path(gen: torch.Generator) -> dict:
     out = feature_set(ap, y)
     torch.cuda.synchronize()
     launches = read_counts("spectral-feature", FEATURE_PATH)
+    for name, n in FEATURE_LAUNCHES.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times on the feature "
+              f"path, expected {n}")
 
     n_frames = 1 + LONG // HOP
     out["magnitude"] = magnitude_spectrogram(y, n_fft=N_FFT, hop_length=HOP)
@@ -757,26 +765,27 @@ def times(gen: torch.Generator, card: str) -> dict:
         plain_b = cuda_ms(lambda: fn(False), 2, reps)
         print(f"{label}: kernel path {kern_a:.4f} / {kern_b:.4f}, plain path {plain_a:.4f} / {plain_b:.4f}")
 
-    # the centroid of 64 x 30 s, sum(f*S)/sum(S) over K2m's magnitude,
-    # against the JAX package's route: its two moments out of K1 with the
-    # weight [1, f]
+    # the centroid of 64 x 30 s: spectral_centroid takes its two moments out
+    # of K1 with the weight [1, f], as the JAX package does; against the
+    # route it left, sum(f*S)/sum(S) over K2m's magnitude
+    from mlx_audio_primitives_tpu_torch.ops.stft import magnitude_spectrogram
+
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
-    w_moments = moments_weight(dev)
 
     def centroid_k1():
-        M = k1.melspectrogram_fused(y_feat, win, w_moments, power=1.0, **kw)
-        return M[:, 1:2] / (M[:, 0:1] + 1e-10)
+        return ap.spectral_centroid(y_feat, sr=SR, n_fft=N_FFT, hop_length=HOP)
 
     def centroid_k2m():
-        return ap.spectral_centroid(y_feat, sr=SR, n_fft=N_FFT, hop_length=HOP)
+        S = magnitude_spectrogram(y_feat, n_fft=N_FFT, hop_length=HOP)
+        return ap.spectral_centroid(S=S, sr=SR, n_fft=N_FFT, hop_length=HOP)
 
     e = rel_err(centroid_k1(), centroid_k2m())
     check(e <= 1e-5, f"the centroid's two routes disagree: {e:.3e}")
     k1_a, m_a, m_b, k1_b = (cuda_ms(centroid_k1), cuda_ms(centroid_k2m), cuda_ms(centroid_k2m),
                             cuda_ms(centroid_k1))
-    print(f"centroid 64 x 30 s: spectral_centroid (K2m route) {m_a:.4f} / {m_b:.4f}, "
-          f"K1 moments route {k1_a:.4f} / {k1_b:.4f} (routes agree to {e:.3e} of max)")
+    print(f"centroid 64 x 30 s: spectral_centroid (K1 moments route) {k1_a:.4f} / {k1_b:.4f}, "
+          f"K2m and two reductions {m_a:.4f} / {m_b:.4f} (routes agree to {e:.3e} of max)")
 
     # each kernel alone against its plain twin and its library call, at the
     # main paths' shapes, with its bound at that shape

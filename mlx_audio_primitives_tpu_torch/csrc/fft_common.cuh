@@ -405,24 +405,14 @@ static __device__ __forceinline__ void rstep(float2 (&v)[kRegPoints], float2* fb
   rmove<LOG_M, PASS, C, true>(v, fb, t);
 }
 
-// FRESH: take the thread index afresh in each pass (fresh_index), so that
-// no pass's addresses are computed ahead of it and held in registers
-// through the passes before it.
-static __device__ __forceinline__ int fresh_index(int v) {
-  int r;
-  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
-  return r;
-}
-
-template <int LOG_M, int PASS, int GT, bool FRESH = false>
+template <int LOG_M, int PASS, int GT>
 static __device__ __forceinline__ void rexchange_passes(float2* fb, float2 (&v)[kRegPoints],
                                                         const float2* twp, int t, int g) {
   if constexpr (PASS < plan_passes(LOG_M)) {
     group_sync<GT>(g);
-    if constexpr (FRESH) t = fresh_index(t);
     rstep<LOG_M, PASS, 0>(v, fb, twp, t);
     if constexpr (plan_bits(LOG_M, PASS) < kRegBits) rstep<LOG_M, PASS, 1>(v, fb, twp, t);
-    rexchange_passes<LOG_M, PASS + 1, GT, FRESH>(fb, v, twp, t, g);
+    rexchange_passes<LOG_M, PASS + 1, GT>(fb, v, twp, t, g);
   }
 }
 

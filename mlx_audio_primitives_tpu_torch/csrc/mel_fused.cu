@@ -13,18 +13,23 @@
 // products (below) it is 35 GFLOP, 0.07 ms at peak; the FFT, window and
 // power rows are 2.7 GFLOP of FP32 and the bytes 0.03 ms. What the design
 // cannot shrink is W's traffic from L2: every 16-frame tile reads all of W
-// (525 KB at 1,025 x 128), 1.5 GB at the scale configuration. The design:
+// (525 KB at 1,025 x 128), 1.5 GB at the scale configuration, and the
+// contraction's time grows with it (PERF.md). The design:
 //
 // - the register-resident front end of fft_common.cuh, as K2 runs it: a
 //   persistent grid over (clip, frame tile) pairs, FT frames per tile (16 up
-//   to n_fft 2048), the segment of the next tile copied with cp.async while
-//   this one is transformed, first_pass from the segment, rexchange_passes;
-// - power rows written in place: each thread reads bin pairs Z[k], Z[M-k]
-//   of one frame at their digit-reversed positions, as K2's emit does, and
-//   keeps |X[k]|^p and |X[M-k]|^p in registers; after a barrier that ends
-//   all reads of the spectra it writes them in natural bin order into the
-//   frame's own buffer, split into TF32 hi and lo parts (no room for
-//   separate rows: the frame buffers take 139 KB of 227 at n_fft 2048);
+//   to n_fft 2048), first_pass from the staged segment, rexchange_passes;
+// - power rows written in place, in rounds of a few frames: each thread
+//   reads bin pairs Z[k], Z[M-k] of one frame at their digit-reversed
+//   positions, as K2's emit does, and puts |X[k]|^p and |X[M-k]|^p in its
+//   own scratch slots in the segment buffer (the first pass has read it);
+//   after a barrier that ends the round's reads of the spectra it writes
+//   them in natural bin order into the frame's own buffer, split into TF32
+//   hi and lo parts. There is no room for separate rows (the frame buffers
+//   take 139 KB of 227 at n_fft 2048), and the values held in registers
+//   through the barrier made ptxas spill at 64 registers a thread;
+// - the segment of the next tile copied with cp.async during the
+//   contraction, once the power rows have left the segment buffer;
 // - the contraction out[col, f] = sum_k P[f, k] W[k, col] on the tensor
 //   cores at FP32 accuracy, 3xTF32 on mma.sync m16n8k8: each operand x is
 //   split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and the FP32
@@ -82,10 +87,13 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   return r;
 }
 
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 does: sign and magnitude are apart in the bits,
+// so adding half of the 13 dropped bits and clearing them does it, in two
+// integer operations (the cvt took ~6% of K1's time at the scale
+// configuration, H100 80GB HBM3)
 __device__ __forceinline__ unsigned tf32_rna(float x) {
-  unsigned u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
-  return u;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // c += a * b on the tensor cores (m16n8k8, TF32 in, FP32 accumulate)

@@ -11,7 +11,8 @@ n_fft 2048. Each tile runs K2's register-resident FFT front end
 (`csrc/fft_common.cuh`: the padded segment staged with ``cp.async`` while
 the previous tile is contracted, ``first_pass``, ``rexchange_passes``),
 then writes each frame's ``|X|^p`` row in natural bin order over the
-frame's own spectrum, split into TF32 hi and lo parts, and contracts the
+frame's own spectrum (in rounds of a few frames, through per-thread
+scratch slots), split into TF32 hi and lo parts, and contracts the
 FT rows with W on the tensor cores: 3xTF32 ``mma.sync`` (lo*hi + hi*lo +
 hi*hi in FP32 accumulators), 16 weight columns by 8 frames per product.
 A warp owns one 16-column m-tile and a slice of the bins; the number of
@@ -24,8 +25,9 @@ What bounds it on this card. At the scale configuration (256 x 4 s clips
 at 22.05 kHz, n_fft 2048, 128 mels) the three TF32 products are 35 GFLOP
 (0.07 ms at the TF32 peak) and the bytes 0.03 ms; W is read from L2 once
 per 16-frame tile (1.5 GB there), straight into the tensor-core fragments,
-since the frame buffers fill shared memory. That traffic and the front end
-(no overlap with the contraction inside a block) are what remain
+since the frame buffers fill shared memory. The contraction's time grows
+with W's columns, that is with this traffic, and it and the front end (no
+overlap with the contraction inside a block) are what remain
 (measurements in ``PERF.md``).
 
 The TPU kernel's radix decimation, folded filterbank (``fold_filterbank``),
