@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --host-path DIR`` prints only the STFT wrapper's host
 time per call for the port package under DIR (an unpacked earlier commit,
 say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
-prints only phase 5's device times of K1 and K2m.
+prints only phase 5's device times of K1 and K2m, and ``--k1-ablations``
+those of K1 with parts of its work left out, one at a time.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
@@ -883,6 +884,8 @@ def times(gen: torch.Generator, card: str) -> dict:
     print(f"K2m device time, 64 x 30 s (torch.profiler, 5 calls): "
           f"{kernel_device_ms(lambda: k2.stft_magnitude_fused(y_feat, win, **kw), 'stft_kernel', 5):.4f} ms")
     k1_split(y_scale, y_feat, win, fb_t, kw)
+    print(f"K1 device time, headline (64, 22050) (torch.profiler, 20 calls): "
+          f"{kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, **kw), k1.KERNEL.name, 20):.4f} ms")
     out = {}
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three
@@ -998,12 +1001,90 @@ def k1_split_of(root: str) -> None:
              torch.randn(FEATURES, generator=gen, device=dev), win, fb_t, kw)
 
 
+#: K1 ablations (``--k1-ablations``): each edits ``csrc/mel_fused.cu`` of a
+#: copy of the package to leave one part of the work out (the results are
+#: wrong; only the time counts), so that the time that part costs shows
+K1_ABLATIONS = {
+    "no W loads (A fragments from registers)": [(
+        "  a[0] = (k < n_bins && oka) ? __ldg(w0) : 0.f;\n"
+        "  a[1] = (k < n_bins && okb) ? __ldg(w0 + 8) : 0.f;\n"
+        "  a[2] = (k + 4 < n_bins && oka) ? __ldg(w1) : 0.f;\n"
+        "  a[3] = (k + 4 < n_bins && okb) ? __ldg(w1 + 8) : 0.f;",
+        "  (void)w0, (void)w1;\n"
+        "  a[0] = (k < n_bins && oka) ? 1.f + k : 0.f;\n"
+        "  a[1] = (k < n_bins && okb) ? 2.f + k : 0.f;\n"
+        "  a[2] = (k + 4 < n_bins && oka) ? 3.f + ca : 0.f;\n"
+        "  a[3] = (k + 4 < n_bins && okb) ? 4.f + ca : 0.f;")],
+    "no power-row loads (B fragments from registers)": [(
+        "          const unsigned bhi[2] = {ok0 ? __float_as_uint(r[k]) : 0u,\n"
+        "                                   ok1 ? __float_as_uint(r[k + 4]) : 0u};\n"
+        "          const unsigned blo[2] = {ok0 ? __float_as_uint(r[M + 1 + k]) : 0u,\n"
+        "                                   ok1 ? __float_as_uint(r[M + 5 + k]) : 0u};",
+        "          (void)r;\n"
+        "          const unsigned bhi[2] = {ok0 ? 1u + k : 0u, ok1 ? 2u + k : 0u};\n"
+        "          const unsigned blo[2] = {ok0 ? 3u + f : 0u, ok1 ? 4u + f : 0u};")],
+    "one product (hi*hi) of the three": [(
+        "          mma_tf32(d, alo, bhi);\n          mma_tf32(d, ahi, blo);\n", "")],
+    "cvt.rna.tf32 for the split": [(
+        "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+        "  unsigned u;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(u) : \"f\"(x));\n  return u;")],
+    "one accumulator (no sum per k-step)": [(
+        "          float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+        "          mma_tf32(d, alo, bhi);\n          mma_tf32(d, ahi, blo);\n"
+        "          mma_tf32(d, ahi, bhi);\n#pragma unroll\n"
+        "          for (int i = 0; i < 4; ++i) acc[j][i] += d[i];",
+        "          mma_tf32(acc[j], alo, bhi);\n          mma_tf32(acc[j], ahi, blo);\n"
+        "          mma_tf32(acc[j], ahi, bhi);")],
+    "half the grid (66 of 132 SMs)": [(
+        "    slots[device] = sms * per_sm;", "    slots[device] = sms * per_sm / 2;")],
+}
+
+
+def k1_ablations() -> None:
+    """``--k1-ablations``: K1's device time at the scale configuration for the
+    package as it is and for each of ``K1_ABLATIONS``, copies under
+    ``build/k1_ablations/``, each in its own process (``--k1-split``), in
+    two rounds."""
+    import shutil
+
+    print("K1 ablations on", gpu_line(), flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "mlx_audio_primitives_tpu_torch")
+    dirs = {"as it is": root}
+    for i, (label, edits) in enumerate(K1_ABLATIONS.items()):
+        d = os.path.join(root, "build", "k1_ablations", str(i))
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(pkg, os.path.join(d, "mlx_audio_primitives_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__", "build"))
+        src = os.path.join(d, "mlx_audio_primitives_tpu_torch", "csrc", "mel_fused.cu")
+        with open(src) as f:
+            text = f.read()
+        for old, new in edits:
+            check(text.count(old) == 1, f"ablation {label!r}: its edit no longer matches the source")
+            text = text.replace(old, new)
+        with open(src, "w") as f:
+            f.write(text)
+        dirs[label] = d
+    for rnd in range(2):
+        for label, d in dirs.items():
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--k1-split", d],
+                                 capture_output=True, text=True, timeout=600)
+            line = next((ln for ln in out.stdout.splitlines() if ln.startswith("device time per call, scale")),
+                        None)
+            check(out.returncode == 0 and line is not None, f"ablation {label!r} failed:\n{out.stdout[-2000:]}"
+                  f"{out.stderr[-2000:]}")
+            print(f"round {rnd + 1}, {label}: {line.split(': ', 1)[1]}", flush=True)
+
+
 def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--host-path":
         host_path(sys.argv[2])
         return
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-split":
         k1_split_of(sys.argv[2])
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "--k1-ablations":
+        k1_ablations()
         return
     card = environment()
     build()

@@ -78,9 +78,9 @@ __device__ __forceinline__ int opaque(int v) {
   return r;
 }
 
-// sqrt.approx (the SFU's square root, a few ulp): the IEEE sqrtf has a
-// slow path that ptxas reaches by a call, and the 18 power values a thread
-// holds until the barrier would be saved to local memory around it
+// sqrt.approx (the SFU's square root, within a few ulp): the IEEE sqrtf
+// reaches its slow path by a call, around which ptxas saves the live
+// registers to local memory
 __device__ __forceinline__ float sqrt_approx(float x) {
   float r;
   asm("sqrt.approx.f32 %0, %1;\n" : "=f"(r) : "f"(x));

@@ -43,9 +43,7 @@ import torch
 
 from ..ops._frames import windowed_frames
 from ..utils.dispatch import on_cuda, radix_shape_ok
-from ._build import (
-    I32, I64, MAX_BATCH, Kernel, P, library, register, require, with_plain_backward,
-)
+from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 
 KERNEL = register(Kernel(
@@ -110,8 +108,6 @@ def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power):
             f"mel_fused_kernel needs win ({n_fft},) and fb_t ({n_fft // 2 + 1}, n_cols); "
             f"got {tuple(win.shape)} and {tuple(fb_t.shape)}"
         )
-    if B > MAX_BATCH:
-        raise ValueError(f"mel_fused_kernel takes at most {MAX_BATCH} clips, got {B}")
     pad = n_fft // 2 if center else 0
     F = 1 + (L + 2 * pad - n_fft) // hop_length
     tw = rfft_twiddles(n_fft, device=y.device)
