@@ -164,10 +164,11 @@ def host_us(fn, calls: int = 1000, runs: int = 5) -> float:
 
 def kernel_device_ms(fn, kernel: str | None, calls: int = 20) -> float:
     """Device time (ms) per call of ``fn()`` over ``calls`` calls, from
-    ``torch.profiler``: of the launches of ``kernel`` (each call launches it
-    once), or of every device operation the call runs when ``kernel`` is
-    None (a library call). The host path, which the CUDA-event time of one
-    small call includes, is left out."""
+    ``torch.profiler``: the mean of the launches of ``kernel`` it records
+    (each call launches it once; the profiler now and then misses a few of
+    them, which is reported), or of every device operation the call runs
+    when ``kernel`` is None (a library call). The host path, which the
+    CUDA-event time of one small call includes, is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,9 +181,13 @@ def kernel_device_ms(fn, kernel: str | None, calls: int = 20) -> float:
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA
           and (kernel is None or re.search(rf"::{kernel}[<(]", e.name))]
-    if kernel is not None:
-        check(len(us) == calls, f"the profiler saw {len(us)} launches of {kernel}, expected {calls}")
-    return sum(us) / 1e3 / calls
+    if kernel is None:
+        return sum(us) / 1e3 / calls
+    check(0 < len(us) <= calls, f"the profiler saw {len(us)} launches of {kernel} in {calls} calls")
+    if len(us) < calls:
+        print(f"(the profiler recorded {len(us)} of the {calls} launches of {kernel}; "
+              f"the mean is over those)")
+    return sum(us) / 1e3 / len(us)
 
 
 def environment() -> str:
