@@ -5,22 +5,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --host-path DIR`` prints only the STFT wrapper's host
 time per call for the port package under DIR (an unpacked earlier commit,
 say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
-prints only phase 5's device times of K1 and K2m, and ``--k1-ablations``
-those of K1 with parts of its work left out, one at a time.
+prints only phase 5's device times of K1 and K2m, ``--k345-split DIR`` those
+of K3, K4 and K5 and the feature path's time, and ``--k1-ablations`` those of K1 with parts of its work
+left out, one at a time.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
-   source, all at once (timed); for each K1/K2/K2m instance, ptxas's
-   registers and spill bytes (a spill fails the run), its threads, frames
-   per tile, shared memory per block and resident warps per SM;
+   source, all at once (timed, and each source's process); for each
+   K1/K2/K2m instance, ptxas's registers and spill bytes (a spill fails the
+   run), its threads, frames per tile, shared memory per block and resident
+   warps per SM; for each K5 instance (k, lanes per row), its registers,
+   stack frame and spill bytes (either fails the run);
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
-   lengths, K1 at column counts around its 16-column tiles);
+   lengths, K1 at column counts around its 16-column tiles; K5 on the
+   default contrast bands at 1 and 4 lanes per row and over k = 1..16 on
+   random, tie-heavy and +-inf/NaN rows; K3, K4 and K5 at 65,537 clips);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -32,6 +37,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
       zero-crossing rate and RMS, the first 4 clips against a float64 CPU
       oracle, with its launches counted (K1 2, K2m 4, K5 4);
+   c. ``istft`` and ``spectral_contrast`` on 65,537 small clips, past
+      grid y's 65,535, with K3's and K5's launches counted;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -41,8 +48,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    its shapes (K1's contraction as three TF32 tensor-core products), timed
    plain, library, kernel, kernel, library, plain; the STFT wrapper's host
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
-   clip and at 64 x 30 s, of K2m, and of K1 beside K2m on the same clips
-   at the scale configuration and at 64 x 30 s;
+   clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
+   at the scale configuration and at 64 x 30 s, of K3 and K4 on one 30 s
+   clip and at 64 x 30 s, and of K5 on each default contrast band (also at
+   1 and 4 lanes per row, and on 1025-bin rows);
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -74,6 +83,8 @@ LONG = 30 * SR  # the 30 s round-trip clip
 OLA_HOP = 441  # a hop outside the radix gate: istft takes the overlap-add tier
 FEATURES = (64, LONG)  # the spectral-feature path: 64 clips of 30 s
 N_ORACLE = 4  # clips of the feature path held against the float64 oracle
+BIG = 65537  # clips of the batch-size checks: past grid y's 65,535
+SMALL = (256, 128)  # their n_fft and hop: 4 frames a clip of 384 samples
 
 # Published H100 SXM peaks (NVIDIA data sheet) for each kernel's bound
 PEAK_BYTES_PER_S = 3.35e12
@@ -107,6 +118,16 @@ def _pair64(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     """Both in float64 (complex128), on the card when both lie there."""
     dev = a.device if a.device == b.device else torch.device("cpu")
     return _as64(a, dev), _as64(b, dev)
+
+
+def exact_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| of two float32 tensors over the elements whose bits
+    differ, NaN matching NaN; an infinity or a NaN against anything else
+    counts as inf. 0.0 where the two agree bit for bit."""
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.nan_to_num((a.double() - b.double()).abs(), nan=float("inf"))
+    d = torch.where(same, torch.zeros_like(d), d)
+    return float(d.max()) if d.numel() else 0.0
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -216,11 +237,45 @@ def build() -> None:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s) "
           f"in {_build.build_info['dir']}")
+    by_source = _build.build_info.get("seconds_by_source", {})
+    print("nvcc seconds by source:", ", ".join(f"{k} {v:.2f}" for k, v in by_source.items()))
     log = _build.build_info.get("log", "")
+    k5_entry = False  # K5's 32 instances are summed up by k5_instances
     for ln in log.splitlines():
-        if re.search(r"Function properties|registers|spill", ln):
+        if "Compiling entry function" in ln:
+            k5_entry = "select_extremes_kernel" in ln
+        if not k5_entry and re.search(r"Function properties|registers|spill", ln):
             print("  ptxas:", ln.strip())
     fft_occupancy(log)
+    k5_instances(log)
+    k5_sass()
+
+
+def k5_instances(log: str) -> None:
+    """K5 per instance (k slots, g lanes per row): ptxas's registers, stack
+    frame and spill bytes. Fails on a spill, or on a stack frame, which means
+    a register array was left in local memory."""
+    rows, entry, frame = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?select_extremes_kernelILi(\d+)ELi(\d+)E", ln)
+        if m:
+            entry = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            frame = (int(m.group(1)), int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), *frame)
+            entry, frame = None, (0, 0)
+    check(len(rows) == 32, f"ptxas reported {len(rows)} K5 instances, expected 32")
+    for g in (1, 4):
+        print(f"  select_extremes_kernel g={g}, k = 1..16: registers "
+              + " ".join(str(rows[(k, g)][0]) for k in range(1, 17))
+              + f"; stack frame max {max(rows[(k, g)][1] for k in range(1, 17))} B, "
+              f"spill max {max(rows[(k, g)][2] for k in range(1, 17))} B")
+    check(all(r[1] == 0 and r[2] == 0 for r in rows.values()),
+          "a K5 instance has a stack frame or spills")
 
 
 def ptxas_rows(log: str) -> dict:
@@ -269,6 +324,39 @@ def fft_occupancy(log: str) -> None:
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
 
 
+def k5_sass(ks: tuple[int, ...] = (4, 9)) -> None:
+    """K5's instances for each k in ``ks`` in the built library's SASS
+    (``cuobjdump``): static instruction counts by kind. At k <= 4 every
+    value is inserted, so min/max per load is the insertion's cost a value;
+    at k >= 5 the count also holds the insertion a chunk with a NaN takes
+    and the tail's."""
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    kinds = {"min/max": ("FMNMX",), "select": ("FSEL", "SEL"), "compare": ("FSETP", "ISETP"),
+             "load": ("LDG",)}
+    name, counts = None, {}
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"select_extremes_kernelILi(\d+)E(?:Li(\d+)E)?", ln)
+            name = (int(m.group(1)), int(m.group(2) or 1)) if m else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if name and m:
+            c = counts.setdefault(name, dict.fromkeys(("all", *kinds), 0))
+            c["all"] += 1
+            op = m.group(1).split(".")[0]
+            for kind, ops in kinds.items():
+                c[kind] += op in ops
+    for (k, g), c in sorted(counts.items()):
+        if k in ks and g in (1, 4):
+            print(f"  K5 SASS k={k} g={g}: {c['all']} instructions, {c['load']} loads, "
+                  f"{c['min/max']} min/max ({c['min/max'] / max(c['load'], 1):.1f} a load), "
+                  f"{c['select']} select, {c['compare']} compare")
+
+
 def default_bands() -> list[tuple[int, int, int]]:
     """The bands of ``spectral_contrast``'s defaults at n_fft 2048 that take
     the extraction kernel (k > 1): (start, stop, k)."""
@@ -276,6 +364,35 @@ def default_bands() -> list[tuple[int, int, int]]:
 
     bands = contrast_bands(np.linspace(0, SR / 2, N_FFT // 2 + 1), 200.0, 6, 0.02)
     return [b for b in bands if b is not None and b[2] > 1]
+
+
+def k5_rows(gen: torch.Generator, kind: str, shape: tuple[int, int]) -> torch.Tensor:
+    """Rows for K5 on the card: ``random`` (standard normal), ``ties``
+    (integers -3..3, every extreme tied many times) or ``inf/nan`` (normal,
+    with 5% +inf, 5% -inf and 10% NaN), on the generator's device."""
+    dev = gen.device
+    if kind == "ties":
+        return torch.randint(-3, 4, shape, generator=gen, device=dev).float()
+    x = torch.randn(shape, generator=gen, device=dev)
+    if kind == "inf/nan":
+        u = torch.rand(shape, generator=gen, device=dev)
+        x[u < 0.05] = float("inf")
+        x[(u >= 0.05) & (u < 0.1)] = float("-inf")
+        x[u >= 0.9] = float("nan")
+    return x
+
+
+def k5_reference(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain twin on the rows with each NaN made +inf for the lo mean
+    and -inf for the hi mean: the kernel skips a NaN."""
+    from mlx_audio_primitives_tpu_torch.kernels.select_extremes import (
+        quantile_extreme_means_plain,
+    )
+
+    nan = torch.isnan(x)
+    lo = quantile_extreme_means_plain(torch.where(nan, float("inf"), x), k_lo, k_hi)[0]
+    hi = quantile_extreme_means_plain(torch.where(nan, float("-inf"), x), k_lo, k_hi)[1]
+    return lo, hi
 
 
 def moments_weight(dev: torch.device) -> torch.Tensor:
@@ -352,23 +469,8 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         errs[k2.KERNEL_MAG.name] = max(errs.get(k2.KERNEL_MAG.name, 0.0), abs_err(mag, ref))
         del ref
 
-    # K5: the default contrast bands of that 64 x 30 s magnitude, read in
-    # place through the natural layout's strides (rows = frames); a wide
-    # random case at k = 16; rows full of ties; <= 1e-6 absolute
-    cases = [(f"band {a}:{b} (64, 1292, {b - a})", mag[:, a:b, :].transpose(1, 2), k, k)
-             for a, b, k in default_bands()]
-    cases.append(("random (10000, 4097)", torch.randn((10000, 4097), generator=gen, device=dev),
-                  16, 16))
-    ties = torch.randint(-3, 4, (4096, 300), generator=gen, device=dev).float()
-    cases.append(("ties (4096, 300)", ties, 9, 5))
-    for label, x, k_lo, k_hi in cases:
-        lo, hi = run(k5.KERNEL, k5.quantile_extreme_means_fused, x, k_lo, k_hi)
-        rlo, rhi = k5.quantile_extreme_means_plain(x, k_lo, k_hi)
-        e = max(abs_err(lo, rlo), abs_err(hi, rhi))
-        print(f"K5 select_extremes {label} k=({k_lo}, {k_hi}): abs err {e:.3e} (limit 1e-6)")
-        check(lo.shape == rlo.shape and e <= 1e-6, "K5 disagrees with its plain twin")
-        errs[k5.KERNEL.name] = max(errs.get(k5.KERNEL.name, 0.0), e)
-    del mag, cases
+    k5_vs_plain(gen, mag, run, errs)
+    del mag
 
     # K3: on K2's 30 s output; <= 1e-5 abs over the samples istft returns.
     # The centre pad it trims holds the first and last half frames, where the
@@ -422,6 +524,8 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     print(f"K4 overlap_add hop {OLA_HOP}: abs err {e:.3e} (limit 1e-6)")
     check(got.shape == ref.shape and e <= 1e-6, "K4 disagrees with its plain twin")
     errs[k4.KERNEL.name] = e
+
+    big_batch_vs_plain(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -483,6 +587,92 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5,
               "K1/K2/K2m disagree with their plain twins")
     return errs
+
+
+def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> None:
+    """Phase 3's K5 checks on the magnitude ``mag`` (B, n_bins, F); ``run``
+    launches through a wrapper and checks its counter."""
+    from mlx_audio_primitives_tpu_torch.kernels import select_extremes as k5
+
+    dev = mag.device
+    # K5: the default contrast bands of that 64 x 30 s magnitude, read in
+    # place through the natural layout's strides (rows = frames), at its
+    # lanes per row and at each of 1 and 4; a wide random case at k = 16;
+    # rows full of ties; then k = 1..16 on random, tie-heavy and +-inf/NaN
+    # rows. Exact, so the error is expected to be 0.0; limit 1e-6 absolute.
+    def k5_case(x, k_lo, k_hi, g=None):
+        if g is None:
+            lo, hi = run(k5.KERNEL, k5.quantile_extreme_means_fused, x, k_lo, k_hi)
+        else:
+            lo, hi = run(k5.KERNEL, k5._launch, x, k_lo, k_hi, g)
+        rlo, rhi = k5_reference(x, k_lo, k_hi)
+        e = max(exact_err(lo, rlo), exact_err(hi, rhi))
+        check(lo.shape == rlo.shape and e <= 1e-6,
+              f"K5 disagrees with its plain twin: {tuple(x.shape)} k=({k_lo}, {k_hi}) g={g}")
+        errs[k5.KERNEL.name] = max(errs.get(k5.KERNEL.name, 0.0), e)
+        return e
+
+    for a, b, k in default_bands():
+        x = mag[:, a:b, :].transpose(1, 2)
+        e = k5_case(x, k, k)
+        e_g = max(k5_case(x, k, k, g) for g in (1, 4))
+        print(f"K5 select_extremes band {a}:{b} {tuple(x.shape)} k={k}: abs err {e:.3e} at "
+              f"g={k5.lanes_per_row(b - a)}, {e_g:.3e} at g = 1 and 4 (limit 1e-6)")
+    for label, x, k_lo, k_hi in (
+        ("random (10000, 4097)", torch.randn((10000, 4097), generator=gen, device=dev), 16, 16),
+        ("ties (4096, 300)", k5_rows(gen, "ties", (4096, 300)), 9, 5),
+    ):
+        e = k5_case(x, k_lo, k_hi)
+        print(f"K5 select_extremes {label} k=({k_lo}, {k_hi}): abs err {e:.3e} (limit 1e-6)")
+    worst, n = 0.0, 0
+    for k in range(1, 17):
+        for W in sorted({k, 17, 431, 1000}):
+            for kind in ("random", "ties", "inf/nan"):
+                x = k5_rows(gen, kind, (3000, W))
+                worst = max(worst, k5_case(x, k, k), k5_case(x, k, max(1, k // 2)))
+                n += 2
+    print(f"K5 sweep k = 1..16 at W = k, 17, 431, 1000 on random, tie-heavy and +-inf/NaN rows "
+          f"(3000 rows, k_hi = k and k // 2, {n} launches): max abs err {worst:.3e} (limit 1e-6)")
+
+
+def big_batch_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's checks of K3, K4 and K5 at 65,537 clips."""
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
+    from mlx_audio_primitives_tpu_torch.kernels import select_extremes as k5
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    dev = gen.device
+    # K3, K4 and K5 at 65,537 clips, past grid y's 65,535: small clips
+    # (n_fft 256, hop 128, 4 frames a clip), K5 on (65537, 8, 16); same limits
+    n_s, h_s = SMALL
+    w_s = _get_padded_window("hann", n_s, n_s, dev)
+    kws = dict(n_fft=n_s, hop_length=h_s, center=True, pad_mode="constant")
+    S = k2.stft_fused(torch.randn((BIG, 3 * h_s), generator=gen, device=dev), w_s,
+                      **kws).transpose(1, 2)
+    T = n_s + (S.shape[1] - 1) * h_s
+    env = _istft_envelope_table(("hann", None), n_s, n_s, S.shape[1], h_s, T, device=dev)
+    kw3 = dict(n_fft=n_s, hop_length=h_s, padded_length=T)
+    got = run(k3.KERNEL, k3.istft_fused, S, w_s, env, **kw3)
+    keep = slice(n_s // 2, T - n_s // 2)
+    e3 = abs_err(got[:, keep], k3.istft_plain(S, w_s, env, **kw3)[:, keep])
+    frames = (torch.fft.irfft(S, n=n_s) * w_s).contiguous()
+    kw4 = dict(hop_length=h_s, output_length=T)
+    got = run(k4.KERNEL, k4.overlap_add_fused, frames, env, **kw4)
+    e4 = abs_err(got, k4.overlap_add_plain(frames, env, **kw4))
+    x = torch.randn((BIG, 8, 16), generator=gen, device=dev)
+    lo, hi = run(k5.KERNEL, k5.quantile_extreme_means_fused, x, 3, 5)
+    rlo, rhi = k5.quantile_extreme_means_plain(x, 3, 5)
+    e5 = max(exact_err(lo, rlo), exact_err(hi, rhi))
+    print(f"{BIG} clips: K3 {tuple(S.shape)} abs err {e3:.3e} on the kept samples (limit 1e-5), "
+          f"K4 {tuple(frames.shape)} {e4:.3e} (limit 1e-6), K5 {tuple(x.shape)} k=(3, 5) {e5:.3e} "
+          f"(limit 1e-6)")
+    check(got.shape == (BIG, T) and lo.shape == (BIG, 8) and e3 <= 1e-5 and e4 <= 1e-6
+          and e5 <= 1e-6, f"K3, K4 or K5 disagrees with its plain twin at {BIG} clips")
+    errs[k3.KERNEL.name] = max(errs[k3.KERNEL.name], e3)
+    errs[k4.KERNEL.name] = max(errs[k4.KERNEL.name], e4)
+    errs[k5.KERNEL.name] = max(errs[k5.KERNEL.name], e5)
 
 
 def mel_oracle(y: torch.Tensor) -> torch.Tensor:
@@ -697,6 +887,47 @@ def feature_path(gen: torch.Generator) -> dict:
     return launches
 
 
+def large_batch(gen: torch.Generator) -> None:
+    """Phase 4c: the public ``istft`` and ``spectral_contrast`` on 65,537
+    small clips on CUDA tensors, each with every launch counter reset just
+    before and read just after."""
+    phase(f"4c. public istft and spectral_contrast on {BIG} clips on cuda tensors")
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    n_s, h_s = SMALL
+    y = torch.randn((BIG, 3 * h_s), generator=gen, device=gen.device)
+    S = ap.stft(y, n_fft=n_s, hop_length=h_s)
+    mag = S.abs()
+    reset_counts()
+    rec = ap.istft(S, hop_length=h_s, length=y.shape[1])
+    torch.cuda.synchronize()
+    read_counts(f"{BIG}-clip istft", ("istft_kernel",))
+    e = abs_err(rec, y)
+    print(f"istft {tuple(S.shape)} -> {tuple(rec.shape)}: round trip max abs err {e:.3e} "
+          f"(limit 1e-5)")
+    check(rec.shape == y.shape and e <= 1e-5, f"the {BIG}-clip round trip misses 1e-5")
+
+    # quantile 0.1 gives the top three bands k = 2, 4 and 6: K5 launches
+    kw = dict(S=mag, sr=SR, n_fft=n_s, hop_length=h_s, quantile=0.1)
+    reset_counts()
+    got = ap.spectral_contrast(**kw)
+    torch.cuda.synchronize()
+    launches = read_counts(f"{BIG}-clip spectral_contrast", ("select_extremes_kernel",))
+    check(launches["select_extremes_kernel"] == 3,
+          f"select_extremes_kernel launched {launches['select_extremes_kernel']} times, expected 3")
+    dispatch.KERNELS_ENABLED = False
+    try:
+        ref = ap.spectral_contrast(**kw)
+    finally:
+        dispatch.KERNELS_ENABLED = True
+    e = rel_err(got, ref)
+    print(f"spectral_contrast {tuple(mag.shape)} -> {tuple(got.shape)}: rel err against the plain "
+          f"path {e:.3e} (limit 1e-5)")
+    check(got.shape == (BIG, 7, mag.shape[-1]) and bool(torch.isfinite(got).all()) and e <= 1e-5,
+          f"the {BIG}-clip contrast disagrees with the plain path")
+
+
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
     the memory rate, the FP32 operations over the FP32 peak and the TF32
@@ -725,6 +956,50 @@ def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
         t2m = kernel_device_ms(lambda: k2.stft_magnitude_fused(y, win, **kw), "stft_kernel", calls)
         print(f"device time per call, {label} (torch.profiler, {calls} calls): K1 ({fb_t.shape[1]} "
               f"cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference {t1 - t2m:.4f} ms")
+
+
+def k345_split(gen: torch.Generator) -> None:
+    """Device times (torch.profiler) of K3 and K4 (hop 441) on one 30 s clip
+    and at 64 x 30 s, and of K5 on each default contrast band of 64 x 30 s
+    and on all four, for the port package that is imported."""
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
+    from mlx_audio_primitives_tpu_torch.kernels import select_extremes as k5
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    dev = torch.device("cuda", 0)
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    for label, B, calls in (("one 30 s clip", 1, 20), ("64 x 30 s", FEATURES[0], 5)):
+        y = torch.randn((B, LONG), generator=gen, device=dev)
+        S = k2.stft_fused(y, win, **kw).transpose(1, 2)
+        T = LONG + N_FFT
+        env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, S.shape[1], HOP, T, device=dev)
+        t3 = kernel_device_ms(lambda: k3.istft_fused(S, win, env, n_fft=N_FFT, hop_length=HOP,
+                                                     padded_length=T), "istft_kernel", calls)
+        # hop 441 lies outside K2's radix gate: the plain STFT
+        S = k2.stft_plain(y, win, n_fft=N_FFT, hop_length=OLA_HOP, center=True, pad_mode="constant")
+        frames = (torch.fft.irfft(S.transpose(1, 2), n=N_FFT) * win).contiguous()
+        del S
+        T = N_FFT + (frames.shape[1] - 1) * OLA_HOP
+        env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, frames.shape[1], OLA_HOP, T,
+                                    device=dev)
+        t4 = kernel_device_ms(lambda: k4.overlap_add_fused(frames, env, hop_length=OLA_HOP,
+                                                           output_length=T),
+                              "overlap_add_kernel", calls)
+        del frames
+        print(f"device time per call, {label} (torch.profiler, {calls} calls): K3 {t3:.4f} ms, "
+              f"K4 (hop {OLA_HOP}) {t4:.4f} ms")
+    mag = k2.stft_magnitude_fused(y, win, **kw)
+    per_band = []
+    for a, b, k in default_bands():
+        x = mag[:, a:b, :].transpose(1, 2)
+        per_band.append((b - a, k, kernel_device_ms(
+            lambda: k5.quantile_extreme_means_fused(x, k, k), "select_extremes_kernel", 20)))
+    print("K5 device time per call, the default contrast bands of 64 x 30 s (torch.profiler, 20 "
+          "calls each): " + ", ".join(f"W {w} k {k} {t:.4f}" for w, k, t in per_band)
+          + f"; all four {sum(t for _, _, t in per_band):.4f} ms")
 
 
 def times(gen: torch.Generator, card: str) -> dict:
@@ -877,6 +1152,10 @@ def times(gen: torch.Generator, card: str) -> dict:
     y_1s = y_head[:1].contiguous()
     print(f"K2 wrapper host path: {host_us(lambda: k2.stft_fused(y_1s, win, **kw)):.2f} us per call "
           f"(median of 5 runs of 1000 calls of a 1 s clip, no sync)")
+    v9, k9 = bands[-1][0][:1], bands[-1][1]
+    print(f"K5 wrapper host path: {host_us(lambda: k5.quantile_extreme_means_fused(v9, k9, k9)):.2f} "
+          f"us per call (median of 5 runs of 1000 calls on one clip's k = {k9} band, no sync)")
+
     def lib_stft(y):
         return torch.stft(y, N_FFT, HOP, window=win, center=True, pad_mode="constant",
                           return_complex=True)
@@ -891,6 +1170,14 @@ def times(gen: torch.Generator, card: str) -> dict:
     k1_split(y_scale, y_feat, win, fb_t, kw)
     print(f"K1 device time, headline (64, 22050) (torch.profiler, 20 calls): "
           f"{kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, **kw), k1.KERNEL.name, 20):.4f} ms")
+    k345_split(gen)
+    # K5 at each instantiated lanes per row: the bands, and all 1025 bins at
+    # k = 16 (a width past the bands')
+    for v, k in (*bands, (mag.transpose(1, 2), 16)):
+        t = [kernel_device_ms(lambda: k5._launch(v, k, k, g), k5.KERNEL.name, 20) for g in (1, 4)]
+        print(f"K5 device time per call, W {v.shape[-1]} k {k}, at 1 and 4 lanes per row "
+              f"(torch.profiler, 20 calls each; the wrapper takes {k5.lanes_per_row(v.shape[-1])}): "
+              + ", ".join(f"{x:.4f}" for x in t) + " ms")
     out = {}
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three
@@ -911,6 +1198,20 @@ def times(gen: torch.Generator, card: str) -> dict:
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def device_busy_ms(prof, calls: int) -> float:
+    """The device's busy time per call (ms) in a ``torch.profiler`` window
+    of ``calls`` calls: the union of its kernel and copy spans."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us / 1e3 / calls
 
 
 def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
@@ -940,22 +1241,16 @@ def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / calls
         dispatch.KERNELS_ENABLED = True
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not spans:
+        busy_ms = device_busy_ms(prof, calls)
+        if not busy_ms:
             print(f"{label}: the profiler saw no device time")
             continue
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
         by_name: dict[str, list] = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 item = by_name.setdefault(e.name, [0.0, 0])
                 item[0] += e.time_range.elapsed_us()
                 item[1] += 1
-        busy_ms = busy_us / 1e3 / calls
         print(f"{label}: window {wall_ms:.4f}, device busy {busy_ms:.4f}, "
               f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
@@ -985,6 +1280,33 @@ def host_path(root: str) -> None:
     us = host_us(lambda: k2.stft_fused(y, win, **kw))
     print(f"K2 wrapper host path of {os.path.dirname(k2.__file__)}: {us:.2f} us per call "
           f"(median of 5 runs of 1000 calls of a 1 s clip, no sync)")
+
+
+def k345_split_of(root: str) -> None:
+    """``--k345-split ROOT``: phase 5's K3, K4 and K5 device times, K5's SASS
+    counts and the feature path's CUDA-event time for the port package under
+    ``ROOT``, such as an unpacked earlier commit."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    import mlx_audio_primitives_tpu_torch.kernels as kernels
+
+    import mlx_audio_primitives_tpu_torch as ap
+
+    print(f"K3, K4 and K5 of {os.path.dirname(kernels.__file__)}:")
+    k5_sass()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k345_split(gen)
+    from torch.profiler import ProfilerActivity, profile
+
+    y = torch.randn(FEATURES, generator=gen, device=torch.device("cuda", 0))
+    t = [cuda_ms(lambda: feature_set(ap, y), 2, 20) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            feature_set(ap, y)
+        torch.cuda.synchronize()
+    print(f"features 64 x 30 s, kernel path: CUDA events {t[0]:.4f} / {t[1]:.4f} ms (median of "
+          f"20 calls after 2, twice); device busy {device_busy_ms(prof, 5):.4f} ms per call "
+          f"(torch.profiler, 5 calls)")
 
 
 def k1_split_of(root: str) -> None:
@@ -1088,6 +1410,9 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-split":
         k1_split_of(sys.argv[2])
         return
+    if len(sys.argv) == 3 and sys.argv[1] == "--k345-split":
+        k345_split_of(sys.argv[2])
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "--k1-ablations":
         k1_ablations()
         return
@@ -1097,6 +1422,7 @@ def main() -> None:
     errs = kernels_vs_plain(gen)
     log_mel = main_path(gen)
     features = feature_path(gen)
+    large_batch(gen)
     timing = times(gen, card)
     profile_features(gen, card)
 

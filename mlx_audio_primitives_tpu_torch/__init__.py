@@ -21,6 +21,13 @@ as in the JAX package. It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+try:  # the distribution's version, as the JAX package reads it
+    from importlib.metadata import version as _get_version
+
+    __version__ = _get_version("mlx-audio-primitives-tpu")
+except Exception:  # editable / in-tree use
+    __version__ = "0.1.0"
+
 from ._config import set_default_device
 from .ops.convert import amplitude_to_db, db_to_amplitude, db_to_power, power_to_db
 from .ops.features import (  # noqa: F401
@@ -41,6 +48,7 @@ from .ops.stft import check_nola, istft, magnitude, magphase, phase, stft  # noq
 from .ops.windows import get_window
 
 __all__ = [
+    "__version__",
     # STFT
     "stft",
     "istft",

@@ -12,12 +12,14 @@
 // tile samples (no atomics). Then it divides by the envelope and stores.
 // Frames shared with the neighbouring blocks are recomputed: (C-1)/RB extra
 // inverse FFTs. The imaginary parts of the DC and Nyquist bins are dropped
-// (irfft semantics).
+// (irfft semantics). Grid y holds the clip; the launcher covers any number
+// of clips in launches of at most kMaxGridY clips each.
 #include "fft_common.cuh"
 
 namespace {
 
 constexpr int kSmemLimit = 227 * 1024;
+constexpr int kMaxGridY = 65535;
 constexpr int kRowsPerBlock = 8;  // RB
 
 __host__ __device__ inline size_t istft_smem(int n_fft, int hop, int rb, int fb) {
@@ -109,10 +111,15 @@ extern "C" int istft_launch(const float* S, long long sb, long long sf, long lon
   if (err != cudaSuccess) return static_cast<int>(err);
   const int log_m = __builtin_ctz(static_cast<unsigned>(n_fft / 2));
   const long long rows = (T + hop - 1) / hop;
-  const dim3 grid(static_cast<unsigned>((rows + rb - 1) / rb), B);
-  istft_kernel<<<grid, mapt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float2*>(S), sb, sf, sk, win,
-      reinterpret_cast<const float2*>(tw), env, env_len, out, n_fft, log_m, hop, F,
-      T, rb, log_fb);
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {  // clips b0 .. b0 + grid y - 1
+    const dim3 grid(static_cast<unsigned>((rows + rb - 1) / rb),
+                    B - b0 < kMaxGridY ? B - b0 : kMaxGridY);
+    istft_kernel<<<grid, mapt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float2*>(S) + b0 * sb, sb, sf, sk, win,
+        reinterpret_cast<const float2*>(tw), env, env_len, out + b0 * T, n_fft, log_m, hop,
+        F, T, rb, log_fb);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+  }
+  return static_cast<int>(err);
 }

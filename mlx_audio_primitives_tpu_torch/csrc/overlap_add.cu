@@ -5,11 +5,14 @@
 // output sample t of one clip, summing the <= C = ceil(N/hop) frames that
 // cover it (frames past the output are never read), then divides by the
 // envelope, which counts as 1.0 past its length. Any hop; no atomics.
+// Grid y holds the clip; the launcher covers any number of clips in
+// launches of at most kMaxGridY clips each.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;
 
 __global__ void __launch_bounds__(kThreads)
 overlap_add_kernel(const float* __restrict__ fw, const float* __restrict__ env,
@@ -33,10 +36,16 @@ extern "C" int overlap_add_launch(const float* fw, const float* env, long long e
                                   long long T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((T + kThreads - 1) / kThreads), B);
-  overlap_add_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fw, env, env_len, out, F, n_fft, hop, T);
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {  // clips b0 .. b0 + grid y - 1
+    const dim3 grid(static_cast<unsigned>((T + kThreads - 1) / kThreads),
+                    B - b0 < kMaxGridY ? B - b0 : kMaxGridY);
+    overlap_add_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        fw + static_cast<long long>(b0) * F * n_fft, env, env_len, out + b0 * T, F, n_fft,
+        hop, T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+  }
+  return static_cast<int>(err);
 }
 
 // Message for an error code a launcher returned (one definition for the

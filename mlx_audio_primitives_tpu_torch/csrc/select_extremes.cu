@@ -3,93 +3,273 @@
 // Replaces mlx_audio_primitives_tpu/kernels/select_extremes.py::
 // quantile_extreme_means_pallas (pallas_call in _quantile_extreme_means_impl),
 // which stages a row block in VMEM and runs k argmin and k argmax passes
-// over it. Here one thread owns one row: it reads the row's W values once
-// and keeps two sorted register arrays, the k smallest (ascending) and the
-// k largest (descending). Every insertion is a fixed sequence of
-// compare-selects over all K slots, unrolled, so the arrays stay in
-// registers. The sums run in ascending order for lo and descending order
-// for hi, as the TPU kernel's extraction passes add them, then divide by k.
+// over it.
 //
-// Rows come through a strided 3-D view (B, R, W): spectral_contrast passes
-// a band of the natural (B, n_bins, F) magnitude with rows = frames, which
-// are contiguous, so neighbouring threads read neighbouring addresses and
-// each load is coalesced, with no transpose copy. What bounds it on this
-// card: the one read of the band (4 bytes per value) and, at K = 16, 4 K
-// compare-selects per value; the design reads each value once.
+// Rows come through a strided 3-D view (B, R, W), flattened to B*R rows on
+// grid x; the launcher covers any number of clips in launches of at most
+// kMaxClips clips. spectral_contrast passes a band of the natural
+// (B, n_bins, F) magnitude with rows = frames, which are contiguous. G lanes
+// of a warp share a row (G = 1 or 4, chosen from W by the wrapper):
+// lane = row_local * G + part, and part j streams bins j, j+G, j+2G, ..., so
+// the 32/G rows of a warp read each bin as one run of 32/G floats, in place,
+// with no transpose copy.
+//
+// Each lane keeps two sorted register arrays of K = max(k_lo, k_hi) slots,
+// the K smallest ascending and the K largest descending. For K <= 4 it
+// inserts each value v by min/max, two instructions a slot, from the top
+// slot down:
+//   lo[i] = max(lo[i-1], min(lo[i], v)),  hi[i] = min(hi[i-1], max(hi[i], v)),
+// and slot 0 by one min (max); this is the sorted insertion that drops the
+// last slot. For K >= 5 it loads K' values (K' the power of two >= K), sorts
+// them with a bitonic network and merges them into both arrays (below):
+// about 17 min/max a value at K = 9 against the insertion's 4K - 2 = 34.
+// Both load a chunk of values before they use any, so that many
+// independent loads are in flight.
+//
+// NaN. fminf/fmaxf return the other operand of a NaN. In the insertion, the
+// operand order above makes a NaN v leave both arrays unchanged at no cost
+// (the inner min or max returns the slot itself and the outer one keeps
+// it), while min(lo[i], max(lo[i-1], v)) would copy lo[i-1] into slot i. A
+// sorting network would turn a NaN into a copy of its neighbour, so a chunk
+// whose sum is NaN (a NaN, or +inf with -inf) is inserted value by value
+// instead. A NaN is thus skipped.
+//
+// Merge. To merge a sorted run b of K' values into a (padded to K' with
+// +inf), keep c[i] = min(a[i], b[K'-1-i]), a bitonic sequence that holds
+// the K' smallest of both, and sort it with the bitonic merge network; the
+// hi side does the same with min and max exchanged. The G parts of a row
+// are merged so in log2(G) butterfly rounds of __shfl_xor_sync. Every index
+// into a register array is a compile-time constant after unrolling, so the
+// arrays stay in registers.
+//
+// Lane part 0 sums lo from slot 0 up and hi from slot 0 down the values (the
+// TPU kernel's extraction passes add them in these orders), then divides by
+// k. Equal values have equal bits whatever order they arrived in, so kernel
+// and plain twin agree bit for bit, ties included.
+//
+// What bounds it on this card: the one read of the band (4 bytes a value)
+// and the min/max a value, which issue at 64 lanes a clock per SM on sm_90
+// (compare, minimum and maximum run at half the FP32 rate). On an H100
+// 80GB HBM3 at 700 W the widest default contrast band of 64 x 30 s clips
+// (W 431, k 9) takes 0.067 ms against 0.043 ms for its bytes; one lane a
+// row beat four on every default band (chip_smoke.py, phase 5).
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kDepth = 8;  // loads a lane issues before their insertions (K <= 4)
+constexpr int kMaxClips = 65535;  // clips a launch takes
 
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+__host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// Insert v into lo (ascending) and hi (descending); a NaN changes nothing.
 template <int K>
+__device__ __forceinline__ void insert(float (&lo)[K], float (&hi)[K], float v) {
+#pragma unroll
+  for (int i = K - 1; i > 0; --i) {
+    lo[i] = fmaxf(lo[i - 1], fminf(lo[i], v));
+    hi[i] = fminf(hi[i - 1], fmaxf(hi[i], v));
+  }
+  lo[0] = fminf(lo[0], v);
+  hi[0] = fmaxf(hi[0], v);
+}
+
+// a <- the K smallest (kLo, a ascending) or largest (a descending) of a and
+// b, a run of KP = pow2_ceil(K) values sorted as a is (padded past a
+// partner's K slots): the half-cleaner against b reversed, then the bitonic
+// merge network.
+template <bool kLo, int K, int KP>
+__device__ __forceinline__ void merge_into(float (&a)[K], const float (&b)[KP]) {
+  static_assert(KP == pow2_ceil(K), "a run of K' values");
+  float c[KP];
+#pragma unroll
+  for (int i = 0; i < KP; ++i) {
+    const float u = b[KP - 1 - i];
+    c[i] = i < K ? (kLo ? fminf(a[i], u) : fmaxf(a[i], u)) : u;  // a's padding loses
+  }
+#pragma unroll
+  for (int l = log2_of(KP) - 1; l >= 0; --l) {
+#pragma unroll
+    for (int i = 0; i < KP; ++i) {
+      if ((i >> l) & 1) continue;
+      const float u = c[i], w = c[i + (1 << l)];
+      c[i] = kLo ? fminf(u, w) : fmaxf(u, w);
+      c[i + (1 << l)] = kLo ? fmaxf(u, w) : fminf(u, w);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) a[i] = c[i];
+}
+
+// a <- the K smallest (largest) of a and the partner lane's a at lane
+// distance `dist`.
+template <bool kLo, int K>
+__device__ __forceinline__ void merge_partner(float (&a)[K], unsigned mask, int dist) {
+  constexpr int KP = pow2_ceil(K);
+  float b[KP];
+#pragma unroll
+  for (int j = 0; j < KP; ++j)
+    b[j] = j < K ? __shfl_xor_sync(mask, a[j], dist) : (kLo ? pos_inf() : neg_inf());
+  merge_into<kLo>(a, b);
+}
+
+// Sort N (a power of two) values ascending: the bitonic sorting network.
+template <int N>
+__device__ __forceinline__ void sort_ascending(float (&v)[N]) {
+#pragma unroll
+  for (int lk = 1; lk <= log2_of(N); ++lk) {
+#pragma unroll
+    for (int lj = log2_of(N) - 1; lj >= 0; --lj) {
+      if (lj >= lk) continue;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ (1 << lj);
+        if (l < i) continue;
+        const float u = fminf(v[i], v[l]), w = fmaxf(v[i], v[l]);
+        const bool up = ((i >> lk) & 1) == 0;  // the last stage sorts all ascending
+        v[i] = up ? u : w;
+        v[l] = up ? w : u;
+      }
+    }
+  }
+}
+
+// Merge a chunk of KP values that holds no NaN into lo and hi.
+template <int K, int KP>
+__device__ __forceinline__ void merge_chunk(float (&lo)[K], float (&hi)[K], float (&v)[KP]) {
+  sort_ascending(v);
+  merge_into<true>(lo, v);
+  float r[KP];  // descending, as hi is
+#pragma unroll
+  for (int j = 0; j < KP; ++j) r[j] = v[KP - 1 - j];
+  merge_into<false>(hi, r);
+}
+
+template <int K, int G>
 __global__ void __launch_bounds__(kThreads)
 select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
                        long long sw, float* __restrict__ lo_out,
-                       float* __restrict__ hi_out, int R, int W, int k_lo, int k_hi) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int b = blockIdx.y;
-  const float* row = x + b * sb + r * sr;
+                       float* __restrict__ hi_out, long long rows, int R, int W,
+                       int k_lo, int k_hi) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  // a row's G lanes are one aligned run of a warp: they leave together
+  if (row >= rows) return;
+  const int part = threadIdx.x & (G - 1);
+  const long long b = row / R;
+  const float* p = x + b * sb + (row - b * R) * sr + part * sw;
+  const long long step = G * sw;
+
   float lo[K], hi[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    lo[i] = __int_as_float(0x7f800000);   // +inf
-    hi[i] = __int_as_float(0xff800000);   // -inf
+    lo[i] = pos_inf();
+    hi[i] = neg_inf();
   }
-#pragma unroll 4
-  for (int w = 0; w < W; ++w) {
-    const float v = row[w * sw];
-    // sorted insertion that drops the last slot; from the top down, so
-    // slot i-1 still holds its old value when slot i is decided
+  // K >= 5: chunks of K' values, sorted and merged; else chunks of kDepth
+  // values, inserted
+  constexpr bool kSortMerge = K >= 5;
+  constexpr int D = kSortMerge ? pow2_ceil(K) : kDepth;
+  const int n = (W - part + G - 1) / G;  // the values of this part
+  int t = 0;
+  for (; t + D <= n; t += D) {
+    float v[D];
 #pragma unroll
-    for (int i = K - 1; i > 0; --i) {
-      lo[i] = v < lo[i - 1] ? lo[i - 1] : (v < lo[i] ? v : lo[i]);
-      hi[i] = v > hi[i - 1] ? hi[i - 1] : (v > hi[i] ? v : hi[i]);
+    for (int u = 0; u < D; ++u) v[u] = __ldg(p + u * step);
+    p += D * step;
+    if constexpr (kSortMerge) {
+      float sum = v[0];  // NaN iff a NaN, or +inf with -inf
+#pragma unroll
+      for (int u = 1; u < D; ++u) sum += v[u];
+      if (sum == sum) {
+        merge_chunk(lo, hi, v);
+        continue;
+      }
     }
-    lo[0] = v < lo[0] ? v : lo[0];
-    hi[0] = v > hi[0] ? v : hi[0];
-  }
-  float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
+    for (int u = 0; u < D; ++u) insert(lo, hi, v[u]);
+  }
+  for (; t < n; ++t, p += step) insert(lo, hi, __ldg(p));
+
+  if (G > 1) {
+    const unsigned lane = threadIdx.x & 31;
+    const unsigned mask = G == 32 ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
+#pragma unroll
+    for (int l = 0; l < log2_of(G); ++l) {
+      merge_partner<true>(lo, mask, 1 << l);
+      merge_partner<false>(hi, mask, 1 << l);
+    }
+  }
+  if (part != 0) return;
+  float s_lo = lo[0], s_hi = hi[0];
+#pragma unroll
+  for (int i = 1; i < K; ++i) {
     if (i < k_lo) s_lo += lo[i];
     if (i < k_hi) s_hi += hi[i];
   }
-  const long long o = static_cast<long long>(b) * R + r;
-  lo_out[o] = s_lo / static_cast<float>(k_lo);
-  hi_out[o] = s_hi / static_cast<float>(k_hi);
+  lo_out[row] = s_lo / static_cast<float>(k_lo);
+  hi_out[row] = s_hi / static_cast<float>(k_hi);
+}
+
+template <int K, int G>
+cudaError_t launch_kg(const float* x, long long sb, long long sr, long long sw, float* lo,
+                      float* hi, long long rows, int R, int W, int k_lo, int k_hi,
+                      cudaStream_t stream) {
+  const long long blocks = (rows * G + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  select_extremes_kernel<K, G><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi);
+  return cudaGetLastError();
 }
 
 template <int K>
-cudaError_t launch_k(const float* x, long long sb, long long sr, long long sw,
-                     float* lo, float* hi, int B, int R, int W, int k_lo, int k_hi,
+cudaError_t launch_k(const float* x, long long sb, long long sr, long long sw, float* lo,
+                     float* hi, long long rows, int R, int W, int k_lo, int k_hi, int g,
                      cudaStream_t stream) {
-  const dim3 grid((R + kThreads - 1) / kThreads, B);
-  select_extremes_kernel<K><<<grid, kThreads, 0, stream>>>(x, sb, sr, sw, lo, hi, R, W,
-                                                           k_lo, k_hi);
-  return cudaGetLastError();
+  switch (g) {
+    case 1: return launch_kg<K, 1>(x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi, stream);
+    case 4: return launch_kg<K, 4>(x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// k_lo, k_hi in [1, 16] and <= W (the wrapper's gate); one instantiation per
-// K = max(k_lo, k_hi), so no slot is carried that no sum reads.
+// k_lo, k_hi in [1, 16] and <= W (the wrapper's gate), g lanes a row (1 or
+// 4); one instantiation per (K = max(k_lo, k_hi), g), so no slot is carried
+// that no sum reads.
 extern "C" int select_extremes_launch(const float* x, long long sb, long long sr,
                                       long long sw, float* lo, float* hi, int B, int R,
-                                      int W, int k_lo, int k_hi, int device, void* stream) {
+                                      int W, int k_lo, int k_hi, int g, int device,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int k = k_lo > k_hi ? k_lo : k_hi;
-  switch (k) {
-#define MAPT_CASE(K) \
-  case K: err = launch_k<K>(x, sb, sr, sw, lo, hi, B, R, W, k_lo, k_hi, s); break;
-    MAPT_CASE(1) MAPT_CASE(2) MAPT_CASE(3) MAPT_CASE(4) MAPT_CASE(5) MAPT_CASE(6)
-    MAPT_CASE(7) MAPT_CASE(8) MAPT_CASE(9) MAPT_CASE(10) MAPT_CASE(11) MAPT_CASE(12)
-    MAPT_CASE(13) MAPT_CASE(14) MAPT_CASE(15) MAPT_CASE(16)
+  for (int b0 = 0; b0 < B && R > 0; b0 += kMaxClips) {  // clips b0 .. b0 + nb - 1
+    const long long rows = static_cast<long long>(B - b0 < kMaxClips ? B - b0 : kMaxClips) * R;
+    const float* xb = x + b0 * sb;
+    const long long o = static_cast<long long>(b0) * R;
+    switch (k) {
+#define MAPT_CASE(K)                                                                     \
+  case K:                                                                                \
+    err = launch_k<K>(xb, sb, sr, sw, lo + o, hi + o, rows, R, W, k_lo, k_hi, g, s); \
+    break;
+      MAPT_CASE(1) MAPT_CASE(2) MAPT_CASE(3) MAPT_CASE(4) MAPT_CASE(5) MAPT_CASE(6)
+      MAPT_CASE(7) MAPT_CASE(8) MAPT_CASE(9) MAPT_CASE(10) MAPT_CASE(11) MAPT_CASE(12)
+      MAPT_CASE(13) MAPT_CASE(14) MAPT_CASE(15) MAPT_CASE(16)
 #undef MAPT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != cudaSuccess) break;
   }
   return static_cast<int>(err);
 }

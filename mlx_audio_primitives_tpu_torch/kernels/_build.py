@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from collections.abc import Callable
@@ -38,14 +39,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: Largest grid y extent: the kernels put the clip index there.
-MAX_BATCH = 65535
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: What the build that produced the loaded library reported: its directory,
-#: the seconds nvcc took (0.0 when an earlier build was reused) and nvcc's
-#: output (register and shared-memory use per kernel).
+#: the seconds nvcc took (0.0 when an earlier build was reused), the seconds
+#: each source's nvcc process took and nvcc's output (register and
+#: shared-memory use per kernel).
 build_info: dict = {}
 
 P = ctypes.c_void_p
@@ -88,22 +88,34 @@ def build() -> Path:
     return lib
 
 
-def _run_all(cmds: list[list[str]]) -> tuple[list[int], str]:
-    """Run the commands at once; wait for all; return their codes and their
-    output, one command after another."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = []
+def _run_all(cmds: list[list[str]]) -> tuple[list[int], str, list[float]]:
+    """Run the commands at once; wait for all; return their codes, their
+    output (one command after another) and the seconds each took."""
+    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT, text=True)
+             for c, f in zip(cmds, logs)]
+    seconds = [0.0] * len(procs)
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=900)[0])
+        while True:
+            for i, p in enumerate(procs):
+                if not seconds[i] and p.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+            if all(seconds) or time.perf_counter() - t0 > 900:
+                break
+            time.sleep(0.02)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
     log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
-    return [p.returncode for p in procs], log
+    return [p.returncode for p in procs], log, seconds
 
 
 def _compile(out_dir: Path, lib: Path) -> None:
@@ -111,21 +123,23 @@ def _compile(out_dir: Path, lib: Path) -> None:
     sources = sorted(CSRC.glob("*.cu"))
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    codes, log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                           for src, o in zip(sources, objs)])
+    codes, log, per_source = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                                       for src, o in zip(sources, objs)])
     if not any(codes):
         tmp = out_dir / f"{LIB_NAME}.{tag}"
-        link_codes, link_log = _run_all([[_nvcc(), "-shared", "-o", str(tmp),
-                                          *map(str, objs)]])
+        link_codes, link_log, _ = _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                                             *map(str, objs)]])
         codes, log = codes + link_codes, log + link_log
     seconds = time.perf_counter() - t0
     (out_dir / "nvcc.log").write_text(log)
     for o in objs:
         o.unlink(missing_ok=True)
     if any(codes):
-        raise RuntimeError(f"nvcc failed with codes {codes}:\n{log[-6000:]}")
+        failed = [ln for ln in log.splitlines() if "error" in ln or "nvcc" in ln]
+        raise RuntimeError(f"nvcc failed with codes {codes}:\n" + "\n".join(failed)[-6000:])
     os.replace(tmp, lib)
-    build_info.update(dir=str(out_dir), seconds=seconds, log=log)
+    build_info.update(dir=str(out_dir), seconds=seconds, log=log,
+                      seconds_by_source={src.name: t for src, t in zip(sources, per_source)})
 
 
 def library() -> ctypes.CDLL:

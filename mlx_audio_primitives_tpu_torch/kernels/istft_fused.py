@@ -37,7 +37,7 @@ import torch
 
 from .._config import COMPLEX_DTYPE
 from ..utils.dispatch import on_cuda, radix_shape_ok
-from ._build import I32, I64, MAX_BATCH, Kernel, P, register, require, with_plain_backward
+from ._build import I32, I64, Kernel, P, register, require, with_plain_backward
 from .dft import irfft_frames, rfft_twiddles
 from .overlap_add import overlap_add_plain
 
@@ -79,8 +79,6 @@ def _launch(S, win, env, *, n_fft, hop_length, padded_length):
             f"istft_kernel needs win ({n_fft},) and {n_fft // 2 + 1} bins; "
             f"got {tuple(win.shape)} and {n_bins}"
         )
-    if B > MAX_BATCH:
-        raise ValueError(f"istft_kernel takes at most {MAX_BATCH} clips, got {B}")
     tw = rfft_twiddles(n_fft, device=S.device)
     out = torch.empty((B, padded_length), dtype=torch.float32, device=S.device)
     sb, sf, sk = S.stride()

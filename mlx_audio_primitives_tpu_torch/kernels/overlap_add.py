@@ -22,7 +22,7 @@ import torch
 
 from ..ops._frames import cdiv, overlap_add
 from ..utils.dispatch import on_cuda
-from ._build import I32, I64, MAX_BATCH, Kernel, P, register, require, with_plain_backward
+from ._build import I32, I64, Kernel, P, register, require, with_plain_backward
 
 # Bound on C = ceil(n_fft/hop), the JAX kernel's gate (there it bounds the
 # statically unrolled chunk adds; kept so both packages route alike).
@@ -57,8 +57,6 @@ def _launch(fw: torch.Tensor, env: torch.Tensor, *, hop_length: int,
     require(fw, "fw", torch.float32, 3)
     require(env, "env", torch.float32, 1)
     B, F, n_fft = fw.shape
-    if B > MAX_BATCH:
-        raise ValueError(f"overlap_add_kernel takes at most {MAX_BATCH} clips, got {B}")
     out = torch.empty((B, output_length), dtype=torch.float32, device=fw.device)
     KERNEL.launch(fw.device, fw.data_ptr(), env.data_ptr(), env.shape[0], out.data_ptr(),
                   B, F, n_fft, hop_length, output_length)

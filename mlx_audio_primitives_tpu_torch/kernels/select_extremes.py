@@ -9,15 +9,22 @@ band_width))`` (2 to 9 for the default bands at n_fft 2048).
 Source note (`csrc/select_extremes.cu`, ``select_extremes_kernel``).
 Replaces ``quantile_extreme_means_pallas`` (its ``pallas_call`` in
 ``_quantile_extreme_means_impl``). The TPU kernel stages row blocks in VMEM
-and runs ``k`` argmin/argmax passes; here one thread owns one row, streams
-its ``W`` values once and keeps the ``k`` smallest and ``k`` largest in two
-sorted register arrays (one template instance per ``k``, insertions fully
-unrolled, so nothing spills). Rows come through a strided ``(B, R, W)``
-view, so a band of the natural ``(B, n_bins, F)`` magnitude is read in place
-with frames across threads, coalesced: no swapaxes and reshape copy, which
-the JAX code pays. What bounds it on this card: the one read of the band,
+and runs ``k`` argmin/argmax passes; here ``g`` lanes of a warp share a row
+(:func:`lanes_per_row`), each streams every ``g``-th value once into two
+sorted register arrays (the ``k`` smallest and the ``k`` largest): by
+min/max insertion, two instructions a slot, for ``k <= 4``, and for
+``k >= 5`` by chunks of ``k'`` values (the power of two >= ``k``) sorted
+with a bitonic network and merged into both arrays; shuffles merge the
+``g`` parts (one template instance per ``(k, g)``, fully unrolled, so
+nothing spills). Rows come through a strided ``(B, R, W)`` view, flattened
+over ``B*R`` on the grid, so a band of the natural ``(B, n_bins, F)``
+magnitude is read in place with frames across lanes, coalesced, with no
+swapaxes and reshape copy, which the JAX code pays; the launcher takes any
+number of clips, at most 65,535 a launch. A NaN is skipped (it changes
+neither array). What bounds it on this card: the one read of the band,
 315 MB over the four default bands at 64 x 30 s clips, 0.094 ms at
-3.35 TB/s; at ``k = 16`` its compare-selects (4k per value) come close.
+3.35 TB/s, and its min/max a value (34 by insertion at ``k = 9``, ~20 by
+sort and merge), which issue at half the FP32 rate.
 
 Sums run in ascending order for the lo mean and descending order for the
 hi mean, as the TPU kernel's extraction adds them, so kernel, twin and JAX
@@ -31,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.dispatch import on_cuda
-from ._build import I32, I64, MAX_BATCH, Kernel, P, register
+from ._build import I32, I64, Kernel, P, register
 
 #: Largest k the kernel takes; past it the sort path runs (as in JAX, where
 #: beyond this the extraction passes approach the sort's cost).
@@ -39,7 +46,7 @@ MAX_K = 16
 
 KERNEL = register(Kernel(
     "select_extremes_kernel", "select_extremes_launch",
-    (P, I64, I64, I64, P, P, I32, I32, I32, I32, I32),
+    (P, I64, I64, I64, P, P, I32, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/select_extremes.cu",
     replaces="mlx_audio_primitives_tpu/kernels/select_extremes.py:168",
 ))
@@ -50,6 +57,15 @@ def select_supported(width: int, k_lo: int, k_hi: int) -> bool:
     (more picks than values would read the padding; the sort path clamps
     its slice instead)."""
     return width >= 1 and 1 <= k_lo <= min(MAX_K, width) and 1 <= k_hi <= min(MAX_K, width)
+
+
+def lanes_per_row(width: int) -> int:
+    """Lanes the kernel gives a row of ``width`` values: 1 below 512, else
+    4. Measured on an H100 (``chip_smoke.py`` phase 5, each band at 1, 4
+    and 8 lanes): one lane a row is fastest on the default contrast bands
+    (W 74 to 431), where the merge costs more than the split saves, four on
+    rows of 1025 bins; eight was slower at every width measured."""
+    return 1 if width < 512 else 4
 
 
 def _ordered_mean(v: torch.Tensor) -> torch.Tensor:
@@ -66,7 +82,10 @@ def quantile_extreme_means_plain(
     x: torch.Tensor, k_lo: int, k_hi: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin: ``topk`` of the smallest (ascending) and the largest
-    (descending), summed in that order -> two ``x.shape[:-1]`` tensors."""
+    (descending), summed in that order -> two ``x.shape[:-1]`` tensors.
+    Where a row holds a NaN the two differ: the kernel skips it, ``topk``
+    ranks it above ``+inf``. The kernel's lo (hi) mean is the twin's of the
+    row with each NaN made ``+inf`` (``-inf``)."""
     lo = torch.topk(x, k_lo, dim=-1, largest=False, sorted=True).values
     hi = torch.topk(x, k_hi, dim=-1, largest=True, sorted=True).values
     return _ordered_mean(lo), _ordered_mean(hi)
@@ -90,21 +109,29 @@ def extreme_masks(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, 
     return mask_lo, mask_hi
 
 
-def _launch(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(x: torch.Tensor, k_lo: int, k_hi: int,
+            g: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch on ``g`` lanes a row (1 or 4; by default
+    :func:`lanes_per_row`)."""
     if x.device.type != "cuda" or x.dtype != torch.float32:
         raise ValueError(f"select_extremes_kernel needs a float32 CUDA tensor, got "
                          f"{x.dtype} on {x.device}")
     x3 = x.unsqueeze(0) if x.dim() == 2 else x
     B, R, W = x3.shape
-    if B > MAX_BATCH:
-        raise ValueError(f"select_extremes_kernel takes at most {MAX_BATCH} batches, got {B}")
     lo = torch.empty((B, R), dtype=torch.float32, device=x.device)
     hi = torch.empty_like(lo)
-    if R > 0:
+    if B * R > 0:
         sb, sr, sw = x3.stride()
         KERNEL.launch(x.device, x3.data_ptr(), sb, sr, sw, lo.data_ptr(), hi.data_ptr(),
-                      B, R, W, k_lo, k_hi)
+                      B, R, W, k_lo, k_hi, lanes_per_row(W) if g is None else g)
     return lo.view(x.shape[:-1]), hi.view(x.shape[:-1])
+
+
+def _forward(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on a CUDA tensor, the plain twin on a CPU tensor."""
+    if on_cuda(x):
+        return _launch(x, k_lo, k_hi)
+    return quantile_extreme_means_plain(x, k_lo, k_hi)
 
 
 class _QuantileExtremeMeans(torch.autograd.Function):
@@ -115,9 +142,7 @@ class _QuantileExtremeMeans(torch.autograd.Function):
     def forward(ctx, x, k_lo, k_hi):
         ctx.k = (k_lo, k_hi)
         ctx.save_for_backward(x)
-        if on_cuda(x):
-            return _launch(x, k_lo, k_hi)
-        return quantile_extreme_means_plain(x, k_lo, k_hi)
+        return _forward(x, k_lo, k_hi)
 
     @staticmethod
     def backward(ctx, g_lo, g_hi):
@@ -135,11 +160,14 @@ def quantile_extreme_means_fused(
     ``(R, W) -> ((R,), (R,))``, or ``(B, R, W) -> ((B, R), (B, R))`` for a
     strided 3-D view (any strides). Runs ``select_extremes_kernel`` on a
     CUDA tensor and the plain twin on a CPU tensor. Exact (sort-equivalent,
-    ties included); differentiable."""
+    ties included); differentiable. Without a gradient to record the forward
+    runs directly, without the autograd ``Function``'s per-call cost."""
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be (R, W) or (B, R, W), got shape {tuple(x.shape)}")
     if not select_supported(x.shape[-1], k_lo, k_hi):
         raise ValueError(
             f"extraction kernel gate rejects W={x.shape[-1]}, k_lo={k_lo}, k_hi={k_hi}"
         )
-    return _QuantileExtremeMeans.apply(x, int(k_lo), int(k_hi))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QuantileExtremeMeans.apply(x, int(k_lo), int(k_hi))
+    return _forward(x, k_lo, k_hi)
