@@ -16,15 +16,15 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    source, all at once (timed, and each source's process); for each
    K1/K2/K2m instance, ptxas's registers and spill bytes (a spill fails the
    run), its threads, frames per tile, shared memory per block and resident
-   warps per SM; for each K5 instance (k, lanes per row), its registers,
-   stack frame and spill bytes (either fails the run);
+   warps per SM; for each K5 instance (k slots), its registers, stack
+   frame and spill bytes (either fails the run);
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
    lengths, K1 at column counts around its 16-column tiles; K5 on the
-   default contrast bands at 1 and 4 lanes per row and over k = 1..16 on
+   default contrast bands and over k = 1..16 on
    random, tie-heavy and +-inf/NaN rows; K3, K4 and K5 at 65,537 clips);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
@@ -50,8 +50,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
    clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
    at the scale configuration and at 64 x 30 s, of K3 and K4 on one 30 s
-   clip and at 64 x 30 s, and of K5 on each default contrast band (also at
-   1 and 4 lanes per row, and on 1025-bin rows);
+   clip and at 64 x 30 s, and of K5 on each default contrast band;
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -240,7 +239,7 @@ def build() -> None:
     by_source = _build.build_info.get("seconds_by_source", {})
     print("nvcc seconds by source:", ", ".join(f"{k} {v:.2f}" for k, v in by_source.items()))
     log = _build.build_info.get("log", "")
-    k5_entry = False  # K5's 32 instances are summed up by k5_instances
+    k5_entry = False  # K5's 16 instances are summed up by k5_instances
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             k5_entry = "select_extremes_kernel" in ln
@@ -252,14 +251,14 @@ def build() -> None:
 
 
 def k5_instances(log: str) -> None:
-    """K5 per instance (k slots, g lanes per row): ptxas's registers, stack
-    frame and spill bytes. Fails on a spill, or on a stack frame, which means
+    """K5 per instance (k slots): ptxas's registers, stack frame and spill
+    bytes. Fails on a spill, or on a stack frame, which means
     a register array was left in local memory."""
     rows, entry, frame = {}, None, (0, 0)
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?select_extremes_kernelILi(\d+)ELi(\d+)E", ln)
+        m = re.search(r"Compiling entry function '\S*?select_extremes_kernelILi(\d+)E", ln)
         if m:
-            entry = (int(m.group(1)), int(m.group(2)))
+            entry = int(m.group(1))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and entry:
@@ -268,12 +267,11 @@ def k5_instances(log: str) -> None:
         if m and entry:
             rows[entry] = (int(m.group(1)), *frame)
             entry, frame = None, (0, 0)
-    check(len(rows) == 32, f"ptxas reported {len(rows)} K5 instances, expected 32")
-    for g in (1, 4):
-        print(f"  select_extremes_kernel g={g}, k = 1..16: registers "
-              + " ".join(str(rows[(k, g)][0]) for k in range(1, 17))
-              + f"; stack frame max {max(rows[(k, g)][1] for k in range(1, 17))} B, "
-              f"spill max {max(rows[(k, g)][2] for k in range(1, 17))} B")
+    check(len(rows) == 16, f"ptxas reported {len(rows)} K5 instances, expected 16")
+    print("  select_extremes_kernel k = 1..16: registers "
+          + " ".join(str(rows[k][0]) for k in range(1, 17))
+          + f"; stack frame max {max(r[1] for r in rows.values())} B, "
+          f"spill max {max(r[2] for r in rows.values())} B")
     check(all(r[1] == 0 and r[2] == 0 for r in rows.values()),
           "a K5 instance has a stack frame or spills")
 
@@ -340,8 +338,8 @@ def k5_sass(ks: tuple[int, ...] = (4, 9)) -> None:
     name, counts = None, {}
     for ln in out.splitlines():
         if "Function :" in ln:
-            m = re.search(r"select_extremes_kernelILi(\d+)E(?:Li(\d+)E)?", ln)
-            name = (int(m.group(1)), int(m.group(2) or 1)) if m else None
+            m = re.search(r"select_extremes_kernelILi(\d+)E", ln)
+            name = int(m.group(1)) if m else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
         if name and m:
@@ -350,9 +348,9 @@ def k5_sass(ks: tuple[int, ...] = (4, 9)) -> None:
             op = m.group(1).split(".")[0]
             for kind, ops in kinds.items():
                 c[kind] += op in ops
-    for (k, g), c in sorted(counts.items()):
-        if k in ks and g in (1, 4):
-            print(f"  K5 SASS k={k} g={g}: {c['all']} instructions, {c['load']} loads, "
+    for k, c in sorted(counts.items()):
+        if k in ks:
+            print(f"  K5 SASS k={k}: {c['all']} instructions, {c['load']} loads, "
                   f"{c['min/max']} min/max ({c['min/max'] / max(c['load'], 1):.1f} a load), "
                   f"{c['select']} select, {c['compare']} compare")
 
@@ -596,28 +594,24 @@ def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> Non
 
     dev = mag.device
     # K5: the default contrast bands of that 64 x 30 s magnitude, read in
-    # place through the natural layout's strides (rows = frames), at its
-    # lanes per row and at each of 1 and 4; a wide random case at k = 16;
+    # place through the natural layout's strides (rows = frames); a wide
+    # random case at k = 16;
     # rows full of ties; then k = 1..16 on random, tie-heavy and +-inf/NaN
     # rows. Exact, so the error is expected to be 0.0; limit 1e-6 absolute.
-    def k5_case(x, k_lo, k_hi, g=None):
-        if g is None:
-            lo, hi = run(k5.KERNEL, k5.quantile_extreme_means_fused, x, k_lo, k_hi)
-        else:
-            lo, hi = run(k5.KERNEL, k5._launch, x, k_lo, k_hi, g)
+    def k5_case(x, k_lo, k_hi):
+        lo, hi = run(k5.KERNEL, k5.quantile_extreme_means_fused, x, k_lo, k_hi)
         rlo, rhi = k5_reference(x, k_lo, k_hi)
         e = max(exact_err(lo, rlo), exact_err(hi, rhi))
         check(lo.shape == rlo.shape and e <= 1e-6,
-              f"K5 disagrees with its plain twin: {tuple(x.shape)} k=({k_lo}, {k_hi}) g={g}")
+              f"K5 disagrees with its plain twin: {tuple(x.shape)} k=({k_lo}, {k_hi})")
         errs[k5.KERNEL.name] = max(errs.get(k5.KERNEL.name, 0.0), e)
         return e
 
     for a, b, k in default_bands():
         x = mag[:, a:b, :].transpose(1, 2)
         e = k5_case(x, k, k)
-        e_g = max(k5_case(x, k, k, g) for g in (1, 4))
-        print(f"K5 select_extremes band {a}:{b} {tuple(x.shape)} k={k}: abs err {e:.3e} at "
-              f"g={k5.lanes_per_row(b - a)}, {e_g:.3e} at g = 1 and 4 (limit 1e-6)")
+        print(f"K5 select_extremes band {a}:{b} {tuple(x.shape)} k={k}: abs err {e:.3e} "
+              f"(limit 1e-6)")
     for label, x, k_lo, k_hi in (
         ("random (10000, 4097)", torch.randn((10000, 4097), generator=gen, device=dev), 16, 16),
         ("ties (4096, 300)", k5_rows(gen, "ties", (4096, 300)), 9, 5),
@@ -1171,13 +1165,6 @@ def times(gen: torch.Generator, card: str) -> dict:
     print(f"K1 device time, headline (64, 22050) (torch.profiler, 20 calls): "
           f"{kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, **kw), k1.KERNEL.name, 20):.4f} ms")
     k345_split(gen)
-    # K5 at each instantiated lanes per row: the bands, and all 1025 bins at
-    # k = 16 (a width past the bands')
-    for v, k in (*bands, (mag.transpose(1, 2), 16)):
-        t = [kernel_device_ms(lambda: k5._launch(v, k, k, g), k5.KERNEL.name, 20) for g in (1, 4)]
-        print(f"K5 device time per call, W {v.shape[-1]} k {k}, at 1 and 4 lanes per row "
-              f"(torch.profiler, 20 calls each; the wrapper takes {k5.lanes_per_row(v.shape[-1])}): "
-              + ", ".join(f"{x:.4f}" for x in t) + " ms")
     out = {}
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three

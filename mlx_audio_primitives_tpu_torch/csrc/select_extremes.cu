@@ -6,15 +6,13 @@
 // over it.
 //
 // Rows come through a strided 3-D view (B, R, W), flattened to B*R rows on
-// grid x; the launcher covers any number of clips in launches of at most
-// kMaxClips clips. spectral_contrast passes a band of the natural
-// (B, n_bins, F) magnitude with rows = frames, which are contiguous. G lanes
-// of a warp share a row (G = 1 or 4, chosen from W by the wrapper):
-// lane = row_local * G + part, and part j streams bins j, j+G, j+2G, ..., so
-// the 32/G rows of a warp read each bin as one run of 32/G floats, in place,
-// with no transpose copy.
+// grid x with a 64-bit row index, so one launch takes any number of clips.
+// spectral_contrast passes a band of the natural (B, n_bins, F) magnitude
+// with rows = frames, which are contiguous: a thread owns a row and streams
+// its W values, and the 32 neighbouring rows of a warp read each bin as one
+// run of 32 floats, in place, with no transpose copy.
 //
-// Each lane keeps two sorted register arrays of K = max(k_lo, k_hi) slots,
+// Each thread keeps two sorted register arrays of K = max(k_lo, k_hi) slots,
 // the K smallest ascending and the K largest descending. For K <= 4 it
 // inserts each value v by min/max, two instructions a slot, from the top
 // slot down:
@@ -37,12 +35,11 @@
 // Merge. To merge a sorted run b of K' values into a (padded to K' with
 // +inf), keep c[i] = min(a[i], b[K'-1-i]), a bitonic sequence that holds
 // the K' smallest of both, and sort it with the bitonic merge network; the
-// hi side does the same with min and max exchanged. The G parts of a row
-// are merged so in log2(G) butterfly rounds of __shfl_xor_sync. Every index
-// into a register array is a compile-time constant after unrolling, so the
-// arrays stay in registers.
+// hi side does the same with min and max exchanged. Every index into a
+// register array is a compile-time constant after unrolling, so the arrays
+// stay in registers.
 //
-// Lane part 0 sums lo from slot 0 up and hi from slot 0 down the values (the
+// The thread sums lo from slot 0 up and hi from slot 0 down the values (the
 // TPU kernel's extraction passes add them in these orders), then divides by
 // k. Equal values have equal bits whatever order they arrived in, so kernel
 // and plain twin agree bit for bit, ties included.
@@ -51,8 +48,9 @@
 // and the min/max a value, which issue at 64 lanes a clock per SM on sm_90
 // (compare, minimum and maximum run at half the FP32 rate). On an H100
 // 80GB HBM3 at 700 W the widest default contrast band of 64 x 30 s clips
-// (W 431, k 9) takes 0.067 ms against 0.043 ms for its bytes; one lane a
-// row beat four on every default band (chip_smoke.py, phase 5).
+// (W 431, k 9) takes 0.067 ms against 0.043 ms for its bytes (chip_smoke.py,
+// phase 5). Rows split across four lanes merged by shuffles were slower on
+// every default band there.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -60,8 +58,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kDepth = 8;  // loads a lane issues before their insertions (K <= 4)
-constexpr int kMaxClips = 65535;  // clips a launch takes
+constexpr int kDepth = 8;  // loads a thread issues before their insertions (K <= 4)
 
 __host__ __device__ constexpr int pow2_ceil(int n) {
   return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
@@ -84,9 +81,8 @@ __device__ __forceinline__ void insert(float (&lo)[K], float (&hi)[K], float v) 
 }
 
 // a <- the K smallest (kLo, a ascending) or largest (a descending) of a and
-// b, a run of KP = pow2_ceil(K) values sorted as a is (padded past a
-// partner's K slots): the half-cleaner against b reversed, then the bitonic
-// merge network.
+// b, a run of KP = pow2_ceil(K) values sorted as a is: the half-cleaner
+// against b reversed, then the bitonic merge network.
 template <bool kLo, int K, int KP>
 __device__ __forceinline__ void merge_into(float (&a)[K], const float (&b)[KP]) {
   static_assert(KP == pow2_ceil(K), "a run of K' values");
@@ -108,18 +104,6 @@ __device__ __forceinline__ void merge_into(float (&a)[K], const float (&b)[KP]) 
   }
 #pragma unroll
   for (int i = 0; i < K; ++i) a[i] = c[i];
-}
-
-// a <- the K smallest (largest) of a and the partner lane's a at lane
-// distance `dist`.
-template <bool kLo, int K>
-__device__ __forceinline__ void merge_partner(float (&a)[K], unsigned mask, int dist) {
-  constexpr int KP = pow2_ceil(K);
-  float b[KP];
-#pragma unroll
-  for (int j = 0; j < KP; ++j)
-    b[j] = j < K ? __shfl_xor_sync(mask, a[j], dist) : (kLo ? pos_inf() : neg_inf());
-  merge_into<kLo>(a, b);
 }
 
 // Sort N (a power of two) values ascending: the bitonic sorting network.
@@ -154,19 +138,16 @@ __device__ __forceinline__ void merge_chunk(float (&lo)[K], float (&hi)[K], floa
   merge_into<false>(hi, r);
 }
 
-template <int K, int G>
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
                        long long sw, float* __restrict__ lo_out,
                        float* __restrict__ hi_out, long long rows, int R, int W,
                        int k_lo, int k_hi) {
-  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
-  // a row's G lanes are one aligned run of a warp: they leave together
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= rows) return;
-  const int part = threadIdx.x & (G - 1);
   const long long b = row / R;
-  const float* p = x + b * sb + (row - b * R) * sr + part * sw;
-  const long long step = G * sw;
+  const float* p = x + b * sb + (row - b * R) * sr;
 
   float lo[K], hi[K];
 #pragma unroll
@@ -178,13 +159,12 @@ select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
   // values, inserted
   constexpr bool kSortMerge = K >= 5;
   constexpr int D = kSortMerge ? pow2_ceil(K) : kDepth;
-  const int n = (W - part + G - 1) / G;  // the values of this part
   int t = 0;
-  for (; t + D <= n; t += D) {
+  for (; t + D <= W; t += D) {
     float v[D];
 #pragma unroll
-    for (int u = 0; u < D; ++u) v[u] = __ldg(p + u * step);
-    p += D * step;
+    for (int u = 0; u < D; ++u) v[u] = __ldg(p + u * sw);
+    p += D * sw;
     if constexpr (kSortMerge) {
       float sum = v[0];  // NaN iff a NaN, or +inf with -inf
 #pragma unroll
@@ -197,18 +177,8 @@ select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
 #pragma unroll
     for (int u = 0; u < D; ++u) insert(lo, hi, v[u]);
   }
-  for (; t < n; ++t, p += step) insert(lo, hi, __ldg(p));
+  for (; t < W; ++t, p += sw) insert(lo, hi, __ldg(p));
 
-  if (G > 1) {
-    const unsigned lane = threadIdx.x & 31;
-    const unsigned mask = G == 32 ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
-#pragma unroll
-    for (int l = 0; l < log2_of(G); ++l) {
-      merge_partner<true>(lo, mask, 1 << l);
-      merge_partner<false>(hi, mask, 1 << l);
-    }
-  }
-  if (part != 0) return;
   float s_lo = lo[0], s_hi = hi[0];
 #pragma unroll
   for (int i = 1; i < K; ++i) {
@@ -219,57 +189,36 @@ select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
   hi_out[row] = s_hi / static_cast<float>(k_hi);
 }
 
-template <int K, int G>
-cudaError_t launch_kg(const float* x, long long sb, long long sr, long long sw, float* lo,
-                      float* hi, long long rows, int R, int W, int k_lo, int k_hi,
-                      cudaStream_t stream) {
-  const long long blocks = (rows * G + kThreads - 1) / kThreads;
+template <int K>
+cudaError_t launch_k(const float* x, long long sb, long long sr, long long sw, float* lo,
+                     float* hi, long long rows, int R, int W, int k_lo, int k_hi,
+                     cudaStream_t stream) {
+  const long long blocks = (rows + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  select_extremes_kernel<K, G><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  select_extremes_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi);
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_k(const float* x, long long sb, long long sr, long long sw, float* lo,
-                     float* hi, long long rows, int R, int W, int k_lo, int k_hi, int g,
-                     cudaStream_t stream) {
-  switch (g) {
-    case 1: return launch_kg<K, 1>(x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi, stream);
-    case 4: return launch_kg<K, 4>(x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// k_lo, k_hi in [1, 16] and <= W (the wrapper's gate), g lanes a row (1 or
-// 4); one instantiation per (K = max(k_lo, k_hi), g), so no slot is carried
-// that no sum reads.
+// k_lo, k_hi in [1, 16] and <= W (the wrapper's gate); one instantiation per
+// K = max(k_lo, k_hi), so no slot is carried that no sum reads.
 extern "C" int select_extremes_launch(const float* x, long long sb, long long sr,
                                       long long sw, float* lo, float* hi, int B, int R,
-                                      int W, int k_lo, int k_hi, int g, int device,
-                                      void* stream) {
+                                      int W, int k_lo, int k_hi, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * R;
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int k = k_lo > k_hi ? k_lo : k_hi;
-  for (int b0 = 0; b0 < B && R > 0; b0 += kMaxClips) {  // clips b0 .. b0 + nb - 1
-    const long long rows = static_cast<long long>(B - b0 < kMaxClips ? B - b0 : kMaxClips) * R;
-    const float* xb = x + b0 * sb;
-    const long long o = static_cast<long long>(b0) * R;
-    switch (k) {
-#define MAPT_CASE(K)                                                                     \
-  case K:                                                                                \
-    err = launch_k<K>(xb, sb, sr, sw, lo + o, hi + o, rows, R, W, k_lo, k_hi, g, s); \
-    break;
-      MAPT_CASE(1) MAPT_CASE(2) MAPT_CASE(3) MAPT_CASE(4) MAPT_CASE(5) MAPT_CASE(6)
-      MAPT_CASE(7) MAPT_CASE(8) MAPT_CASE(9) MAPT_CASE(10) MAPT_CASE(11) MAPT_CASE(12)
-      MAPT_CASE(13) MAPT_CASE(14) MAPT_CASE(15) MAPT_CASE(16)
+  switch (k_lo > k_hi ? k_lo : k_hi) {
+#define MAPT_CASE(K) \
+  case K: return static_cast<int>(launch_k<K>(x, sb, sr, sw, lo, hi, rows, R, W, k_lo, k_hi, s));
+    MAPT_CASE(1) MAPT_CASE(2) MAPT_CASE(3) MAPT_CASE(4) MAPT_CASE(5) MAPT_CASE(6)
+    MAPT_CASE(7) MAPT_CASE(8) MAPT_CASE(9) MAPT_CASE(10) MAPT_CASE(11) MAPT_CASE(12)
+    MAPT_CASE(13) MAPT_CASE(14) MAPT_CASE(15) MAPT_CASE(16)
 #undef MAPT_CASE
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (err != cudaSuccess) break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

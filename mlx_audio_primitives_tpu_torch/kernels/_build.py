@@ -135,8 +135,9 @@ def _compile(out_dir: Path, lib: Path) -> None:
     for o in objs:
         o.unlink(missing_ok=True)
     if any(codes):
-        failed = [ln for ln in log.splitlines() if "error" in ln or "nvcc" in ln]
-        raise RuntimeError(f"nvcc failed with codes {codes}:\n" + "\n".join(failed)[-6000:])
+        killed = " (negative: killed at the 900 s limit)" if min(codes) < 0 else ""
+        raise RuntimeError(f"nvcc failed with codes {codes}{killed}; the whole output is in "
+                           f"{out_dir / 'nvcc.log'}, its end:\n{log[-6000:]}")
     os.replace(tmp, lib)
     build_info.update(dir=str(out_dir), seconds=seconds, log=log,
                       seconds_by_source={src.name: t for src, t in zip(sources, per_source)})

@@ -9,22 +9,22 @@ band_width))`` (2 to 9 for the default bands at n_fft 2048).
 Source note (`csrc/select_extremes.cu`, ``select_extremes_kernel``).
 Replaces ``quantile_extreme_means_pallas`` (its ``pallas_call`` in
 ``_quantile_extreme_means_impl``). The TPU kernel stages row blocks in VMEM
-and runs ``k`` argmin/argmax passes; here ``g`` lanes of a warp share a row
-(:func:`lanes_per_row`), each streams every ``g``-th value once into two
-sorted register arrays (the ``k`` smallest and the ``k`` largest): by
-min/max insertion, two instructions a slot, for ``k <= 4``, and for
-``k >= 5`` by chunks of ``k'`` values (the power of two >= ``k``) sorted
-with a bitonic network and merged into both arrays; shuffles merge the
-``g`` parts (one template instance per ``(k, g)``, fully unrolled, so
-nothing spills). Rows come through a strided ``(B, R, W)`` view, flattened
-over ``B*R`` on the grid, so a band of the natural ``(B, n_bins, F)``
-magnitude is read in place with frames across lanes, coalesced, with no
-swapaxes and reshape copy, which the JAX code pays; the launcher takes any
-number of clips, at most 65,535 a launch. A NaN is skipped (it changes
-neither array). What bounds it on this card: the one read of the band,
-315 MB over the four default bands at 64 x 30 s clips, 0.094 ms at
-3.35 TB/s, and its min/max a value (34 by insertion at ``k = 9``, ~20 by
-sort and merge), which issue at half the FP32 rate.
+and runs ``k`` argmin/argmax passes; here a thread owns a row and streams
+its values once into two sorted register arrays (the ``k`` smallest and the
+``k`` largest): by min/max insertion, two instructions a slot, for
+``k <= 4``, and for ``k >= 5`` by chunks of ``k'`` values (the power of two
+>= ``k``) sorted with a bitonic network and merged into both arrays (one
+template instance per ``k``, fully unrolled, so nothing spills). Rows come
+through a strided ``(B, R, W)`` view, flattened over ``B*R`` on the grid
+with a 64-bit row index, so one launch takes any number of clips and a band
+of the natural ``(B, n_bins, F)`` magnitude is read in place with frames
+across lanes, coalesced, with no swapaxes and reshape copy, which the JAX
+code pays. A NaN is skipped (it changes neither array), where the JAX
+kernel's min/max passes carry it into the mean. What bounds it on this
+card: the one read of the band, 315 MB over the four default bands at
+64 x 30 s clips, 0.094 ms at 3.35 TB/s, and its min/max a value (34 by
+insertion at ``k = 9``, ~20 by sort and merge), which issue at half the
+FP32 rate.
 
 Sums run in ascending order for the lo mean and descending order for the
 hi mean, as the TPU kernel's extraction adds them, so kernel, twin and JAX
@@ -46,7 +46,7 @@ MAX_K = 16
 
 KERNEL = register(Kernel(
     "select_extremes_kernel", "select_extremes_launch",
-    (P, I64, I64, I64, P, P, I32, I32, I32, I32, I32, I32),
+    (P, I64, I64, I64, P, P, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/select_extremes.cu",
     replaces="mlx_audio_primitives_tpu/kernels/select_extremes.py:168",
 ))
@@ -57,15 +57,6 @@ def select_supported(width: int, k_lo: int, k_hi: int) -> bool:
     (more picks than values would read the padding; the sort path clamps
     its slice instead)."""
     return width >= 1 and 1 <= k_lo <= min(MAX_K, width) and 1 <= k_hi <= min(MAX_K, width)
-
-
-def lanes_per_row(width: int) -> int:
-    """Lanes the kernel gives a row of ``width`` values: 1 below 512, else
-    4. Measured on an H100 (``chip_smoke.py`` phase 5, each band at 1, 4
-    and 8 lanes): one lane a row is fastest on the default contrast bands
-    (W 74 to 431), where the merge costs more than the split saves, four on
-    rows of 1025 bins; eight was slower at every width measured."""
-    return 1 if width < 512 else 4
 
 
 def _ordered_mean(v: torch.Tensor) -> torch.Tensor:
@@ -109,10 +100,7 @@ def extreme_masks(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, 
     return mask_lo, mask_hi
 
 
-def _launch(x: torch.Tensor, k_lo: int, k_hi: int,
-            g: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch on ``g`` lanes a row (1 or 4; by default
-    :func:`lanes_per_row`)."""
+def _launch(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
     if x.device.type != "cuda" or x.dtype != torch.float32:
         raise ValueError(f"select_extremes_kernel needs a float32 CUDA tensor, got "
                          f"{x.dtype} on {x.device}")
@@ -123,7 +111,7 @@ def _launch(x: torch.Tensor, k_lo: int, k_hi: int,
     if B * R > 0:
         sb, sr, sw = x3.stride()
         KERNEL.launch(x.device, x3.data_ptr(), sb, sr, sw, lo.data_ptr(), hi.data_ptr(),
-                      B, R, W, k_lo, k_hi, lanes_per_row(W) if g is None else g)
+                      B, R, W, k_lo, k_hi)
     return lo.view(x.shape[:-1]), hi.view(x.shape[:-1])
 
 

@@ -1,9 +1,8 @@
 """PyTorch port: a NumPy model of K5's plan.
 
-`csrc/select_extremes.cu` (K5) gives a row of ``W`` values to ``g`` lanes
-of a warp. Part ``j`` streams values ``j, j+g, j+2g, ...`` into two sorted
-register arrays of ``K`` slots, the ``K`` smallest ascending and the ``K``
-largest descending. For ``K <= 4`` it inserts each value by min/max from
+`csrc/select_extremes.cu` (K5) gives a row of ``W`` values to one thread,
+which streams them into two sorted register arrays of ``K`` slots, the
+``K`` smallest ascending and the ``K`` largest descending. For ``K <= 4`` it inserts each value by min/max from
 the top slot down: ``lo[i] = max(lo[i-1], min(lo[i], v))``,
 ``hi[i] = min(hi[i-1], max(hi[i], v))``. For ``K >= 5`` it takes chunks of
 ``K'`` values (``K'`` the power of two >= ``K``), sorts each with the
@@ -11,21 +10,19 @@ bitonic sorting network and merges it into both arrays; a chunk whose sum
 is NaN (a NaN, or +inf with -inf) is inserted value by value instead. A
 merge of a sorted run ``b`` into ``a`` keeps ``c[i] = min(a[i],
 b[K'-1-i])`` (``a`` padded with +inf), a bitonic sequence, and sorts it with
-the bitonic merge network (the hi side with min and max exchanged). Then
-``log2(g)`` butterfly rounds merge the parts the same way, each lane with
-its partner's slots. Lane 0 sums ``lo`` and ``hi`` from slot 0 and divides
-by ``k``.
+the bitonic merge network (the hi side with min and max exchanged). The
+thread sums ``lo`` and ``hi`` from slot 0 and divides by ``k``.
 
 A CUDA kernel cannot run here, so this file repeats those steps in NumPy
 float32, with ``np.fmin``/``np.fmax`` for ``fminf``/``fmaxf`` (all four
 return the other operand of a NaN), and holds the result against the port's
 plain twin ``quantile_extreme_means_plain`` bit for bit, NaN matching NaN:
-k = 1..16; W = k, W < g, W not a multiple of g and W = 431; g = 1, 2, 4
-and 8; random rows, rows full of ties, rows with +-inf and rows with NaN.
-The kernel skips a NaN, so there the reference is the twin of the row with
-each NaN made +inf for the lo mean and -inf for the hi mean. It also models
-how the launchers of K3, K4 and K5 cover B = 1, 65,535, 65,536 and 200,000
-clips in launches of at most 65,535, and K5's rows within a launch.
+k = 1..16; W = k, W = k + 1, W not a multiple of the chunk and W = 431;
+random rows, rows full of ties, rows with +-inf and rows with NaN. The
+kernel skips a NaN, so there the reference is the twin of the row with each
+NaN made +inf for the lo mean and -inf for the hi mean (the JAX kernel
+carries a NaN into the mean instead). The merge alone is also held against
+a sort of the union of its two runs.
 """
 
 from __future__ import annotations
@@ -37,15 +34,11 @@ from torch_port_util import signals
 
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import (
     MAX_K,
-    lanes_per_row,
     quantile_extreme_means_plain,
 )
 
-THREADS = 256  # select_extremes.cu: kThreads
-MAX_CLIPS = 65535  # select_extremes.cu: kMaxClips; istft_fused.cu, overlap_add.cu: kMaxGridY
 DEPTH = 8  # select_extremes.cu: kDepth, the chunk of the insertion (K <= 4)
 SORT_MERGE_FROM = 5  # select_extremes.cu: kSortMerge = K >= 5
-INT_MAX = 2**31 - 1
 F32 = np.float32
 INF = F32(np.inf)
 
@@ -89,9 +82,8 @@ def sort_ascending(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def stream_part(x: np.ndarray, K: int, g: int, part: int,
-                nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray]:
-    """One lane's arrays after streaming its values: chunks of K' values
+def stream(x: np.ndarray, K: int, nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    """A thread's arrays after streaming its row: chunks of K' values
     sorted and merged (K >= 5; value by value where the chunk's float32 sum
     is NaN) or of ``DEPTH`` values inserted (K <= 4), then the tail one by
     one. ``nan_safe=False`` inserts every value, in the other operand
@@ -101,10 +93,9 @@ def stream_part(x: np.ndarray, K: int, g: int, part: int,
     hi = np.full((K, R), -INF, F32)
     sort_merge = K >= SORT_MERGE_FROM and nan_safe
     D = pow2_ceil(K) if sort_merge else DEPTH
-    n = (W - part + g - 1) // g
     t = 0
-    while t + D <= n:
-        chunk = np.stack([x[:, part + g * (t + u)] for u in range(D)])
+    while t + D <= W:
+        chunk = x[:, t:t + D].T
         t += D
         if sort_merge:
             total = chunk[0].copy()
@@ -112,7 +103,7 @@ def stream_part(x: np.ndarray, K: int, g: int, part: int,
                 for u in range(1, D):
                     total = total + chunk[u]
             clean = ~np.isnan(total)
-            if clean.any():  # lanes that merge; the others insert (a divergent branch)
+            if clean.any():  # threads that merge; the others insert (a divergent branch)
                 s = sort_ascending(chunk[:, clean])
                 lo[:, clean] = merge(lo[:, clean], s, True)
                 hi[:, clean] = merge(hi[:, clean], s[::-1], False)
@@ -126,8 +117,8 @@ def stream_part(x: np.ndarray, K: int, g: int, part: int,
             continue
         for v in chunk:
             insert(lo, hi, v, nan_safe)
-    for t in range(t, n):
-        insert(lo, hi, x[:, part + g * t], nan_safe)
+    for t in range(t, W):
+        insert(lo, hi, x[:, t], nan_safe)
     return lo, hi
 
 
@@ -145,8 +136,7 @@ def is_bitonic(c: np.ndarray) -> bool:
 
 def merge(a: np.ndarray, b: np.ndarray, smallest: bool) -> np.ndarray:
     """The K smallest (ascending) or largest (descending) of ``a`` (K
-    slots) and ``b`` (a partner's K slots, or a sorted chunk of K' values,
-    in ``a``'s order): the half-cleaner against ``b`` reversed, then the
+    slots) and ``b`` (a sorted chunk of K' values, in ``a``'s order): the half-cleaner against ``b`` reversed, then the
     bitonic merge network of K' slots, as ``merge_into`` runs it."""
     K = a.shape[0]
     KP = pow2_ceil(K)
@@ -167,20 +157,10 @@ def merge(a: np.ndarray, b: np.ndarray, smallest: bool) -> np.ndarray:
     return c[:K]
 
 
-def model(x: np.ndarray, k_lo: int, k_hi: int, g: int,
+def model(x: np.ndarray, k_lo: int, k_hi: int,
           nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray]:
-    """K5 on rows ``x`` (R, W) at ``g`` lanes a row -> (lo, hi) means."""
-    K = max(k_lo, k_hi)
-    lanes = [stream_part(x, K, g, j, nan_safe) for j in range(g)]
-    d = 1
-    while d < g:
-        lanes = [(merge(lanes[j][0], lanes[j ^ d][0], True),
-                  merge(lanes[j][1], lanes[j ^ d][1], False)) for j in range(g)]
-        d *= 2
-    for lo, hi in lanes[1:]:  # the butterfly leaves every lane with the merge
-        assert np.array_equal(lo, lanes[0][0], equal_nan=True)
-        assert np.array_equal(hi, lanes[0][1], equal_nan=True)
-    lo, hi = lanes[0]
+    """K5 on rows ``x`` (R, W) -> (lo, hi) means."""
+    lo, hi = stream(x, max(k_lo, k_hi), nan_safe)
     s_lo, s_hi = lo[0].copy(), hi[0].copy()
     with np.errstate(invalid="ignore"):  # -inf + inf in a row of infinities
         for i in range(1, k_lo):
@@ -220,38 +200,50 @@ def rows(kind: str, seed: int, shape: tuple[int, int]) -> np.ndarray:
     return x
 
 
-def widths(k: int, g: int) -> list[int]:
-    """W = k, W < g (where k allows it), W not a multiple of g, W = 431."""
-    ws = {k, 3 * g + 1 if g > 1 else 7, 431}
-    if g > 1 and k < g:
-        ws.add(g - 1)
-    return sorted(w for w in ws if w >= k)
+def widths(k: int) -> list[int]:
+    """W = k, k + 1, one not a multiple of the chunk (a tail after whole
+    chunks), and 431, the widest default contrast band."""
+    D = pow2_ceil(k) if k >= SORT_MERGE_FROM else DEPTH
+    return sorted({k, k + 1, 2 * D + 3, 431})
 
 
 KINDS = ("random", "ties", "inf", "nan")
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("g", (1, 2, 4, 8))
 @pytest.mark.parametrize("k", range(1, MAX_K + 1))
-def test_plan_matches_twin_bit_for_bit(k, g, kind):
-    for W in widths(k, g):
-        x = rows(kind, 1000 * k + 10 * g + W, (24, W))
+def test_plan_matches_twin_bit_for_bit(k, kind):
+    for W in widths(k):
+        x = rows(kind, 1000 * k + W, (24, W))
         for k_lo, k_hi in ((k, k), (k, max(1, k // 2)), (max(1, k - 3), k)):
-            got_lo, got_hi = model(x, k_lo, k_hi, g)
+            got_lo, got_hi = model(x, k_lo, k_hi)
             ref_lo, ref_hi = reference(x, k_lo, k_hi)
             assert exact(got_lo, ref_lo), (W, k_lo, k_hi)
             assert exact(got_hi, ref_hi), (W, k_lo, k_hi)
 
 
-@pytest.mark.parametrize("g", (1, 4))
-def test_plan_reads_a_strided_band(g):
+@pytest.mark.parametrize("kind", ("random", "ties", "inf"))
+@pytest.mark.parametrize("k", range(1, MAX_K + 1))
+def test_merge_keeps_the_k_extremes(k, kind):
+    # a (K slots, sorted) merged with a sorted run of K' values holds the K
+    # smallest (largest) of the union, in order, bit for bit
+    KP = pow2_ceil(k)
+    x = rows(kind, 7 * k + len(kind), (40, k + KP))
+    a, b = x[:, :k], x[:, k:]
+    union = np.sort(x, axis=1)
+    lo = merge(np.sort(a, axis=1).T, np.sort(b, axis=1).T, True).T
+    hi = merge(-np.sort(-a, axis=1).T, -np.sort(-b, axis=1).T, False).T
+    assert exact(np.ascontiguousarray(lo), union[:, :k])
+    assert exact(np.ascontiguousarray(hi), np.ascontiguousarray(union[:, ::-1][:, :k]))
+
+
+def test_plan_reads_a_strided_band():
     # the natural (B, n_bins, F) layout, rows = frames: the model on the
     # band's rows equals the twin on the strided view
     mag = np.abs(signals(7, (2, 120, 33)))
     band = torch.from_numpy(mag)[:, 20:95, :].transpose(1, 2)  # (B, F, W), strided
     x = band.reshape(-1, band.shape[-1]).numpy()
-    got_lo, got_hi = model(x, 6, 6, g)
+    got_lo, got_hi = model(x, 6, 6)
     ref_lo, ref_hi = quantile_extreme_means_plain(band, 6, 6)
     assert exact(got_lo, ref_lo.reshape(-1).numpy()) and exact(got_hi, ref_hi.reshape(-1).numpy())
 
@@ -263,61 +255,8 @@ def test_plan_other_operand_order_copies_a_slot_on_nan(k):
     finite = rows("random", 3 + k, (64, 60))
     x = finite.copy()
     x[np.random.default_rng(k).random(x.shape) < 0.2] = np.nan
-    assert all(exact(a, b) for a, b in zip(model(finite, k, k, 4, nan_safe=False),
+    assert all(exact(a, b) for a, b in zip(model(finite, k, k, nan_safe=False),
                                            reference(finite, k, k)))
-    bad_lo, bad_hi = model(x, k, k, 4, nan_safe=False)
+    bad_lo, bad_hi = model(x, k, k, nan_safe=False)
     ref_lo, ref_hi = reference(x, k, k)
     assert not (exact(bad_lo, ref_lo) and exact(bad_hi, ref_hi))
-
-
-def test_lanes_per_row():
-    # the default contrast bands (W 74 to 431) run one lane a row
-    assert [lanes_per_row(w) for w in (1, 16, 74, 149, 297, 431, 511, 512, 1025, 4097)] == [
-        1, 1, 1, 1, 1, 1, 1, 4, 4, 4]
-    for w in range(1, 2000, 37):
-        g = lanes_per_row(w)
-        assert g in (1, 4) and 32 % g == 0
-
-
-def launches(B: int) -> list[tuple[int, int]]:
-    """(first clip, clips) of each launch: the launchers of K3, K4 and K5
-    loop over at most ``MAX_CLIPS`` clips a launch."""
-    return [(b0, min(MAX_CLIPS, B - b0)) for b0 in range(0, B, MAX_CLIPS)]
-
-
-@pytest.mark.parametrize("B", (1, 65535, 65536, 200000))
-def test_launches_cover_every_clip_once(B):
-    # K3 and K4 put a launch's clips on grid y (at most 65,535), offset by
-    # the first clip's base pointer
-    seen = np.zeros(B, dtype=np.int64)
-    for b0, nb in launches(B):
-        assert 1 <= nb <= MAX_CLIPS
-        seen[b0:b0 + nb] += 1
-    assert (seen == 1).all()
-    assert len(launches(B)) == -(-B // MAX_CLIPS)
-
-
-@pytest.mark.parametrize("B", (1, 65535, 65536, 200000))
-@pytest.mark.parametrize("g", (1, 4))
-def test_row_fold_reaches_every_clip(B, g):
-    # K5: in each launch, lane = block * 256 + thread, row = lane // g over
-    # the launch's nb * R rows, clip = first clip + row // R
-    R = 1292
-    last_clip = -1
-    for b0, nb in launches(B):
-        n_rows = nb * R
-        blocks = -(-n_rows * g // THREADS)
-        assert blocks <= INT_MAX
-        lanes = np.array([0, g - 1, R * g - 1, R * g, n_rows * g - 1, blocks * THREADS - 1],
-                         dtype=np.int64)
-        row = lanes // g
-        live = row < n_rows
-        assert np.array_equal(live, [True, True, True, nb > 1, True,
-                                     blocks * THREADS == n_rows * g])
-        clip, frame = b0 + row // R, row % R
-        assert clip[0] == b0 and clip[4] == b0 + nb - 1 and frame[4] == R - 1
-        assert clip[0] == last_clip + 1
-        last_clip = clip[4]
-    assert last_clip == B - 1
-    # a row's g lanes lie in one aligned run of a warp
-    assert THREADS % g == 0 and 32 % g == 0
