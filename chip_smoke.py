@@ -5,27 +5,32 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --host-path DIR`` prints only the STFT wrapper's host
 time per call for the port package under DIR (an unpacked earlier commit,
 say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
-prints only phase 5's device times of K1 and K2m, ``--k345-split DIR`` those
-of K3, K4 and K5 and the feature path's time, and ``--k1-ablations`` those of K1 with parts of its work
-left out, one at a time.
+prints only phase 5's device times of K1 and K2m, ``--k3-split DIR`` those
+of K3, ``--k345-split DIR`` those of K3, K4 and K5 and the feature path's
+time, and ``--k1-ablations`` and ``--k3-ablations`` those of K1 or K3 with
+parts of their work left out, one at a time.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
    source, all at once (timed, and each source's process); for each
-   K1/K2/K2m instance, ptxas's registers and spill bytes (a spill fails the
-   run), its threads, frames per tile, shared memory per block and resident
-   warps per SM; for each K5 instance (k slots), its registers, stack
-   frame and spill bytes (either fails the run);
+   K1/K2/K2m instance and each K3 instance (one per shape of the radix
+   gate), ptxas's registers and spill bytes (a spill fails the run; for K3
+   also a stack frame), its threads, frames per tile, shared memory per
+   block and resident warps per SM; for each K5 instance (k slots), its
+   registers, stack frame and spill bytes (either fails the run);
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
-   lengths, K1 at column counts around its 16-column tiles; K5 on the
-   default contrast bands and over k = 1..16 on
-   random, tie-heavy and +-inf/NaN rows; K3, K4 and K5 at 65,537 clips);
+   lengths, K1 at column counts around its 16-column tiles; K3 on every
+   shape of the radix gate, on both spectrum layouts; K5 on the default
+   contrast bands and over k = 1..16 on random, tie-heavy and +-inf/NaN
+   rows, held to its unmodified twin, NaN matching NaN;
+   ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
+   and K5 at 65,537 clips);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -49,8 +54,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    plain, library, kernel, kernel, library, plain; the STFT wrapper's host
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
    clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
-   at the scale configuration and at 64 x 30 s, of K3 and K4 on one 30 s
-   clip and at 64 x 30 s, and of K5 on each default contrast band;
+   at the scale configuration and at 64 x 30 s, of K3 and K4 and of
+   ``torch.istft`` and ``fold`` on one 30 s clip and at 64 x 30 s (with
+   K3's launch plan and recompute share), and of K5 on each default
+   contrast band; K3 and K4 are also timed at 64 x 30 s against their
+   twins, library calls and bounds;
 6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
    device time by kernel, busy time and idle share.
 
@@ -277,36 +285,41 @@ def k5_instances(log: str) -> None:
 
 
 def ptxas_rows(log: str) -> dict:
-    """ptxas's registers and spill bytes of each K1/K2/K2m instance, keyed
-    by (kernel name, log2 of the complex FFT size)."""
+    """ptxas's registers, spill bytes and stack frame bytes of each K1, K2,
+    K2m and K3 instance, keyed by (kernel name, log2 of the complex FFT
+    size), and for K3 also by n_fft / hop."""
     names = {"mel_fused_kernelI": "mel_fused_kernel", "stft_kernelI6float2": "stft_kernel",
-             "stft_kernelIf": "stft_mag_kernel"}
-    rows, entry, spill = {}, None, 0
+             "stft_kernelIf": "stft_mag_kernel", "istft_kernelI": "istft_kernel"}
+    rows, entry, spill, frame = {}, None, 0, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(mel_fused_kernelI|stft_kernelI6float2|"
-                      r"stft_kernelIf)Li(\d+)E", ln)
+                      r"stft_kernelIf|istft_kernelI)Li(\d+)E(?:Li(\d+)E)?", ln)
         if m:
-            entry = (names[m.group(1)], int(m.group(2)))
+            entry = (names[m.group(1)], int(m.group(2))) + ((int(m.group(3)),) if m.group(3) else ())
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
         if m and entry:
-            spill = int(m.group(1)) + int(m.group(2))
+            frame, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
-            rows[entry] = (int(m.group(1)), spill)
-            entry, spill = None, 0
+            rows[entry] = (int(m.group(1)), spill, frame)
+            entry, spill, frame = None, 0, 0
     return rows
 
 
 def fft_occupancy(log: str) -> None:
-    """K1, K2 and K2m per FFT size: registers and spill bytes (ptxas),
-    threads, frames per tile, shared memory per block and resident warps per
-    SM at the hop the sizes run with here. Fails on any spill."""
+    """K1, K2 and K2m per FFT size, and K3 per FFT size and hop: registers
+    and spill bytes (ptxas; K3 also its stack frame), threads, frames per
+    tile, shared memory per block and resident warps per SM at the hop the
+    sizes run with here. Fails on any spill (and on a K3 stack frame)."""
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
 
     rows = ptxas_rows(log)
-    check(len(rows) == 21, f"ptxas reported {len(rows)} K1/K2/K2m instances, expected 21")
+    check(len(rows) == 21 + len(RADIX_GATE),
+          f"ptxas reported {len(rows)} K1/K2/K2m/K3 instances, expected {21 + len(RADIX_GATE)}")
     dev = torch.device("cuda", 0)
     for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
         hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
@@ -315,11 +328,22 @@ def fft_occupancy(log: str) -> None:
         for name, g, per_sm in ((k1.KERNEL.name, g1, g1["blocks_per_sm"]),
                                 (k2.KERNEL.name, g2, g2["blocks_per_sm"][k2.KERNEL.name]),
                                 (k2.KERNEL_MAG.name, g2, g2["blocks_per_sm"][k2.KERNEL_MAG.name])):
-            regs, spill = rows[(name, n_fft.bit_length() - 2)]
+            regs, spill, _ = rows[(name, n_fft.bit_length() - 2)]
             print(f"  {name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes spilled, "
                   f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
                   f"{g['smem_bytes']} B shared per block, {per_sm * g['threads'] // 32} warps per SM")
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
+    # K3: one instance per (n_fft, hop); its launch for one clip of 64 frames
+    spilled = []
+    for n_fft, hop in RADIX_GATE:
+        regs, spill, frame = rows[(k3.KERNEL.name, n_fft.bit_length() - 2, n_fft // hop)]
+        g = k3.launch_plan(n_fft, hop, 1, 64, n_fft + 63 * hop, dev)
+        print(f"  {k3.KERNEL.name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes "
+              f"spilled, {frame} B stack frame, {g['threads']} threads x {g['frames_per_tile']} "
+              f"frames per tile, {g['smem_bytes']} B shared per block, "
+              f"{g['blocks_per_sm'] * g['threads'] // 32} warps per SM")
+        spilled.extend([(n_fft, hop)] if spill or frame else [])
+    check(not spilled, f"K3 spills or has a stack frame at (n_fft, hop) {spilled}")
 
 
 def k5_sass(ks: tuple[int, ...] = (4, 9)) -> None:
@@ -358,10 +382,7 @@ def k5_sass(ks: tuple[int, ...] = (4, 9)) -> None:
 def default_bands() -> list[tuple[int, int, int]]:
     """The bands of ``spectral_contrast``'s defaults at n_fft 2048 that take
     the extraction kernel (k > 1): (start, stop, k)."""
-    from mlx_audio_primitives_tpu_torch.ops.features import contrast_bands
-
-    bands = contrast_bands(np.linspace(0, SR / 2, N_FFT // 2 + 1), 200.0, 6, 0.02)
-    return [b for b in bands if b is not None and b[2] > 1]
+    return [b for b in default_bands_all() if b is not None and b[2] > 1]
 
 
 def k5_rows(gen: torch.Generator, kind: str, shape: tuple[int, int]) -> torch.Tensor:
@@ -381,16 +402,14 @@ def k5_rows(gen: torch.Generator, kind: str, shape: tuple[int, int]) -> torch.Te
 
 
 def k5_reference(x: torch.Tensor, k_lo: int, k_hi: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5's plain twin on the rows with each NaN made +inf for the lo mean
-    and -inf for the hi mean: the kernel skips a NaN."""
+    """K5's plain twin on the rows as they are: ``topk`` ranks a NaN above
+    +inf, so a row that holds a NaN has a NaN hi mean, and a NaN lo mean
+    where fewer than ``k_lo`` values are not NaN."""
     from mlx_audio_primitives_tpu_torch.kernels.select_extremes import (
         quantile_extreme_means_plain,
     )
 
-    nan = torch.isnan(x)
-    lo = quantile_extreme_means_plain(torch.where(nan, float("inf"), x), k_lo, k_hi)[0]
-    hi = quantile_extreme_means_plain(torch.where(nan, float("-inf"), x), k_lo, k_hi)[1]
-    return lo, hi
+    return quantile_extreme_means_plain(x, k_lo, k_hi)
 
 
 def moments_weight(dev: torch.device) -> torch.Tensor:
@@ -469,6 +488,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
 
     k5_vs_plain(gen, mag, run, errs)
     del mag
+    contrast_nan_vs_cpu(gen)
 
     # K3: on K2's 30 s output; <= 1e-5 abs over the samples istft returns.
     # The centre pad it trims holds the first and last half frames, where the
@@ -524,6 +544,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     errs[k4.KERNEL.name] = e
 
     big_batch_vs_plain(gen, run, errs)
+    k3_gate_sweep(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -627,6 +648,88 @@ def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> Non
                 n += 2
     print(f"K5 sweep k = 1..16 at W = k, 17, 431, 1000 on random, tie-heavy and +-inf/NaN rows "
           f"(3000 rows, k_hi = k and k // 2, {n} launches): max abs err {worst:.3e} (limit 1e-6)")
+
+
+def contrast_nan_vs_cpu(gen: torch.Generator) -> None:
+    """Phase 3: ``spectral_contrast`` on the card (K5 on the bands with
+    k > 1) against the same call on the CPU (the plain route), on a
+    magnitude with NaN in a few frames of every band and one band of one
+    frame all NaN: NaN at the same (clip, band, frame) positions, and
+    within 1e-4 of max elsewhere (the contrast contract)."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+
+    S = torch.randn((2, N_FFT // 2 + 1, 60), generator=gen, device=gen.device).abs()
+    bands = [b for b in default_bands_all() if b is not None]
+    for n, (start, stop, _) in enumerate(bands):
+        S[n % 2, start + (7 * n) % (stop - start), 2 + n] = float("nan")
+        S[(n + 1) % 2, start + (3 * n + 1) % (stop - start), 9 + n] = float("nan")
+    start, stop, _ = bands[-1]
+    S[0, start:stop, 14] = float("nan")
+    k5 = next(k for k in _build.KERNELS if k.name == "select_extremes_kernel")
+    before = k5.launches
+    got = ap.spectral_contrast(S=S, sr=SR, n_fft=N_FFT, hop_length=HOP).cpu()
+    check(k5.launches == before + len(default_bands()), "K5 did not run on the card's contrast")
+    ref = ap.spectral_contrast(S=S.cpu(), sr=SR, n_fft=N_FFT, hop_length=HOP)
+    nan = torch.isnan(ref)
+    same = bool(torch.equal(torch.isnan(got), nan))
+    e = rel_err(got[~nan], ref[~nan])
+    print(f"spectral_contrast with NaN frames {tuple(S.shape)}: {int(nan.sum())} NaN of "
+          f"{nan.numel()} on the CPU, the same positions on the card: {same}; elsewhere rel err "
+          f"{e:.3e} (limit 1e-4)")
+    check(same and int(nan.sum()) >= 2 * len(bands) and e <= 1e-4,
+          "spectral_contrast on the card disagrees with the CPU on NaN frames")
+
+
+def default_bands_all() -> list:
+    """All bands of ``spectral_contrast``'s defaults at n_fft 2048."""
+    from mlx_audio_primitives_tpu_torch.ops.features import contrast_bands
+
+    return contrast_bands(np.linspace(0, SR / 2, N_FFT // 2 + 1), 200.0, 6, 0.02)
+
+
+#: every (n_fft, hop) of the radix gate: one K3 instance each
+RADIX_GATE = tuple((n, h) for n in (128, 256, 512, 1024, 2048, 4096, 8192)
+                   for h in (128, 256, 512, 1024) if h <= n and n // h <= 8)
+
+
+def k3_gate_sweep(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's K3 sweep: every shape of the radix gate, on the natural
+    spectrum (frames contiguous, as ``istft`` passes it) and on a
+    contiguous ``(B, F, n_bins)`` copy, at the natural padded length and at
+    one that the frames overrun by an odd count; 3 clips, so spans cross
+    clips; the Hann window, or at hop = n_fft the rectangular one. <= 1e-5
+    abs on the samples ``istft`` keeps."""
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    dev = gen.device
+    worst = 0.0
+    for n_fft, hop in RADIX_GATE:
+        # at hop = n_fft a Hann window's squared envelope falls to its 1e-8
+        # clamp between frames, where no float32 result is defined: there
+        # the rectangular window, whose envelope is 1
+        name = "hann" if hop < n_fft else "rectangular"
+        w = _get_padded_window(name, n_fft, n_fft, dev)
+        y = torch.randn((3, 37 * hop + 5), generator=gen, device=dev)
+        S_nat = k2.stft_fused(y, w, n_fft=n_fft, hop_length=hop, center=True, pad_mode="reflect")
+        F = S_nat.shape[-1]
+        for S in (S_nat.transpose(1, 2), S_nat.transpose(1, 2).contiguous()):
+            for T in (n_fft + (F - 1) * hop, n_fft + (F - 3) * hop - 7):
+                env = _istft_envelope_table((name, None), n_fft, n_fft, F, hop, T, device=dev)
+                kw3 = dict(n_fft=n_fft, hop_length=hop, padded_length=T)
+                got = run(k3.KERNEL, k3.istft_fused, S, w, env, **kw3)
+                keep = slice(n_fft // 2, T - n_fft // 2)
+                e = abs_err(got[:, keep], k3.istft_plain(S, w, env, **kw3)[:, keep])
+                check(got.shape == (3, T) and e <= 1e-5,
+                      f"K3 disagrees with its plain twin at n_fft {n_fft} hop {hop} T {T} "
+                      f"strides {S.stride()}: {e:.3e}")
+                worst = max(worst, e)
+    print(f"K3 over the radix gate ({len(RADIX_GATE)} shapes x natural and (B, F, n_bins) "
+          f"strides x 2 lengths, 3 clips): max abs err {worst:.3e} on the kept samples "
+          f"(limit 1e-5)")
+    errs[k3.KERNEL.name] = max(errs[k3.KERNEL.name], worst)
 
 
 def big_batch_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
@@ -952,26 +1055,66 @@ def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
               f"cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference {t1 - t2m:.4f} ms")
 
 
-def k345_split(gen: torch.Generator) -> None:
-    """Device times (torch.profiler) of K3 and K4 (hop 441) on one 30 s clip
-    and at 64 x 30 s, and of K5 on each default contrast band of 64 x 30 s
-    and on all four, for the port package that is imported."""
+def k3_split(gen: torch.Generator) -> None:
+    """Device times (torch.profiler) of K3 and of ``torch.istft`` on one 30 s
+    clip and at 64 x 30 s (K3 also on a contiguous ``(B, F, n_bins)``
+    spectrum), the public ``istft``'s CUDA-event time on the clip, and K3's
+    launch plan, for the port package that is imported."""
     from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    import mlx_audio_primitives_tpu_torch as ap
+
+    dev = torch.device("cuda", 0)
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    T = LONG + N_FFT
+    for label, B, calls in (("one 30 s clip", 1, 20), ("64 x 30 s", FEATURES[0], 5)):
+        S = k2.stft_fused(torch.randn((B, LONG), generator=gen, device=dev), win, **kw)
+        St = S.transpose(1, 2)
+        env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, St.shape[1], HOP, T, device=dev)
+        t3 = kernel_device_ms(lambda: k3.istft_fused(St, win, env, n_fft=N_FFT, hop_length=HOP,
+                                                     padded_length=T), "istft_kernel", calls)
+        t3_lib = kernel_device_ms(lambda: torch.istft(S, N_FFT, HOP, window=win, center=True,
+                                                      length=LONG), None, calls)
+        print(f"device time per call, {label} (torch.profiler, {calls} calls): K3 {t3:.4f} ms; "
+              f"torch.istft {t3_lib:.4f} ms (all its device operations)")
+        if B == 1:  # the public istft on that clip, host path included
+            ev = [cuda_ms(lambda: ap.istft(S, hop_length=HOP, length=LONG)) for _ in range(2)]
+            print(f"public istft, {label}: CUDA events {ev[0]:.4f} / {ev[1]:.4f} ms")
+        if B > 1:  # the (B, F, n_bins) layout, bins contiguous
+            Sc = St.contiguous()
+            t3c = kernel_device_ms(lambda: k3.istft_fused(Sc, win, env, n_fft=N_FFT, hop_length=HOP,
+                                                          padded_length=T), "istft_kernel", calls)
+            del Sc
+            print(f"device time per call, {label}, K3 on a contiguous (B, F, n_bins) spectrum: "
+                  f"{t3c:.4f} ms")
+        if hasattr(k3, "launch_plan"):  # an earlier package under --k345-split has none
+            g = k3.launch_plan(N_FFT, HOP, B, St.shape[1], T, dev)
+            print(f"K3 launch, {label}: grid {g['grid']} x {g['threads']} threads, "
+                  f"{g['frames_per_tile']} frames a tile, span {g['span']} hop-rows a block, "
+                  f"{g['blocks_per_sm']} blocks per SM; recompute {100 * g['recompute_loaded']:.2f}% "
+                  f"of the frames read, {100 * g['recompute_slots']:.2f}% of the frame slots "
+                  f"transformed")
+
+
+def k345_split(gen: torch.Generator) -> None:
+    """Device times (torch.profiler) of K3 (``k3_split``) and K4 (hop 441,
+    and of ``fold``) on one 30 s clip and at 64 x 30 s, and of K5 on each
+    default contrast band of 64 x 30 s and on all four, for the port
+    package that is imported."""
     from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
     from mlx_audio_primitives_tpu_torch.kernels import select_extremes as k5
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
     from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
 
+    k3_split(gen)
     dev = torch.device("cuda", 0)
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     for label, B, calls in (("one 30 s clip", 1, 20), ("64 x 30 s", FEATURES[0], 5)):
         y = torch.randn((B, LONG), generator=gen, device=dev)
-        S = k2.stft_fused(y, win, **kw).transpose(1, 2)
-        T = LONG + N_FFT
-        env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, S.shape[1], HOP, T, device=dev)
-        t3 = kernel_device_ms(lambda: k3.istft_fused(S, win, env, n_fft=N_FFT, hop_length=HOP,
-                                                     padded_length=T), "istft_kernel", calls)
         # hop 441 lies outside K2's radix gate: the plain STFT
         S = k2.stft_plain(y, win, n_fft=N_FFT, hop_length=OLA_HOP, center=True, pad_mode="constant")
         frames = (torch.fft.irfft(S.transpose(1, 2), n=N_FFT) * win).contiguous()
@@ -982,9 +1125,12 @@ def k345_split(gen: torch.Generator) -> None:
         t4 = kernel_device_ms(lambda: k4.overlap_add_fused(frames, env, hop_length=OLA_HOP,
                                                            output_length=T),
                               "overlap_add_kernel", calls)
+        t4_lib = kernel_device_ms(lambda: torch.nn.functional.fold(
+            frames.transpose(1, 2), output_size=(1, T), kernel_size=(1, N_FFT),
+            stride=(1, OLA_HOP)), None, calls)
         del frames
-        print(f"device time per call, {label} (torch.profiler, {calls} calls): K3 {t3:.4f} ms, "
-              f"K4 (hop {OLA_HOP}) {t4:.4f} ms")
+        print(f"device time per call, {label} (torch.profiler, {calls} calls): K4 (hop "
+              f"{OLA_HOP}) {t4:.4f} ms; fold {t4_lib:.4f} ms (all its device operations)")
     mag = k2.stft_magnitude_fused(y, win, **kw)
     per_band = []
     for a, b, k in default_bands():
@@ -1077,6 +1223,12 @@ def times(gen: torch.Generator, card: str) -> dict:
     mag = k2.stft_magnitude_fused(y_feat, win, **kw)
     bands = [(mag[:, a:b, :].transpose(1, 2), k) for a, b, k in default_bands()]
     kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
+    # K3 and K4 at 64 x 30 s: the spectrum of the feature path's clips, and
+    # their windowed frames at hop 441
+    S64 = k2.stft_fused(y_feat, win, **kw)
+    frames64 = (torch.fft.irfft(k2.stft_plain(y_feat, win, n_fft=N_FFT, hop_length=OLA_HOP,
+                                               center=True, pad_mode="constant").transpose(1, 2),
+                                n=N_FFT) * win).contiguous()
 
     # bytes (each input read once, each output written once) and FP32
     # operations of each kernel's function at its shape
@@ -1101,7 +1253,12 @@ def times(gen: torch.Generator, card: str) -> dict:
                              Bf * R * (fft_frame + 4 * n_bins)),
         k3.KERNEL.name: (8 * n_bins * F30 + 4 * (N_FFT + 2 * T),
                          F30 * (_rfft_flops(N_FFT) + 2 * N_FFT) + T),
+        # the envelope is read once a launch, whatever the batch
+        f"{k3.KERNEL.name}[64 x 30 s]": (8 * Bf * n_bins * R + 4 * (N_FFT + T + Bf * T),
+                                         Bf * (R * (_rfft_flops(N_FFT) + 2 * N_FFT) + T)),
         k4.KERNEL.name: (4 * (F441 * N_FFT + 2 * T441), F441 * N_FFT + T441),
+        f"{k4.KERNEL.name}[64 x 30 s]": (4 * (Bf * F441 * N_FFT + T441 + Bf * T441),
+                                         Bf * (F441 * N_FFT + T441)),
         # a selection reads each value once and compares it at least once
         # for the lo and once for the hi end
         k5.KERNEL.name: (sum(4 * Bf * R * (v.shape[-1] + 2) for v, _ in bands),
@@ -1124,6 +1281,10 @@ def times(gen: torch.Generator, card: str) -> dict:
          lambda: k2.stft_magnitude_plain(y_feat, win, **kw), None),
         (k3.KERNEL.name, "30 s clip", lambda: k3.istft_fused(St, win, env, **kw3),
          lambda: k3.istft_plain(St, win, env, **kw3), istft_lib),
+        (f"{k3.KERNEL.name}[64 x 30 s]", "64 x 30 s",
+         lambda: k3.istft_fused(S64.transpose(1, 2), win, env, **kw3),
+         lambda: k3.istft_plain(S64.transpose(1, 2), win, env, **kw3),
+         lambda: torch.istft(S64, N_FFT, HOP, window=win, center=True, length=LONG)),
         (f"{k3.KERNEL.name}[istft_fused_t]", "30 s clip",
          lambda: k3.istft_fused_t(S, win, env, **kw3), lambda: k3.istft_plain(St, win, env, **kw3),
          istft_lib),
@@ -1135,6 +1296,11 @@ def times(gen: torch.Generator, card: str) -> dict:
          lambda: k4.overlap_add_fused(frames, env441, hop_length=OLA_HOP, output_length=T441),
          lambda: k4.overlap_add_plain(frames, env441, hop_length=OLA_HOP, output_length=T441),
          lambda: torch.nn.functional.fold(frames.transpose(1, 2), output_size=(1, T441),
+                                          kernel_size=(1, N_FFT), stride=(1, OLA_HOP))),
+        (f"{k4.KERNEL.name}[64 x 30 s]", f"64 x 30 s, hop {OLA_HOP}",
+         lambda: k4.overlap_add_fused(frames64, env441, hop_length=OLA_HOP, output_length=T441),
+         lambda: k4.overlap_add_plain(frames64, env441, hop_length=OLA_HOP, output_length=T441),
+         lambda: torch.nn.functional.fold(frames64.transpose(1, 2), output_size=(1, T441),
                                           kernel_size=(1, N_FFT), stride=(1, OLA_HOP))),
         (k5.KERNEL.name, "the 4 default contrast bands of 64 x 30 s",
          lambda: [k5.quantile_extreme_means_fused(v, k, k) for v, k in bands],
@@ -1354,23 +1520,47 @@ K1_ABLATIONS = {
 }
 
 
-def k1_ablations() -> None:
-    """``--k1-ablations``: K1's device time at the scale configuration for the
-    package as it is and for each of ``K1_ABLATIONS``, copies under
-    ``build/k1_ablations/``, each in its own process (``--k1-split``), in
-    two rounds."""
+#: K3 ablations (``--k3-ablations``), edits of ``csrc/istft_fused.cu`` as
+#: K1's are of its source
+K3_ABLATIONS = {
+    "no spectrum loads (bins from registers)": [(
+        "    x.a[r] = __ldcg(Sf + (t + r * G::S0) * sk);\n"
+        "    x.b[r] = __ldcg(Sf + bin_b<LOG_M, C>(t, r) * sk);",
+        "    x.a[r] = make_float2(1.f + r, 0.5f * t);\n"
+        "    x.b[r] = make_float2(0.25f * r, 1.f - t);")],
+    "no later passes": [(
+        "      mapt::rexchange_passes<LOG_M, 1, G::GT>(buf + (me / G::T) * G::FS, v, twp, me % G::T,\n"
+        "                                             G::GT ? me / G::GT : 0);\n",
+        "      (void)me;\n")],
+    "no overlap-add": [(
+        "      overlap_add_tile<LOG_M, C>(buf,", "      if (me < 0) overlap_add_tile<LOG_M, C>(buf,")],
+    "no window reads or envelope loads": [(
+        "      const float2 w = win2[c * H + p];",
+        "      const float2 w = make_float2(1.f + c, 1.f - c);"), (
+        "        e = __ldg(reinterpret_cast<const float2*>(env + s));",
+        "        e = make_float2(1.f, 2.f);")],
+    "no output stores": [(
+        "    if (keep && s < T) {", "    if (keep && s < T && acc[0].x == 12345.f) {")],
+}
+
+
+def ablations(kernel: str, source: str, table: dict, split: str, prefix: str) -> None:
+    """``--k1-ablations`` / ``--k3-ablations``: the kernel's device time
+    (``split`` of each copy, the line that starts with ``prefix``) for the
+    package as it is and for each entry of ``table``, copies under
+    ``build/<kernel>_ablations/``, each in its own process, in two rounds."""
     import shutil
 
-    print("K1 ablations on", gpu_line(), flush=True)
+    print(f"{kernel} ablations on", gpu_line(), flush=True)
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "mlx_audio_primitives_tpu_torch")
     dirs = {"as it is": root}
-    for i, (label, edits) in enumerate(K1_ABLATIONS.items()):
-        d = os.path.join(root, "build", "k1_ablations", str(i))
+    for i, (label, edits) in enumerate(table.items()):
+        d = os.path.join(root, "build", f"{kernel.lower()}_ablations", str(i))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(pkg, os.path.join(d, "mlx_audio_primitives_tpu_torch"),
                         ignore=shutil.ignore_patterns("__pycache__", "build"))
-        src = os.path.join(d, "mlx_audio_primitives_tpu_torch", "csrc", "mel_fused.cu")
+        src = os.path.join(d, "mlx_audio_primitives_tpu_torch", "csrc", source)
         with open(src) as f:
             text = f.read()
         for old, new in edits:
@@ -1381,10 +1571,9 @@ def k1_ablations() -> None:
         dirs[label] = d
     for rnd in range(2):
         for label, d in dirs.items():
-            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--k1-split", d],
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), split, d],
                                  capture_output=True, text=True, timeout=600)
-            line = next((ln for ln in out.stdout.splitlines() if ln.startswith("device time per call, scale")),
-                        None)
+            line = next((ln for ln in out.stdout.splitlines() if ln.startswith(prefix)), None)
             check(out.returncode == 0 and line is not None, f"ablation {label!r} failed:\n{out.stdout[-2000:]}"
                   f"{out.stderr[-2000:]}")
             print(f"round {rnd + 1}, {label}: {line.split(': ', 1)[1]}", flush=True)
@@ -1400,8 +1589,17 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--k345-split":
         k345_split_of(sys.argv[2])
         return
+    if len(sys.argv) == 3 and sys.argv[1] == "--k3-split":
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        environment()
+        k3_split(torch.Generator(device="cuda").manual_seed(0))
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "--k1-ablations":
-        k1_ablations()
+        ablations("K1", "mel_fused.cu", K1_ABLATIONS, "--k1-split", "device time per call, scale")
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "--k3-ablations":
+        ablations("K3", "istft_fused.cu", K3_ABLATIONS, "--k3-split",
+                  "device time per call, 64 x 30 s")
         return
     card = environment()
     build()

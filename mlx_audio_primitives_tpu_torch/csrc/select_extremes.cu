@@ -30,7 +30,12 @@
 // it), while min(lo[i], max(lo[i-1], v)) would copy lo[i-1] into slot i. A
 // sorting network would turn a NaN into a copy of its neighbour, so a chunk
 // whose sum is NaN (a NaN, or +inf with -inf) is inserted value by value
-// instead. A NaN is thus skipped.
+// instead, and its NaNs counted (the sum of every chunk, seven adds for
+// eight values at K <= 4, finds the few chunks that need the count). The
+// arrays thus hold the extremes of the values that are not NaN, and the
+// count sets the means as the plain twin (topk, which ranks a NaN above
+// +inf) and the JAX package (jnp.sort, NaN last) give them: hi is NaN for a
+// row that holds a NaN, lo where fewer than k_lo values are not NaN.
 //
 // Merge. To merge a sorted run b of K' values into a (padded to K' with
 // +inf), keep c[i] = min(a[i], b[K'-1-i]), a bitonic sequence that holds
@@ -156,28 +161,36 @@ select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
     hi[i] = neg_inf();
   }
   // K >= 5: chunks of K' values, sorted and merged; else chunks of kDepth
-  // values, inserted
+  // values, inserted. A chunk whose sum is NaN (a NaN, or +inf with -inf)
+  // is inserted value by value and its NaNs counted, as are the tail's.
   constexpr bool kSortMerge = K >= 5;
   constexpr int D = kSortMerge ? pow2_ceil(K) : kDepth;
-  int t = 0;
+  int t = 0, nans = 0;
   for (; t + D <= W; t += D) {
     float v[D];
 #pragma unroll
     for (int u = 0; u < D; ++u) v[u] = __ldg(p + u * sw);
     p += D * sw;
-    if constexpr (kSortMerge) {
-      float sum = v[0];  // NaN iff a NaN, or +inf with -inf
+    float sum = v[0];
 #pragma unroll
-      for (int u = 1; u < D; ++u) sum += v[u];
-      if (sum == sum) {
+    for (int u = 1; u < D; ++u) sum += v[u];
+    if (sum == sum) {
+      if constexpr (kSortMerge) {
         merge_chunk(lo, hi, v);
         continue;
       }
+    } else {
+#pragma unroll
+      for (int u = 0; u < D; ++u) nans += v[u] != v[u];
     }
 #pragma unroll
     for (int u = 0; u < D; ++u) insert(lo, hi, v[u]);
   }
-  for (; t < W; ++t, p += sw) insert(lo, hi, __ldg(p));
+  for (; t < W; ++t, p += sw) {
+    const float x = __ldg(p);
+    nans += x != x;
+    insert(lo, hi, x);
+  }
 
   float s_lo = lo[0], s_hi = hi[0];
 #pragma unroll
@@ -185,8 +198,11 @@ select_extremes_kernel(const float* __restrict__ x, long long sb, long long sr,
     if (i < k_lo) s_lo += lo[i];
     if (i < k_hi) s_hi += hi[i];
   }
-  lo_out[row] = s_lo / static_cast<float>(k_lo);
-  hi_out[row] = s_hi / static_cast<float>(k_hi);
+  // the twin's topk ranks a NaN above +inf: it is among the k_hi largest,
+  // and among the k_lo smallest only when fewer than k_lo values are not NaN
+  const float nan = __int_as_float(0x7fffffff);
+  lo_out[row] = W - nans < k_lo ? nan : s_lo / static_cast<float>(k_lo);
+  hi_out[row] = nans ? nan : s_hi / static_cast<float>(k_hi);
 }
 
 template <int K>

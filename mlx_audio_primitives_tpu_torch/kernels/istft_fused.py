@@ -16,28 +16,40 @@ strides, so :func:`istft_fused_t` and :func:`istft_fused_nat` hand it the
 swapaxes copy and no group-layout gather. Frames that start at or past the
 output's end add nothing and are never read, which is what the JAX entries'
 frame trim does. The JAX group-layout entry ``istft_pallas_grouped_t``
-takes a TPU layout that has no counterpart here. One block owns
-RB output hop-rows of one clip and walks the RB + C - 1 frames that cover
-them in batches: inverse FP32 FFT in shared memory (the real-input split of
-`csrc/fft_common.cuh` run backwards), synthesis window, then each thread
-adds the frames into the output samples it owns in a shared-memory tile,
-so there are no atomics. The frames shared by neighbouring blocks are
-recomputed, (C-1)/RB extra inverse FFTs (3/8 at n_fft 2048, hop 512).
-Imaginary parts of the DC and Nyquist bins are dropped, as irfft does.
+takes a TPU layout that has no counterpart here. Imaginary parts of the DC
+and Nyquist bins are dropped, as irfft does.
 
-What bounds it on this card: the inverse FFT's shared-memory butterflies,
-times the (RB + C - 1)/RB recompute; its bytes are one read of the
-spectrum (8 bytes per bin per frame) and one write of the output. The
-design keeps time-domain frames out of device memory entirely.
+The inverse real FFT runs as the forward register-resident FFT of
+`csrc/fft_common.cuh` (K2's passes and K2's tile of frames) on
+``Y = conj(Z) / M``, the packed spectrum conjugated:
+``IFFT_M(Z) = conj(FFT_M(conj Z)) / M``. Its first pass takes the bins
+straight from the spectrum into registers, frames fastest across a warp
+(16 frames of a bin, one 128-byte line, up to n_fft 2048), one thread
+owning the bin pairs ``k``, ``M - k``. A block walks a span of output
+hop-rows in tiles of frames: each tile completes the hop-rows its frames
+start and carries the partial sums of the ``C - 1`` rows after them to the
+next tile, so only a span's first tile recomputes frames (the ``C - 1``
+before its first row). The overlap-add reads the transforms in
+digit-reversed order, the window from shared memory, and divides by the
+envelope in the same pass. :func:`launch_plan` gives the launch geometry
+and the recompute share.
+
+What bounds it on this card: its bytes, one read of the spectrum (8 bytes
+per bin per frame) and one write of the output; the FFT (~5 GFLOP at
+64 x 30 s) has to hide behind them, and does only in part: the spectrum's
+loads are not prefetched (PERF.md). Time-domain frames never reach device
+memory.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .._config import COMPLEX_DTYPE
 from ..utils.dispatch import on_cuda, radix_shape_ok
-from ._build import I32, I64, Kernel, P, register, require, with_plain_backward
+from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import irfft_frames, rfft_twiddles
 from .overlap_add import overlap_add_plain
 
@@ -47,6 +59,53 @@ KERNEL = register(Kernel(
     source="mlx_audio_primitives_tpu_torch/csrc/istft_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/istft_fused.py:417",
 ))
+
+
+def frames_transformed(B: int, rows: int, F: int, C: int, frames_per_tile: int,
+                       span: int) -> tuple[int, int]:
+    """The frames the kernel reads and the frame slots it transforms for B
+    clips of ``rows`` hop-rows and F frames when each block takes ``span``
+    global rows: every run of a block's rows within one clip, [r0, r1), is
+    walked in tiles of ``frames_per_tile`` frames from frame
+    ``max(0, r0 - (C-1))``, and frames at or past ``min(F, r1)`` are not
+    read."""
+    loaded = slots = 0
+    total = B * rows
+    for cur in range(0, total, span):
+        end = min(total, cur + span)
+        while cur < end:
+            r0 = cur % rows
+            r1 = min(rows, r0 + end - cur)
+            cur += r1 - r0
+            fa = max(0, r0 - (C - 1))
+            tiles = -(-(r1 - fa) // frames_per_tile)
+            slots += tiles * frames_per_tile
+            loaded += max(0, min(F, r1) - fa)
+    return loaded, slots
+
+
+def launch_plan(n_fft: int, hop_length: int, B: int, F: int, padded_length: int,
+                device: torch.device) -> dict:
+    """The launch of ``istft_kernel`` for B clips of F frames and
+    ``padded_length`` samples on a CUDA ``device``: threads per block,
+    frames per tile, dynamic shared memory per block (bytes), resident
+    blocks per SM, grid, span (hop-rows a block), and the recompute share:
+    frames read beyond the ``B * min(F, rows)`` the output needs, and frame
+    slots transformed beyond them, each as a share of that need."""
+    fn = library().istft_plan
+    fn.argtypes = [I32, I32, I32, I64, I32, P]
+    fn.restype = I32
+    info = (ctypes.c_longlong * 6)()
+    err = fn(n_fft, hop_length, B, padded_length, device.index, ctypes.cast(info, P))
+    if err != 0:
+        raise RuntimeError(f"istft_plan failed: CUDA error {err}")
+    rows = -(-padded_length // hop_length)
+    C = n_fft // hop_length
+    loaded, slots = frames_transformed(B, rows, F, C, info[1], info[5])
+    need = B * min(F, rows)
+    return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
+                blocks_per_sm=info[3], grid=info[4], span=info[5],
+                recompute_loaded=loaded / need - 1, recompute_slots=slots / need - 1)
 
 
 def istft_plain(

@@ -19,8 +19,9 @@ through a strided ``(B, R, W)`` view, flattened over ``B*R`` on the grid
 with a 64-bit row index, so one launch takes any number of clips and a band
 of the natural ``(B, n_bins, F)`` magnitude is read in place with frames
 across lanes, coalesced, with no swapaxes and reshape copy, which the JAX
-code pays. A NaN is skipped (it changes neither array), where the JAX
-kernel's min/max passes carry it into the mean. What bounds it on this
+code pays. A NaN changes neither array and is counted, so that the means
+come out as the twin's: NaN for the hi mean of a row that holds a NaN, and
+for its lo mean where fewer than ``k`` values are not NaN. What bounds it on this
 card: the one read of the band, 315 MB over the four default bands at
 64 x 30 s clips, 0.094 ms at 3.35 TB/s, and its min/max a value (34 by
 insertion at ``k = 9``, ~20 by sort and merge), which issue at half the
@@ -74,9 +75,9 @@ def quantile_extreme_means_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin: ``topk`` of the smallest (ascending) and the largest
     (descending), summed in that order -> two ``x.shape[:-1]`` tensors.
-    Where a row holds a NaN the two differ: the kernel skips it, ``topk``
-    ranks it above ``+inf``. The kernel's lo (hi) mean is the twin's of the
-    row with each NaN made ``+inf`` (``-inf``)."""
+    ``topk`` ranks a NaN above ``+inf``, so a row that holds a NaN has a NaN
+    hi mean, and a NaN lo mean where fewer than ``k_lo`` of its values are
+    not NaN (the JAX package's ``jnp.sort`` puts NaN last: the same)."""
     lo = torch.topk(x, k_lo, dim=-1, largest=False, sorted=True).values
     hi = torch.topk(x, k_hi, dim=-1, largest=True, sorted=True).values
     return _ordered_mean(lo), _ordered_mean(hi)

@@ -167,6 +167,33 @@ def test_contrast_options_and_s_input_match_jax():
         assert max_rel(got, ref) <= FEAT_TOL, kw
 
 
+@pytest.mark.parametrize("linear", [False, True])
+@pytest.mark.parametrize("jax_route", ["kernels", "xla"])
+def test_contrast_nan_frames_match_jax(jax_route, linear, port_route):
+    # NaN in a few frames of every band (the last band, all NaN in one
+    # frame, has fewer non-NaN values than k): contrast is NaN at the same
+    # (band, frame) positions in both packages, on every route (the
+    # extraction kernel's twin ranks a NaN above +inf, as jnp.sort puts it
+    # last), and agrees elsewhere within the contrast tolerance
+    S = np.abs(np.asarray(jap.stft(signals(55, (2, 8192)), **KW_2048)))
+    freq = np.linspace(0, SR / 2, KW_2048["n_fft"] // 2 + 1)
+    bands = [b for b in tap_features.contrast_bands(freq, 200.0, 6, 0.02) if b is not None]
+    for n, (start, stop, _) in enumerate(bands):
+        S[n % 2, start + (7 * n) % (stop - start), 2 + n] = np.nan
+        S[(n + 1) % 2, start + (3 * n + 1) % (stop - start), 9 + n] = np.nan
+    start, stop, _ = bands[-1]
+    S[0, start:stop, 14] = np.nan
+    with pytest.MonkeyPatch.context() as mp:
+        if jax_route == "kernels":
+            mp.setattr(jax_dispatch, "has_pallas_tpu", lambda: True)
+        ref = to_np(jap.spectral_contrast(S=S, sr=SR, linear=linear, **KW_2048))
+    got = to_np(tap.spectral_contrast(S=S, sr=SR, linear=linear, **KW_2048))
+    nan = np.isnan(ref)
+    assert got.shape == ref.shape and np.array_equal(np.isnan(got), nan)
+    assert nan.sum() >= 2 * len(bands) and not nan.all(axis=(1, 2)).any()
+    assert max_rel(got[~nan], ref[~nan]) <= FEAT_TOL
+
+
 def test_flatness_on_a_tone():
     # a pure tone: away from the edge frames nearly every bin sits at the
     # spectrum's rounding floor, so flatness there (~3e-11) is ruled by

@@ -7,22 +7,23 @@ the top slot down: ``lo[i] = max(lo[i-1], min(lo[i], v))``,
 ``hi[i] = min(hi[i-1], max(hi[i], v))``. For ``K >= 5`` it takes chunks of
 ``K'`` values (``K'`` the power of two >= ``K``), sorts each with the
 bitonic sorting network and merges it into both arrays; a chunk whose sum
-is NaN (a NaN, or +inf with -inf) is inserted value by value instead. A
+is NaN (a NaN, or +inf with -inf) is inserted value by value instead and
+its NaNs counted, as are the NaNs of the tail past the last chunk. A
 merge of a sorted run ``b`` into ``a`` keeps ``c[i] = min(a[i],
 b[K'-1-i])`` (``a`` padded with +inf), a bitonic sequence, and sorts it with
 the bitonic merge network (the hi side with min and max exchanged). The
-thread sums ``lo`` and ``hi`` from slot 0 and divides by ``k``.
+thread sums ``lo`` and ``hi`` from slot 0 and divides by ``k``; where the
+row holds a NaN the hi mean is NaN, and so is the lo mean where fewer than
+``k_lo`` values are not NaN.
 
 A CUDA kernel cannot run here, so this file repeats those steps in NumPy
 float32, with ``np.fmin``/``np.fmax`` for ``fminf``/``fmaxf`` (all four
 return the other operand of a NaN), and holds the result against the port's
 plain twin ``quantile_extreme_means_plain`` bit for bit, NaN matching NaN:
 k = 1..16; W = k, W = k + 1, W not a multiple of the chunk and W = 431;
-random rows, rows full of ties, rows with +-inf and rows with NaN. The
-kernel skips a NaN, so there the reference is the twin of the row with each
-NaN made +inf for the lo mean and -inf for the hi mean (the JAX kernel
-carries a NaN into the mean instead). The merge alone is also held against
-a sort of the union of its two runs.
+random rows, rows full of ties, rows with +-inf and rows with NaN (the
+twin's ``topk`` ranks a NaN above +inf). The merge alone is also held
+against a sort of the union of its two runs.
 """
 
 from __future__ import annotations
@@ -82,27 +83,30 @@ def sort_ascending(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def stream(x: np.ndarray, K: int, nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray]:
-    """A thread's arrays after streaming its row: chunks of K' values
-    sorted and merged (K >= 5; value by value where the chunk's float32 sum
-    is NaN) or of ``DEPTH`` values inserted (K <= 4), then the tail one by
-    one. ``nan_safe=False`` inserts every value, in the other operand
-    order."""
+def stream(x: np.ndarray, K: int,
+           nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A thread's arrays after streaming its row, and its count of NaNs:
+    chunks of K' values sorted and merged (K >= 5) or of ``DEPTH`` values
+    inserted (K <= 4); a chunk whose float32 sum is NaN inserted value by
+    value (K >= 5) and its NaNs counted; then the tail one by one, counted.
+    ``nan_safe=False`` inserts every value, in the other operand order."""
     R, W = x.shape
     lo = np.full((K, R), INF, F32)
     hi = np.full((K, R), -INF, F32)
+    nans = np.zeros(R, np.int64)
     sort_merge = K >= SORT_MERGE_FROM and nan_safe
     D = pow2_ceil(K) if sort_merge else DEPTH
     t = 0
     while t + D <= W:
         chunk = x[:, t:t + D].T
         t += D
+        total = chunk[0].copy()
+        with np.errstate(invalid="ignore"):
+            for u in range(1, D):
+                total = total + chunk[u]
+        clean = ~np.isnan(total)
+        nans += np.where(clean, 0, np.isnan(chunk).sum(0))
         if sort_merge:
-            total = chunk[0].copy()
-            with np.errstate(invalid="ignore"):
-                for u in range(1, D):
-                    total = total + chunk[u]
-            clean = ~np.isnan(total)
             if clean.any():  # threads that merge; the others insert (a divergent branch)
                 s = sort_ascending(chunk[:, clean])
                 lo[:, clean] = merge(lo[:, clean], s, True)
@@ -118,8 +122,9 @@ def stream(x: np.ndarray, K: int, nan_safe: bool = True) -> tuple[np.ndarray, np
         for v in chunk:
             insert(lo, hi, v, nan_safe)
     for t in range(t, W):
+        nans += np.isnan(x[:, t])
         insert(lo, hi, x[:, t], nan_safe)
-    return lo, hi
+    return lo, hi, nans
 
 
 def is_bitonic(c: np.ndarray) -> bool:
@@ -159,22 +164,23 @@ def merge(a: np.ndarray, b: np.ndarray, smallest: bool) -> np.ndarray:
 
 def model(x: np.ndarray, k_lo: int, k_hi: int,
           nan_safe: bool = True) -> tuple[np.ndarray, np.ndarray]:
-    """K5 on rows ``x`` (R, W) -> (lo, hi) means."""
-    lo, hi = stream(x, max(k_lo, k_hi), nan_safe)
+    """K5 on rows ``x`` (R, W) -> (lo, hi) means: NaN for hi where the row
+    holds a NaN, for lo where fewer than ``k_lo`` values are not NaN."""
+    lo, hi, nans = stream(x, max(k_lo, k_hi), nan_safe)
     s_lo, s_hi = lo[0].copy(), hi[0].copy()
     with np.errstate(invalid="ignore"):  # -inf + inf in a row of infinities
         for i in range(1, k_lo):
             s_lo = s_lo + lo[i]
         for i in range(1, k_hi):
             s_hi = s_hi + hi[i]
-    return s_lo / F32(k_lo), s_hi / F32(k_hi)
+    W = x.shape[1]
+    return (np.where(W - nans < k_lo, F32(np.nan), s_lo / F32(k_lo)),
+            np.where(nans > 0, F32(np.nan), s_hi / F32(k_hi)))
 
 
 def reference(x: np.ndarray, k_lo: int, k_hi: int) -> tuple[np.ndarray, np.ndarray]:
-    """The plain twin, with each NaN made +inf for lo and -inf for hi."""
-    nan = np.isnan(x)
-    lo = quantile_extreme_means_plain(torch.from_numpy(np.where(nan, INF, x)), k_lo, k_hi)[0]
-    hi = quantile_extreme_means_plain(torch.from_numpy(np.where(nan, -INF, x)), k_lo, k_hi)[1]
+    """The plain twin on the rows as they are."""
+    lo, hi = quantile_extreme_means_plain(torch.from_numpy(x), k_lo, k_hi)
     return lo.numpy(), hi.numpy()
 
 

@@ -116,6 +116,18 @@ def test_istft_radix_tier_matches_jax(spectrum_1024):
         assert max_abs(got, y) <= ISTFT_TOL  # round trip
 
 
+@pytest.mark.parametrize("n_fft,hop", [(256, 128), (4096, 512)])
+def test_istft_radix_tier_other_shapes_match_jax(n_fft, hop):
+    # two more shapes of the radix gate (C = 2 and C = 8), a batch of 3
+    y = signals(16, (3, 6 * n_fft + 77))
+    S = to_np(tap.stft(y, n_fft=n_fft, hop_length=hop))
+    ref = jap.istft(S, hop_length=hop, length=y.shape[1], use_pallas=True)
+    for up in (None, True, False):
+        got = tap.istft(S, hop_length=hop, length=y.shape[1], use_pallas=up)
+        assert max_abs(got, ref) <= ISTFT_TOL
+        assert max_abs(got, y) <= ISTFT_TOL  # round trip
+
+
 def test_istft_ola_tier_matches_jax():
     # hop 441 is outside the radix gate: XLA/torch inverse + the OLA kernel
     y = signals(7, (2, 8192))
