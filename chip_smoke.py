@@ -7,7 +7,8 @@ time per call for the port package under DIR (an unpacked earlier commit,
 say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
 prints only phase 5's device times of K1 and K2m, ``--k3-split DIR`` those
 of K3, ``--k345-split DIR`` those of K3, K4 and K5 and the feature path's
-time, and ``--k1-ablations`` and ``--k3-ablations`` those of K1 or K3 with
+time, ``--istft-ola DIR`` the public ``istft``'s times at hop 441, and
+``--k1-ablations`` and ``--k3-ablations`` those of K1 or K3 with
 parts of their work left out, one at a time.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
@@ -30,7 +31,13 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    contrast bands and over k = 1..16 on random, tie-heavy and +-inf/NaN
    rows, held to its unmodified twin, NaN matching NaN;
    ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
-   and K5 at 65,537 clips);
+   and K5 at 65,537 clips; K1 at the pitch ACF's shapes, n_fft 4096, hop
+   512, no centre pad, the boxcar window, 432 and 331 lag-basis columns,
+   64 x 30 s; the framewise ACF's K1 route against its plain route, on
+   pitched clips and, through ``pitch_detect_acf``, on degenerate frames
+   (silence, onset, constant, piecewise constant, DC offsets: masks and f0
+   equal on the card's two routes and the CPU); one Griffin-Lim iteration,
+   K3 -> K2 -> projection -> K3, against the twins);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -44,6 +51,18 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       oracle, with its launches counted (K1 2, K2m 4, K5 4);
    c. ``istft`` and ``spectral_contrast`` on 65,537 small clips, past
       grid y's 65,535, with K3's and K5's launches counted;
+   d. ``griffinlim`` at 64 x 30 s (32 iterations: K2 32 and K3 33
+      launches) against the plain route, with its spectral convergence;
+      ``griffinlim`` at hop 441 (K4 33 times); ``istft`` at hop 441 of a
+      spectrum whose DC and Nyquist bins are not real, K4 tier and plain
+      route against the CPU; ``mel_to_audio`` on 16 x 4 s
+      (K2 32, K3 33); ``pitch_detect_acf`` and ``periodicity`` at 64 x 30 s
+      (K1 once each) against a float64 oracle of the centered frame ACF;
+      ``yin`` (no kernel) against a float64 YIN; ``piptrack`` (K2m once)
+      against the CPU; ``resample`` kaiser_best on 64 x 1 s (44.1 -> 16
+      kHz) and 64 x 30 s (22.05 -> 16 kHz) against scipy in float64 with
+      the same FIR, and ``resample`` fft on 64 x 1 s (44.1 -> 16 kHz)
+      against scipy's ``resample`` in float64;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -58,9 +77,15 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    ``torch.istft`` and ``fold`` on one 30 s clip and at 64 x 30 s (with
    K3's launch plan and recompute share), and of K5 on each default
    contrast band; K3 and K4 are also timed at 64 x 30 s against their
-   twins, library calls and bounds;
-6. ``torch.profiler`` over the spectral-feature path (kernels and plain):
-   device time by kernel, busy time and idle share.
+   twins, library calls and bounds; the slice's paths: ``resample``
+   kaiser_best 64 x 1 s (bench config 4), ``griffinlim`` 32 iterations plus
+   ``yin`` on one 1 s clip (bench config 5), ``griffinlim`` and
+   ``pitch_detect_acf`` at 64 x 30 s, kernel route against plain route,
+   ``yin`` at 64 x 30 s, and K1's device time at the ACF shape with its
+   bound;
+6. ``torch.profiler`` over the spectral-feature path and over
+   ``griffinlim`` at 64 x 30 s (kernels and plain): device time by kernel,
+   busy time and idle share.
 
 The last two lines of standard output are the card's name and power limit
 (as ``nvidia-smi`` prints them) and ``{"ok": true, "device": {...}}``; the
@@ -92,6 +117,13 @@ FEATURES = (64, LONG)  # the spectral-feature path: 64 clips of 30 s
 N_ORACLE = 4  # clips of the feature path held against the float64 oracle
 BIG = 65537  # clips of the batch-size checks: past grid y's 65,535
 SMALL = (256, 128)  # their n_fft and hop: 4 frames a clip of 384 samples
+GL_ITERS = 32  # Griffin-Lim iterations (librosa's default)
+MEL_AUDIO = (16, 4 * SR)  # mel_to_audio: 16 clips of 4 s
+RESAMPLE_1S = (64, 44100)  # bench config 4: 64 clips of 1 s at 44.1 kHz -> 16 kHz
+#: the ACF's lag windows at sr 22,050, frame 2048: the defaults (fmin 50,
+#: fmax 2000: lags 11..441, 432 weight columns) and YIN's band (fmin 65,
+#: fmax 2093: lags 10..339, 331 columns)
+ACF_BANDS = ((50.0, 2000.0), (65.0, 2093.0))
 
 # Published H100 SXM peaks (NVIDIA data sheet) for each kernel's bound
 PEAK_BYTES_PER_S = 3.35e12
@@ -333,6 +365,11 @@ def fft_occupancy(log: str) -> None:
                   f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
                   f"{g['smem_bytes']} B shared per block, {per_sm * g['threads'] // 32} warps per SM")
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
+    # K1 at the pitch ACF's shape: the n_fft 4096 instance (above) at hop 512
+    g = k1.launch_geometry(4096, HOP, dev)
+    print(f"  {k1.KERNEL.name} n_fft 4096 hop {HOP} (the pitch ACF): the instance above, "
+          f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, {g['smem_bytes']} B "
+          f"shared per block, {g['blocks_per_sm'] * g['threads'] // 32} warps per SM")
     # K3: one instance per (n_fft, hop); its launch for one clip of 64 frames
     spilled = []
     for n_fft, hop in RADIX_GATE:
@@ -545,6 +582,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
 
     big_batch_vs_plain(gen, run, errs)
     k3_gate_sweep(gen, run, errs)
+    slice_kernels_vs_plain(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -1025,6 +1063,482 @@ def large_batch(gen: torch.Generator) -> None:
           f"the {BIG}-clip contrast disagrees with the plain path")
 
 
+def pitch_clips(gen: torch.Generator, shape: tuple[int, int]) -> torch.Tensor:
+    """Pitched test audio made on the generator's device: per clip a
+    harmonic tone (5 partials at 1/k) whose f0 glides log-linearly between
+    two draws in [80, 800] Hz, silent for 0.1 s every 2 s, plus white noise
+    at 3% of the peak; float32 ``(B, L)``."""
+    B, L = shape
+    dev = gen.device
+    t = torch.arange(L, device=dev, dtype=torch.float64) / SR
+    ends = 80.0 * 10.0 ** torch.rand((B, 2), generator=gen, device=dev, dtype=torch.float64)
+    f = ends[:, :1] * (ends[:, 1:] / ends[:, :1]) ** (t / t[-1])
+    ph = 2 * np.pi * torch.cumsum(f, dim=1) / SR
+    y = sum(torch.sin(k * ph) / k for k in range(1, 6))
+    y = y * (torch.remainder(t, 2.0) >= 0.1)
+    y = y / y.abs().amax(1, keepdim=True)
+    return (y + 0.03 * torch.randn((B, L), generator=gen, device=dev, dtype=torch.float64)).float()
+
+
+def degenerate_clips(dev: torch.device) -> dict[str, torch.Tensor]:
+    """One 1 s clip of each degenerate kind of frame the ACF's noise gates
+    decide: silence, silence -> onset, constant, piecewise constant with a
+    zero mean, and a tone on a DC offset (small and large)."""
+    n, half = SR, SR // 2
+    t = np.arange(n) / SR
+    clips = {
+        "silence": np.zeros(n),
+        "onset": np.concatenate([np.zeros(half), np.sin(2 * np.pi * 220 * t[: n - half])]),
+        "constant": np.full(n, 0.9),
+        "piecewise": np.concatenate([np.full(half, 0.9), np.full(n - half, -0.9)]),
+        "dc-offset": 0.9 + 0.001 * np.sin(2 * np.pi * 330 * t),
+        "large-dc-offset": 100.0 + 0.1 * np.sin(2 * np.pi * 330 * t),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in clips.items()}
+
+
+def slice_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's checks of the resampling / Griffin-Lim / pitch slice's new
+    kernel call sites: K1 at the ACF shapes; the framewise ACF's K1 route
+    against its plain route, on pitched clips and on degenerate frames;
+    one Griffin-Lim iteration through K3 -> K2 -> projection against the
+    same iteration through the twins."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops import pitch as P
+    from mlx_audio_primitives_tpu_torch.ops.griffinlim import _project
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    dev = gen.device
+    W, n_fft = 2048, 4096
+    # K1 with the boxcar window over half the transform and the lag basis
+    # at 432 and 331 columns (27 and 20.7 m-tiles), power 2, no centre pad,
+    # on pitch_detect_acf's padded input at 64 x 30 s; <= 1e-5 of max
+    yp = torch.nn.functional.pad(pitch_clips(gen, FEATURES), (W // 2, W // 2))
+    win = P._acf_window_table(W, n_fft, device=dev)
+    _, ypad = P._acf_prep(yp, frame_length=W, hop_length=HOP)
+    kw1 = dict(n_fft=n_fft, hop_length=HOP, center=False, pad_mode="constant", power=2.0)
+    for fmin, fmax in ACF_BANDS:
+        lo, hi = P._lag_bounds(SR, fmin, fmax)
+        hi = min(hi + 1, n_fft)
+        C = P._acf_lag_basis(n_fft, lo, hi, device=dev)
+        got = run(k1.KERNEL, k1.melspectrogram_fused, ypad, win, C, **kw1)
+        ref = k1.melspectrogram_plain(ypad, win, C, **kw1)
+        e = rel_err(got, ref)
+        print(f"K1 at the ACF shape (fmin {fmin:g}, fmax {fmax:g}): n_fft {n_fft} hop {HOP} "
+              f"{tuple(ypad.shape)} -> {tuple(got.shape)} ({C.shape[1]} columns): rel err "
+              f"{e:.3e} (limit 1e-5)")
+        check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its twin at the ACF shape")
+        errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
+        # the framewise ACF, K1 route (3xTF32, then the centering algebra)
+        # against the plain route (FP32 rfft and GEMM), same clips: the
+        # normalized ACF within 1e-4 (the JAX package's own limit between
+        # its two routes) and the noise gate's masks equal
+        sk, vk = run(k1.KERNEL, P._framewise_acf_fused, yp, C, frame_length=W, hop_length=HOP,
+                     lo=lo, hi=hi)
+        sp, vp = P._framewise_acf_plain(yp, C, frame_length=W, hop_length=HOP, lo=lo, hi=hi)
+        e = abs_err(sk, sp)
+        same = bool(torch.equal(vk, vp))
+        print(f"  framewise ACF, K1 route against the plain route: abs err {e:.3e} (limit 1e-4), "
+              f"masks equal: {same} ({int(vk.sum())} of {vk.numel()} frames valid)")
+        check(e <= 1e-4 and same, "the framewise ACF's K1 route disagrees with its plain route")
+        del got, ref, sk, sp
+
+    # degenerate frames through the public pitch_detect_acf at the
+    # defaults: the card's K1 route, the card's plain route and the CPU
+    # give equal voicing masks and equal f0 where voiced
+    worst = 0.0
+    for name, clip in degenerate_clips(dev).items():
+        f0_k, v_k = run(k1.KERNEL, ap.pitch_detect_acf, clip, sr=SR)
+        dispatch.KERNELS_ENABLED = False
+        try:
+            f0_p, v_p = ap.pitch_detect_acf(clip, sr=SR)
+        finally:
+            dispatch.KERNELS_ENABLED = True
+        f0_c, v_c = ap.pitch_detect_acf(clip.cpu(), sr=SR)
+        same = (torch.equal(v_k, v_p) and torch.equal(v_k.cpu(), v_c))
+        e = max(abs_err(f0_k[v_k], f0_p[v_k]) if v_k.any() else 0.0,
+                abs_err(f0_k[v_k].cpu(), f0_c[v_k.cpu()]) if v_k.any() else 0.0)
+        worst = max(worst, e)
+        print(f"  degenerate frames, {name}: {int(v_k.sum())} of {v_k.numel()} voiced on K1, "
+              f"{int(v_p.sum())} plain, {int(v_c.sum())} CPU; masks equal: {same}; f0 where voiced "
+              f"max abs diff {e:.3e} Hz")
+        check(same and e == 0.0, f"pitch_detect_acf on {name} frames: K1 route, plain route and "
+              f"CPU disagree")
+
+    # one Griffin-Lim iteration on 4 clips of 30 s: K3 on the random-phase
+    # spectrum (the transposed view of its natural layout), K2 on that
+    # signal, the projection; then K3 again. Each step against the twins'
+    # step on the same input; the projection on cells with |X| >= 1e-3 of
+    # max (below that a phase is set by rounding)
+    wn = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    S = k2.stft_magnitude_plain(pitch_clips(gen, (4, LONG)), wn, **kw)
+    ang = (torch.rand(S.shape, generator=gen, device=dev) * 2 - 1) * np.pi
+    rebuilt = torch.polar(S, ang)
+    T = LONG + N_FFT
+    env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, S.shape[-1], HOP, T, device=dev)
+    kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
+    keep = slice(N_FFT // 2, N_FFT // 2 + LONG)
+    y_k = run(k3.KERNEL, k3.istft_fused, rebuilt.transpose(1, 2), wn, env, **kw3)[:, keep]
+    y_p = k3.istft_plain(rebuilt.transpose(1, 2), wn, env, **kw3)[:, keep]
+    e_y = abs_err(y_k, y_p)
+    # the random phases leave the DC and Nyquist bins complex: the twin's
+    # cuFFT irfft must drop their imaginary parts as the CPU's does
+    y_c = k3.istft_plain(rebuilt[:1].cpu().transpose(1, 2), wn.cpu(), env.cpu(), **kw3)[:, keep]
+    e_c = abs_err(y_p[:1], y_c)
+    X_k = run(k2.KERNEL, k2.stft_fused, y_p.contiguous(), wn, **kw)
+    X_p = k2.stft_plain(y_p.contiguous(), wn, **kw)
+    e_x = rel_err(X_k, X_p)
+    new_k, new_p = _project(S, X_k), _project(S, X_p)
+    strong = X_p.abs() >= 1e-3 * X_p.abs().max()
+    e_new = float((new_k - new_p).abs()[strong].max() / S.max())
+    y2_k = run(k3.KERNEL, k3.istft_fused, new_k.transpose(1, 2), wn, env, **kw3)[:, keep]
+    y2_p = k3.istft_plain(new_p.transpose(1, 2), wn, env, **kw3)[:, keep]
+    e_y2 = rel_err(y2_k, y2_p)
+    print(f"Griffin-Lim iteration (4, {LONG}): K3 abs err {e_y:.3e} (limit 1e-5; the twin on "
+          f"the card against the CPU's {e_c:.3e}, limit 1e-5), K2 rel err "
+          f"{e_x:.3e} (limit 1e-5), projection on {float(strong.float().mean()):.6f} of the cells "
+          f"{e_new:.3e} of max S (limit 1e-4), the next K3 output {e_y2:.3e} of max (limit 1e-4)")
+    check(e_y <= 1e-5 and e_c <= 1e-5 and e_x <= 1e-5 and e_new <= 1e-4 and e_y2 <= 1e-4,
+          "a Griffin-Lim iteration through the kernels disagrees with the twins'")
+    errs[k3.KERNEL.name] = max(errs.get(k3.KERNEL.name, 0.0), e_y)
+    errs[k2.KERNEL.name] = max(errs.get(k2.KERNEL.name, 0.0), abs_err(X_k, X_p))
+
+
+def acf_oracle(y: torch.Tensor, fmin: float, fmax: float, threshold: float = 0.1):
+    """float64 CPU oracle of ``pitch_detect_acf`` and ``periodicity`` at the
+    defaults (frame 2048, hop 512, centre pad of zeros): each frame's
+    mean-centered linear ACF from a float64 ``rfft`` at 4096 points,
+    normalized at lag 0, then the first local peak above ``threshold`` in
+    the lag window, else the global maximum if above it."""
+    W = 2048
+    y64 = torch.nn.functional.pad(y.double().cpu(), (W // 2, W // 2))
+    fr = y64.unfold(-1, W, HOP)
+    fr = fr - fr.mean(-1, keepdim=True)
+    r = torch.fft.irfft(torch.fft.rfft(fr, n=2 * W).abs() ** 2, n=2 * W)
+    lo, hi = max(1, int(SR / fmax)), int(SR / fmin) + 1
+    rn = r[..., lo:hi] / r[..., :1]
+    mid = rn[..., 1:-1]
+    peak = (mid > rn[..., :-2]) & (mid > rn[..., 2:]) & (mid > threshold)
+    has = peak.any(-1)
+    idx = torch.where(has, peak.to(torch.uint8).argmax(-1) + 1, rn.argmax(-1))
+    voiced = has | (rn.amax(-1) > threshold)
+    f0 = torch.where(voiced, (SR / (lo + idx)).float(), 0.0)
+    return f0, voiced, rn.amax(-1)[:, None, :]
+
+
+def yin_oracle(y: torch.Tensor, fmin: float, fmax: float, threshold: float = 0.1) -> torch.Tensor:
+    """float64 YIN on the card at the defaults (frame 2048, window 1024, hop
+    512, centre pad of zeros): the difference function summed lag by lag,
+    the cumulative mean normalization, the first trough below
+    ``threshold`` (else the minimum), parabolic refinement."""
+    W, L = 1024, 2048
+    min_p, max_p = max(int(np.floor(SR / fmax)), 1), min(int(np.ceil(SR / fmin)), L - W - 1)
+    fr = torch.nn.functional.pad(y.double(), (L // 2, L // 2)).unfold(-1, L, HOP)
+    head = fr[..., :W]
+    d = torch.stack([((head - fr[..., tau : tau + W]) ** 2).sum(-1) for tau in range(max_p + 1)], -1)
+    tau = torch.arange(1, max_p + 1, dtype=torch.float64, device=y.device)
+    cmnd = torch.cat([torch.ones_like(d[..., :1]),
+                      d[..., 1:] * tau / torch.cumsum(d[..., 1:], -1).clamp_min(1e-300)], -1)
+    band = cmnd[..., min_p : max_p + 1]
+    inf = torch.full_like(band[..., :1], float("inf"))
+    left, right = torch.cat([inf, band[..., :-1]], -1), torch.cat([band[..., 1:], inf], -1)
+    below = (band < left) & (band <= right) & (band < threshold)
+    idx = torch.where(below.any(-1), below.to(torch.uint8).argmax(-1), band.argmin(-1))
+    n = band.shape[-1]
+    g = lambda i: band.gather(-1, i[..., None])[..., 0]  # noqa: E731
+    c, lft, rgt = g(idx), g((idx - 1).clamp_min(0)), g((idx + 1).clamp_max(n - 1))
+    den = lft + rgt - 2 * c
+    shift = torch.where(den.abs() > 1e-12, 0.5 * (lft - rgt) / torch.where(den == 0, 1.0, den), 0.0)
+    shift = torch.where((idx > 0) & (idx < n - 1), shift.clamp(-0.5, 0.5), 0.0)
+    return SR / (min_p + idx + shift)
+
+
+def _fir(up: int, down: int, design: str) -> np.ndarray:
+    """The polyphase FIR scipy would use for ``design`` (the port's table's
+    source), for the scipy oracle."""
+    from scipy.signal import firwin
+
+    from mlx_audio_primitives_tpu_torch.ops.resample import _FIR_DESIGNS, _fir_half_len
+
+    _, rolloff, beta = _FIR_DESIGNS[design]
+    return firwin(2 * _fir_half_len(up, down, design) + 1, rolloff / max(up, down),
+                  window=("kaiser", beta))
+
+
+def slice_paths(gen: torch.Generator) -> dict:
+    """Phase 4d: the resampling, Griffin-Lim, mel inversion and pitch entry
+    points on CUDA tensors, each with every launch counter reset just before
+    and read just after; returns the launches summed over these calls."""
+    phase("4d. public resampling / Griffin-Lim / mel inversion / pitch paths on cuda tensors")
+    from scipy.signal import resample, resample_poly
+
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    dev = gen.device
+    total = {k.name: 0 for k in _build.KERNELS}
+
+    def counted(label, expect, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_counts(label, tuple(k for k, n in expect.items() if n))
+        for name, n in launches.items():
+            check(n == expect.get(name, 0), f"{label}: {name} launched {n} times, expected "
+                  f"{expect.get(name, 0)}")
+            total[name] += n
+        return out
+
+    def plain(fn):
+        dispatch.KERNELS_ENABLED = False
+        try:
+            return fn()
+        finally:
+            dispatch.KERNELS_ENABLED = True
+
+    def convergence(y, S, hop):
+        """Spectral convergence ||STFT(y)| - S| / |S| (plain STFT)."""
+        got = ap.stft(y, n_fft=N_FFT, hop_length=hop, use_pallas=False).abs()
+        return float(torch.linalg.vector_norm(got - S) / torch.linalg.vector_norm(S))
+
+    def l2_rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    # Griffin-Lim's iterations do not contract differences sample by sample
+    # (momentum 0.99, phases of weak cells set by rounding): the JAX package
+    # and the port differ by 2.5e-3 of max, 3.4e-4 in L2, on 2 x 30 s on the
+    # CPU, with equal spectral convergence. So a Griffin-Lim result is held
+    # to its plain route in L2 (1e-2) and by its spectral convergence
+    # (within 1e-3 of the plain route's); the largest sample difference is
+    # printed, not held.
+
+    # Griffin-Lim at 64 x 30 s: K3 -> K2 -> projection, 32 times, then K3
+    y = pitch_clips(gen, FEATURES)
+    S = ap.stft(y, n_fft=N_FFT, hop_length=HOP).abs()
+    kw = dict(n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=LONG)
+    gl = counted(f"griffinlim {FEATURES}", {"stft_kernel": GL_ITERS, "istft_kernel": GL_ITERS + 1},
+                 lambda: ap.griffinlim(S, **kw))
+    gl_p = ap.griffinlim(S, use_pallas=False, **kw)
+    e, e2 = rel_err(gl, gl_p), l2_rel(gl, gl_p)
+    sc, sc_p = convergence(gl, S, HOP), convergence(gl_p, S, HOP)
+    print(f"griffinlim {tuple(S.shape)} x {GL_ITERS} iterations -> {tuple(gl.shape)}: against the "
+          f"plain route {e2:.3e} in L2 (limit 1e-2), {e:.3e} of max (not held); spectral "
+          f"convergence {sc:.6f} (plain {sc_p:.6f}, limit: within 1e-3 of it)")
+    check(gl.shape == y.shape and bool(torch.isfinite(gl).all()) and e2 <= 1e-2
+          and abs(sc - sc_p) <= 1e-3 * sc_p, "griffinlim at 64 x 30 s misses its limits")
+    del gl, gl_p, S
+
+    # Griffin-Lim on one clip at hop 441: the overlap-add tier (K4)
+    S441 = ap.stft(y[0], n_fft=N_FFT, hop_length=OLA_HOP).abs()
+    kw = dict(n_iter=GL_ITERS, hop_length=OLA_HOP, random_state=0, length=LONG)
+    gl = counted("griffinlim at hop 441", {"overlap_add_kernel": GL_ITERS + 1},
+                 lambda: ap.griffinlim(S441, **kw))
+    gl_p = ap.griffinlim(S441, use_pallas=False, **kw)
+    e, e2 = rel_err(gl, gl_p), l2_rel(gl, gl_p)
+    sc, sc_p = convergence(gl, S441, OLA_HOP), convergence(gl_p, S441, OLA_HOP)
+    print(f"griffinlim {tuple(S441.shape)} at hop {OLA_HOP}: against the plain route {e2:.3e} in L2 "
+          f"(limit 1e-2), {e:.3e} of max (not held); spectral convergence {sc:.6f} (plain "
+          f"{sc_p:.6f}, limit: within 1e-3 of it)")
+    check(gl.shape == (LONG,) and e2 <= 1e-2 and abs(sc - sc_p) <= 1e-3 * sc_p,
+          "griffinlim at hop 441 disagrees with the plain route")
+
+    # istft at hop 441 (the K4 tier) and through the plain route of a
+    # spectrum whose DC and Nyquist bins are not real, as a caller may pass
+    # one: the card against the CPU, whose irfft drops those imaginary
+    # parts as K3's and the JAX package's do (cuFFT's keeps them)
+    Sx = torch.randn((2, N_FFT // 2 + 1, 200), dtype=torch.complex64, generator=gen, device=dev)
+    yk = counted("istft of a non-Hermitian spectrum at hop 441", {"overlap_add_kernel": 1},
+                 lambda: ap.istft(Sx, hop_length=OLA_HOP))
+    yp = ap.istft(Sx, hop_length=OLA_HOP, use_pallas=False)
+    yc = ap.istft(Sx.cpu(), hop_length=OLA_HOP)
+    e_k, e_p = rel_err(yk, yc), rel_err(yp, yc)
+    print(f"istft {tuple(Sx.shape)} at hop {OLA_HOP}, DC and Nyquist not real: against the CPU "
+          f"K4 tier {e_k:.3e}, plain route {e_p:.3e} of max (limit 1e-5)")
+    check(e_k <= 1e-5 and e_p <= 1e-5, "istft of a non-Hermitian spectrum differs from the CPU")
+
+    # mel_to_audio on 16 x 4 s, 128 mels: NNLS, then Griffin-Lim on K2/K3
+    y16 = pitch_clips(gen, MEL_AUDIO)
+    M = ap.melspectrogram(y16, sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS)
+    kw = dict(sr=SR, n_fft=N_FFT, hop_length=HOP, n_iter=GL_ITERS, random_state=0,
+              length=MEL_AUDIO[1])
+    rec = counted(f"mel_to_audio {MEL_AUDIO}", {"stft_kernel": GL_ITERS,
+                                                "istft_kernel": GL_ITERS + 1},
+                  lambda: ap.mel_to_audio(M, **kw))
+    rec_p = plain(lambda: ap.mel_to_audio(M, **kw))
+    e, e2 = rel_err(rec, rec_p), l2_rel(rec, rec_p)
+    mel = lambda r: ap.melspectrogram(r, sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS)  # noqa: E731
+    e_mel, e_mel_p = l2_rel(mel(rec), M), l2_rel(mel(rec_p), M)
+    print(f"mel_to_audio {tuple(M.shape)} -> {tuple(rec.shape)}: against the plain route {e2:.3e} "
+          f"in L2 (limit 1e-2), {e:.3e} of max (not held); the result's mel within {e_mel:.6f} of "
+          f"M in L2 (plain route {e_mel_p:.6f}, limit: within 1e-3 of it)")
+    check(rec.shape == y16.shape and e2 <= 1e-2 and abs(e_mel - e_mel_p) <= 1e-3 * e_mel_p,
+          "mel_to_audio disagrees with the plain route")
+
+    # pitch_detect_acf and periodicity at 64 x 30 s (defaults): K1 once
+    # each; the first clips against the float64 oracle
+    f0, voiced = counted(f"pitch_detect_acf {FEATURES}", {"mel_fused_kernel": 1},
+                         lambda: ap.pitch_detect_acf(y, sr=SR))
+    per = counted(f"periodicity {FEATURES}", {"mel_fused_kernel": 1},
+                  lambda: ap.periodicity(y, sr=SR))
+    f0_o, v_o, per_o = acf_oracle(y[:N_ORACLE], 50.0, 2000.0)
+    f0c, vc = f0[:N_ORACLE].cpu(), voiced[:N_ORACLE].cpu()
+    e_per = abs_err(per[:N_ORACLE], per_o)
+    v_share = float((vc == v_o).float().mean())
+    both = vc & v_o
+    f0_share = float((f0c[both] == f0_o[both]).float().mean())
+    print(f"pitch_detect_acf {tuple(y.shape)} -> {tuple(f0.shape)}: first {N_ORACLE} clips against "
+          f"the f64 oracle: voicing equal on {v_share:.5f} of frames, f0 equal on {f0_share:.5f} of "
+          f"the frames both voice (limits 0.999); periodicity abs err {e_per:.3e} (limit 1e-4)")
+    check(v_share >= 0.999 and f0_share >= 0.999 and e_per <= 1e-4,
+          "pitch_detect_acf / periodicity miss the float64 oracle")
+
+    # YIN at 64 x 30 s over fmin 65 .. fmax 2093: no kernel of the port
+    f0y = counted(f"yin {FEATURES}", {}, lambda: ap.yin(y, 65.0, 2093.0, sr=SR))
+    ref = yin_oracle(y[:2], 65.0, 2093.0)
+    rel = ((f0y[:2].double() - ref).abs() / ref)
+    share = float((rel <= 5e-3).double().mean())
+    print(f"yin {tuple(y.shape)} -> {tuple(f0y.shape)}: first 2 clips against the f64 oracle: "
+          f"{share:.5f} of frames within 5e-3 relative (limit 0.999), max {float(rel.max()):.3e}")
+    check(bool(torch.isfinite(f0y).all()) and share >= 0.999, "yin misses the float64 oracle")
+
+    # piptrack at 64 x 30 s: K2m once; the first clips against the CPU run
+    pit, mag = counted(f"piptrack {FEATURES}", {"stft_mag_kernel": 1},
+                       lambda: ap.piptrack(y=y, sr=SR))
+    pit_c, mag_c = ap.piptrack(y=y[:N_ORACLE].cpu(), sr=SR)
+    pk, mk = pit[:N_ORACLE].cpu(), mag[:N_ORACLE].cpu()
+    peaks = (pk > 0) == (pit_c > 0)
+    both = (pk > 0) & (pit_c > 0)
+    e_p = float(((pk - pit_c).abs()[both]).max() / pit_c.max())
+    e_m = float(((mk - mag_c).abs()[both]).max() / mag_c.max())
+    print(f"piptrack {tuple(y.shape)} -> {tuple(pit.shape)}: first {N_ORACLE} clips against the CPU: "
+          f"peak cells equal on {float(peaks.float().mean()):.7f} of cells (limit 0.9999), where both "
+          f"peak pitches {e_p:.3e} and mags {e_m:.3e} of max (limit 1e-4)")
+    check(float(peaks.float().mean()) >= 0.9999 and e_p <= 1e-4 and e_m <= 1e-4,
+          "piptrack on the card disagrees with the CPU")
+
+    # resample with kaiser_best: 64 x 1 s 44.1 -> 16 kHz (bench config 4)
+    # and 64 x 30 s 22.05 -> 16 kHz; scipy in float64 with the same FIR
+    for label, (B, L), (orig, target), n_ref in (
+        ("64 x 1 s", RESAMPLE_1S, (44100, 16000), 8),
+        ("64 x 30 s", FEATURES, (SR, 16000), 2),
+    ):
+        x = torch.randn((B, L), generator=gen, device=dev)
+        out = counted(f"resample kaiser_best {label}", {},
+                      lambda: ap.resample(x, orig, target, res_type="kaiser_best"))
+        g = int(np.gcd(orig, target))
+        up, down = target // g, orig // g
+        ref = resample_poly(x[:n_ref].double().cpu().numpy(), up, down, axis=-1,
+                            window=_fir(up, down, "kaiser_best"))[:, : out.shape[1]]
+        e = float(np.abs(out[:n_ref].double().cpu().numpy() - ref).max())
+        print(f"resample kaiser_best {label} {orig} -> {target}: {tuple(out.shape)}, first {n_ref} "
+              f"clips against scipy (f64, same FIR) abs err {e:.3e} (limit 2e-5)")
+        check(out.shape == (B, int(round(L * target / orig))) and e <= 2e-5,
+              f"resample {label} misses 2e-5")
+
+    # resample with res_type='fft' (the default): 64 x 1 s 44.1 -> 16 kHz.
+    # The even output length's Nyquist bin folds in an interior bin of the
+    # input, a complex one: cuFFT's irfft would keep its imaginary part,
+    # scipy's (and the port's) drop it. scipy's resample in float64
+    B, L = RESAMPLE_1S
+    x = torch.randn((B, L), generator=gen, device=dev)
+    out = counted("resample fft 64 x 1 s", {}, lambda: ap.resample(x, 44100, 16000))
+    ref = resample(x.double().cpu().numpy(), out.shape[1], axis=-1)
+    e = float(np.abs(out.double().cpu().numpy() - ref).max())
+    print(f"resample fft 64 x 1 s 44100 -> 16000: {tuple(out.shape)}, against scipy.signal.resample "
+          f"(f64) abs err {e:.3e} (limit 2e-4)")
+    check(out.shape == (B, 16000) and e <= 2e-4, "resample fft misses 2e-4")
+    return total
+
+
+def slice_times(gen: torch.Generator) -> None:
+    """Phase 5's times of the slice: CUDA-event medians of the public paths
+    (kernel route against plain route, in turns), and K1's device time at
+    the ACF shape with its bound."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops import pitch as P
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    dev = gen.device
+    x44 = torch.randn(RESAMPLE_1S, generator=gen, device=dev)
+    t = [cuda_ms(lambda: ap.resample(x44, 44100, 16000, res_type="kaiser_best"), 2, 20)
+         for _ in range(2)]
+    print(f"bench config 4, resample kaiser_best 64 x 1 s 44.1 -> 16 kHz (no kernel; one FP32 "
+          f"GEMM): {t[0]:.4f} / {t[1]:.4f}")
+
+    def routes(label, fn, reps):
+        def run(enabled):
+            dispatch.KERNELS_ENABLED = enabled
+            try:
+                return fn()
+            finally:
+                dispatch.KERNELS_ENABLED = True
+        p_a = cuda_ms(lambda: run(False), 1, reps)
+        k_a, k_b = cuda_ms(lambda: run(True), 1, reps), cuda_ms(lambda: run(True), 1, reps)
+        p_b = cuda_ms(lambda: run(False), 1, reps)
+        print(f"{label}: kernel route {k_a:.4f} / {k_b:.4f}, plain route {p_a:.4f} / {p_b:.4f}")
+
+    y1 = pitch_clips(gen, (1, SR))
+    S1 = ap.stft(y1, n_fft=N_FFT, hop_length=HOP).abs()
+    routes("bench config 5, griffinlim 32 iterations + yin (65-2093 Hz) on one 1 s clip",
+           lambda: (ap.griffinlim(S1, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=SR),
+                    ap.yin(y1, 65.0, 2093.0, sr=SR)), 10)
+    routes("  of which griffinlim alone",
+           lambda: ap.griffinlim(S1, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=SR),
+           10)
+    t = [cuda_ms(lambda: ap.yin(y1, 65.0, 2093.0, sr=SR), 2, 10) for _ in range(2)]
+    print(f"  and yin alone: {t[0]:.4f} / {t[1]:.4f}")
+    y = pitch_clips(gen, FEATURES)
+    S = ap.stft(y, n_fft=N_FFT, hop_length=HOP).abs()
+    routes("griffinlim 64 x 30 s, 32 iterations",
+           lambda: ap.griffinlim(S, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=LONG), 3)
+    # its host-side phase initialisation, the JAX package's draw
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ang = np.random.default_rng(0).uniform(-np.pi, np.pi, (S.shape[0], S.shape[2], S.shape[1]))
+        ang = torch.from_numpy(ang.astype(np.float32)).to(dev)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    print(f"  of which the initial phases drawn on the host and copied to the card "
+          f"({ang.numel()} values): {host[0]:.1f} / {host[1]:.1f} / {host[2]:.1f}")
+    del S, ang
+    routes("pitch_detect_acf 64 x 30 s (defaults)", lambda: ap.pitch_detect_acf(y, sr=SR), 5)
+    t = [cuda_ms(lambda: ap.yin(y, 65.0, 2093.0, sr=SR), 1, 3) for _ in range(2)]
+    print(f"yin 64 x 30 s (65-2093 Hz, no kernel): {t[0]:.4f} / {t[1]:.4f}")
+
+    # K1 at the ACF shape: 64 x 30 s, n_fft 4096, hop 512, 432 columns
+    W, n_fft = 2048, 4096
+    yp = torch.nn.functional.pad(y, (W // 2, W // 2))
+    _, ypad = P._acf_prep(yp, frame_length=W, hop_length=HOP)
+    lo, hi = P._lag_bounds(SR, 50.0, 2000.0)
+    C = P._acf_lag_basis(n_fft, lo, hi + 1, device=dev)
+    win = P._acf_window_table(W, n_fft, device=dev)
+    kw1 = dict(n_fft=n_fft, hop_length=HOP, center=False, pad_mode="constant", power=2.0)
+    dev_ms = kernel_device_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), k1.KERNEL.name, 5)
+    twin = [cuda_ms(lambda: k1.melspectrogram_plain(ypad, win, C, **kw1), 1, 5),
+            cuda_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), 1, 5),
+            cuda_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), 1, 5),
+            cuda_ms(lambda: k1.melspectrogram_plain(ypad, win, C, **kw1), 1, 5)]
+    B, Lp = ypad.shape
+    F, n_bins, n_cols = 1 + (Lp - n_fft) // HOP, n_fft // 2 + 1, C.shape[1]
+    nbytes = 4 * (B * Lp + n_fft + n_bins * n_cols + B * n_cols * F)
+    fp32 = B * F * (n_fft + _rfft_flops(n_fft) + 3 * n_bins)
+    tf32 = 3 * B * F * 2 * n_bins * n_cols
+    bound_ms, bound_by = _bound(nbytes, fp32, tf32)
+    print(f"K1 at the ACF shape ({B}, {Lp}), n_fft {n_fft} hop {HOP}, {n_cols} columns, {F} frames: "
+          f"device {dev_ms:.4f} ms (torch.profiler, 5 calls); events kernel {twin[1]:.4f} / "
+          f"{twin[2]:.4f}, plain {twin[0]:.4f} / {twin[3]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
+          f"{tf32 / 1e9:.1f} GFLOP of TF32 products, {fp32 / 1e9:.1f} GFLOP FP32, "
+          f"{nbytes / 1e6:.1f} MB)")
+
+
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
     the memory rate, the FP32 operations over the FP32 peak and the TF32
@@ -1350,6 +1864,7 @@ def times(gen: torch.Generator, card: str) -> dict:
               f"bound {bound_ms:.4f} ({bound_by}{extra})")
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    slice_times(gen)
     return out
 
 
@@ -1367,33 +1882,34 @@ def device_busy_ms(prof, calls: int) -> float:
     return busy_us / 1e3 / calls
 
 
-def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
-    """Phase 6: where the feature path's time goes, from ``torch.profiler``
-    over ``calls`` calls after two warm-up calls: device time per call by
-    kernel, the device's busy time (the union of its kernel and copy spans)
-    and its idle share of the host's wall time. The profiler lengthens the
-    host side, so the windows run longer than the CUDA-event times."""
-    phase(f"6. where the feature path's time goes (torch.profiler, ms per call) on {card}")
+def profile_path(fn, calls: int, order: bool) -> None:
+    """``fn()`` under ``torch.profiler`` for ``calls`` calls after two
+    warm-up calls, on the kernel path and on the plain path (every kernel
+    off): device time per call by kernel, the device's busy time (the union
+    of its kernel and copy spans) and its idle share of the host's wall
+    time; with ``order``, the port's kernels launch by launch in the first
+    profiled call. The profiler lengthens the host side, so the windows run
+    longer than the CUDA-event times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import mlx_audio_primitives_tpu_torch as ap
     from mlx_audio_primitives_tpu_torch.kernels import _build
     from mlx_audio_primitives_tpu_torch.utils import dispatch
 
-    y = torch.randn(FEATURES, generator=gen, device=torch.device("cuda", 0))
     for label, enabled in (("kernel path", True), ("plain path", False)):
         dispatch.KERNELS_ENABLED = enabled
-        for _ in range(2):
-            feature_set(ap, y)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                feature_set(ap, y)
+        try:
+            for _ in range(2):
+                fn()
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-        dispatch.KERNELS_ENABLED = True
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        finally:
+            dispatch.KERNELS_ENABLED = True
         busy_ms = device_busy_ms(prof, calls)
         if not busy_ms:
             print(f"{label}: the profiler saw no device time")
@@ -1408,13 +1924,34 @@ def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
               f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
             print(f"  {us / 1e3 / calls:8.4f}  {n // calls:3d}x  {name[:110]}")
-        # the port's own kernels launch by launch, in the first profiled call
-        own = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and any(re.search(rf"::{k.name}[<(]", e.name) for k in _build.KERNELS))
-        first = own[: len(own) // calls]
-        print("  the port's kernels in call order (ms):",
-              ", ".join(f"{n.split('::')[1].split('(')[0]} {us / 1e3:.4f}" for _, n, us in first))
+        if order:
+            own = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                         for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and any(re.search(rf"::{k.name}[<(]", e.name) for k in _build.KERNELS))
+            first = own[: len(own) // calls]
+            print("  the port's kernels in call order (ms):",
+                  ", ".join(f"{n.split('::')[1].split('(')[0]} {us / 1e3:.4f}" for _, n, us in first))
+
+
+def profile_features(gen: torch.Generator, card: str, calls: int = 3) -> None:
+    """Phase 6a: where the feature path's time goes, from ``torch.profiler``
+    (:func:`profile_path`)."""
+    phase(f"6a. where the feature path's time goes (torch.profiler, ms per call) on {card}")
+    import mlx_audio_primitives_tpu_torch as ap
+
+    y = torch.randn(FEATURES, generator=gen, device=torch.device("cuda", 0))
+    profile_path(lambda: feature_set(ap, y), calls, order=True)
+
+
+def profile_griffinlim(gen: torch.Generator, card: str, calls: int = 2) -> None:
+    """Phase 6b: where ``griffinlim``'s time goes at 64 x 30 s, 32
+    iterations (:func:`profile_path`)."""
+    phase(f"6b. where griffinlim's time goes at 64 x 30 s (torch.profiler, ms per call) on {card}")
+    import mlx_audio_primitives_tpu_torch as ap
+
+    S = ap.stft(pitch_clips(gen, FEATURES), n_fft=N_FFT, hop_length=HOP).abs()
+    profile_path(lambda: ap.griffinlim(S, n_iter=GL_ITERS, hop_length=HOP, random_state=0,
+                                       length=LONG), calls, order=False)
 
 
 def host_path(root: str) -> None:
@@ -1460,6 +1997,28 @@ def k345_split_of(root: str) -> None:
     print(f"features 64 x 30 s, kernel path: CUDA events {t[0]:.4f} / {t[1]:.4f} ms (median of "
           f"20 calls after 2, twice); device busy {device_busy_ms(prof, 5):.4f} ms per call "
           f"(torch.profiler, 5 calls)")
+
+
+def istft_ola_of(root: str) -> None:
+    """``--istft-ola ROOT``: CUDA-event times of the public ``istft`` at hop
+    441 (the overlap-add tier: the inverse FFT, then K4) on one 30 s clip
+    and at 64 x 30 s, for the port package under ``ROOT``, such as an
+    unpacked earlier commit."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    import mlx_audio_primitives_tpu_torch as ap
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"public istft at hop {OLA_HOP} of {os.path.dirname(ap.__file__)}:")
+    for label, shape, reps in (("one 30 s clip", (1, LONG), 50), ("64 x 30 s", FEATURES, 10)):
+        y = torch.randn(shape, generator=gen, device=dev)
+        S = ap.stft(y, n_fft=N_FFT, hop_length=OLA_HOP)
+        t = [cuda_ms(lambda: ap.istft(S, hop_length=OLA_HOP, length=shape[1]), 2, reps)
+             for _ in range(2)]
+        print(f"  {label} {tuple(S.shape)}: {t[0]:.4f} / {t[1]:.4f} ms (median of {reps} calls "
+              f"after 2, twice)")
+        del y, S
 
 
 def k1_split_of(root: str) -> None:
@@ -1586,6 +2145,9 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-split":
         k1_split_of(sys.argv[2])
         return
+    if len(sys.argv) == 3 and sys.argv[1] == "--istft-ola":
+        istft_ola_of(sys.argv[2])
+        return
     if len(sys.argv) == 3 and sys.argv[1] == "--k345-split":
         k345_split_of(sys.argv[2])
         return
@@ -1608,12 +2170,14 @@ def main() -> None:
     log_mel = main_path(gen)
     features = feature_path(gen)
     large_batch(gen)
+    slice_launches = slice_paths(gen)
     timing = times(gen, card)
     profile_features(gen, card)
+    profile_griffinlim(gen, card)
 
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
-    launches = {name: log_mel[name] + features[name] for name in log_mel}
+    launches = {name: log_mel[name] + features[name] + slice_launches[name] for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

@@ -12,11 +12,16 @@ Passing a CPU tensor runs an op on the CPU; :func:`set_default_device`
 ops run six hand-written CUDA kernels (`kernels/`, sources in `csrc/`),
 built with nvcc on first use.
 
-This package holds the STFT / ISTFT / mel slice and the spectral-feature
-slice (magnitude STFT, spectral features, MFCC, deltas, framing) of the JAX
-package and exports their part of its top-level names;
-``magnitude_spectrogram`` is reached as ``ops.stft.magnitude_spectrogram``,
-as in the JAX package. It imports neither JAX nor the JAX package.
+This package holds the JAX package's whole 40-name public surface
+(``__all__``, plus :func:`set_default_device`): STFT / ISTFT, windows, mel
+and the bark/linear filterbanks, the spectral features, MFCC, framing,
+resampling, Griffin-Lim, autocorrelation and ACF pitch, and the dB
+conversions; and, as the JAX package does outside ``__all__``, ``yin``,
+``piptrack``, ``estimate_tuning``, ``pitch_tuning``, the mel/MFCC
+inversion and ``magphase``. ``magnitude_spectrogram`` is reached as
+``ops.stft.magnitude_spectrogram`` and ``griffinlim_iter`` as
+``ops.griffinlim.griffinlim_iter``, as in the JAX package. It imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -41,9 +46,22 @@ from .ops.features import (  # noqa: F401
     sync,
     zero_crossing_rate,
 )
+from .ops.filterbanks import bark_filterbank, bark_to_hz, hz_to_bark, linear_filterbank
 from .ops.framing import deemphasis, frame, preemphasis, rms
+from .ops.griffinlim import griffinlim
+from .ops.inverse import mel_to_audio, mel_to_stft, mfcc_to_audio, mfcc_to_mel  # noqa: F401
 from .ops.mel import hz_to_mel, mel_filterbank, mel_to_hz, melspectrogram
 from .ops.mfcc import dct, delta, mfcc
+from .ops.pitch import (  # noqa: F401
+    autocorrelation,
+    estimate_tuning,
+    periodicity,
+    piptrack,
+    pitch_detect_acf,
+    pitch_tuning,
+    yin,
+)
+from .ops.resample import resample, resample_poly
 from .ops.stft import check_nola, istft, magnitude, magphase, phase, stft  # noqa: F401
 from .ops.windows import get_window
 
@@ -62,6 +80,11 @@ __all__ = [
     "melspectrogram",
     "hz_to_mel",
     "mel_to_hz",
+    # Filterbanks
+    "linear_filterbank",
+    "bark_filterbank",
+    "hz_to_bark",
+    "bark_to_hz",
     # Spectral features
     "spectral_centroid",
     "spectral_bandwidth",
@@ -78,6 +101,15 @@ __all__ = [
     "rms",
     "preemphasis",
     "deemphasis",
+    # Resampling
+    "resample",
+    "resample_poly",
+    # Phase reconstruction
+    "griffinlim",
+    # Pitch/periodicity
+    "autocorrelation",
+    "pitch_detect_acf",
+    "periodicity",
     # Conversions
     "power_to_db",
     "db_to_power",

@@ -1,9 +1,19 @@
-"""Host-built DFT tables.
+"""Host-built DFT tables and the exact-length real FFT helpers.
 
 Counterpart of `mlx_audio_primitives_tpu/kernels/dft.py`, which carries the
 stacked real-DFT bases of ``fft_mode='matmul'``. The bases are built in
 float64 on the host and cached per device as float32 (call a table with
 ``device=``); the GEMMs that use them are plain ``torch.matmul`` calls.
+
+``rfft_len``, ``irfft_len``, ``rfft_power_len`` and ``_next_pow2`` are the
+counterparts of the helpers of `mlx_audio_primitives_tpu/kernels/bluestein.py`.
+There they route a length that is not a power of two through a DFT GEMM,
+a two-factor GEMM FFT or Bluestein's algorithm, because the TPU's FFT is
+fast only at powers of two; ``torch.fft`` takes any length, so here each is
+one ``torch.fft`` call (XLA compositions in the JAX package, not kernels).
+``irfft_len`` is the one inverse real FFT of the port's plain paths
+(``irfft_frames`` goes through it): it carries the repair of cuFFT's
+DC and Nyquist bins described there.
 
 ``rfft_twiddles`` is the one table the port's CUDA FFTs share (K1-K3): the
 float64 roots of unity, rounded once to float32. The kernels take it as an
@@ -65,9 +75,68 @@ def rfft_frames(frames: torch.Tensor, n_fft: int, basis: torch.Tensor | None = N
     return torch.complex(ri[..., :n_bins], ri[..., n_bins:])
 
 
-def irfft_frames(spec: torch.Tensor, n_fft: int, basis: torch.Tensor | None = None) -> torch.Tensor:
+def irfft_frames(spec: torch.Tensor, n_fft: int, basis: torch.Tensor | None = None, *,
+                 owned: bool = False) -> torch.Tensor:
     """irfft over the last axis, ``(..., n_bins) -> (..., n_fft)`` float32:
-    ``torch.fft.irfft``, or one FP32 GEMM with the inverse basis."""
+    :func:`irfft_len` (``owned`` as there), or one FP32 GEMM with the
+    inverse basis, whose weights drop the same imaginary parts."""
     if basis is None:
-        return torch.fft.irfft(spec, n=n_fft, dim=-1)
+        return irfft_len(spec, n_fft, owned=owned)
     return torch.matmul(torch.cat([spec.real, spec.imag], dim=-1), basis)
+
+
+def _next_pow2(n: int) -> int:
+    """The least power of two >= ``n`` (1 for ``n <= 1``)."""
+    return 1 << (int(n - 1)).bit_length()
+
+
+def rfft_len(x: torch.Tensor, n: int) -> torch.Tensor:
+    """rfft of real input already of length ``n`` -> ``(..., n//2+1)``."""
+    return torch.fft.rfft(x, n=n, dim=-1)
+
+
+@table_cache("irfft_keep", maxsize=8)
+def _irfft_keep(n_bins: int, n: int) -> np.ndarray:
+    """``(n_bins, 2)`` multiplier of a spectrum's (real, imaginary) pairs
+    that zeroes the imaginary parts an irfft to length ``n`` drops."""
+    m = np.ones((n_bins, 2))
+    m[0, 1] = 0.0
+    if n % 2 == 0 and n_bins > n // 2:
+        m[n // 2, 1] = 0.0
+    return m
+
+
+def _drop_edge_imag(X: torch.Tensor, n: int, owned: bool) -> torch.Tensor:
+    """``X`` with the imaginary parts of the DC bin and, for even ``n``, the
+    Nyquist bin zeroed: in place when ``owned`` (two column writes), else in
+    one pass that copies and zeroes together."""
+    if owned:
+        X[..., 0].imag.zero_()
+        if n % 2 == 0 and X.shape[-1] > n // 2:
+            X[..., n // 2].imag.zero_()
+        return X
+    keep = _irfft_keep(X.shape[-1], n, device=X.device)
+    return torch.view_as_complex(torch.view_as_real(X.resolve_conj()) * keep)
+
+
+def irfft_len(X: torch.Tensor, n: int, *, owned: bool = False) -> torch.Tensor:
+    """irfft to real output of length ``n`` from ``(..., n//2+1)`` bins.
+
+    The imaginary parts of the DC bin and, for even ``n``, the Nyquist bin
+    are dropped, as NumPy's and XLA's irfft (and K3) drop them. cuFFT's
+    inverse real transform keeps them, so on CUDA they are zeroed first: in
+    ``X`` itself when the caller ``owned`` it (a spectrum it built, whose
+    zeroed parts nothing else reads), else in a copy. Without this a
+    spectrum that is not Hermitian there (Griffin-Lim's random initial
+    phases, the folded Nyquist bin of a downsampling ``resample``, a
+    caller's ``istft`` input) would give another signal on CUDA than on
+    the CPU."""
+    if X.is_cuda and X.is_complex():
+        X = _drop_edge_imag(X, n, owned)
+    return torch.fft.irfft(X, n=n, dim=-1)
+
+
+def rfft_power_len(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``|rfft(x)|^2`` of real input of length ``n`` -> ``(..., n//2+1)``."""
+    S = rfft_len(x, n)
+    return S.real**2 + S.imag**2

@@ -117,10 +117,12 @@ def istft_plain(
     hop_length: int,
     padded_length: int,
     basis: torch.Tensor | None = None,
+    owned: bool = False,
 ) -> torch.Tensor:
     """Plain twin and plain composition: irfft (or the inverse-basis GEMM),
-    window, overlap-add, envelope divide -> ``(B, padded_length)``."""
-    frames = irfft_frames(S, n_fft, basis) * win
+    window, overlap-add, envelope divide -> ``(B, padded_length)``.
+    ``owned`` as in :func:`.dft.irfft_len`."""
+    frames = irfft_frames(S, n_fft, basis, owned=owned) * win
     return overlap_add_plain(frames, env, hop_length=hop_length, output_length=padded_length)
 
 

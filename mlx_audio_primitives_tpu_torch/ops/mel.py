@@ -101,8 +101,8 @@ def mel_filterbank(
     norm: str | None = "slaney",
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """Mel filterbank matrix ``(n_mels, n_fft//2 + 1)`` on ``device`` (CPU
-    when None), cached per device."""
+    """Mel filterbank matrix ``(n_mels, n_fft//2 + 1)`` on ``device`` (the
+    default device when None, as for a non-tensor input), cached per device."""
     validate_positive(n_mels, "n_mels")
     validate_non_negative(fmin, "fmin")
     if fmax is None:
@@ -114,7 +114,7 @@ def mel_filterbank(
             f"fmax ({fmax}) cannot exceed Nyquist frequency ({sr / 2.0})"
         )
     return _mel_filterbank_table(sr, n_fft, n_mels, float(fmin), float(fmax), htk, norm,
-                                 device=device)
+                                 device=dispatch.default_device(device))
 
 
 def melspectrogram(

@@ -272,30 +272,11 @@ def istft(
         padded_length = n_fft + (n_frames - 1) * hop_length
 
     fft_mode_r = _resolve_fft_mode(fft_mode, n_fft)
-    want = dispatch.resolve_use_pallas(use_pallas, S.device)
-    wkey = _window_key(window)
-    if wkey is not None:
-        env = _istft_envelope_table(wkey, win_length, n_fft, n_frames, hop_length,
-                                    padded_length, device=S.device)
-    else:
-        env = torch.clamp(window_envelope(win, n_frames, hop_length, padded_length),
-                          min=WINDOW_SUM_EPSILON)
-    kw = dict(n_fft=n_fft, hop_length=hop_length)
+    env = _istft_envelope(window, win, win_length, n_fft, n_frames, hop_length, padded_length)
+    tier = _istft_tier(use_pallas, S.device, fft_mode, n_fft, hop_length, freq_bins)
     basis = inverse_basis(n_fft, device=S.device) if fft_mode_r == "matmul" else None
-
-    if (
-        want
-        and (fft_mode == "auto" or use_pallas is True)
-        and dispatch.radix_shape_ok(n_fft, hop_length)
-        and freq_bins == n_fft // 2 + 1
-    ):
-        y = istft_fused(S, win, env, padded_length=padded_length, **kw)
-    elif want and ola_supported(n_fft, hop_length):
-        frames = irfft_frames(S, n_fft, basis) * win
-        y = overlap_add_fused(frames, env, hop_length=hop_length,
-                              output_length=padded_length)
-    else:
-        y = istft_plain(S, win, env, padded_length=padded_length, basis=basis, **kw)
+    y = _istft_core(S, win, env, basis, n_fft=n_fft, hop_length=hop_length,
+                    padded_length=padded_length, tier=tier)
 
     if center:
         pad = n_fft // 2
@@ -312,6 +293,54 @@ def istft(
             y = torch.nn.functional.pad(y, (0, length - cur))
 
     return y[0] if input_is_2d else y
+
+
+def _istft_envelope(window, win: torch.Tensor, win_length: int, n_fft: int, n_frames: int,
+                    hop_length: int, padded_length: int) -> torch.Tensor:
+    """The clamped squared-window envelope on ``win``'s device: the cached
+    host table for a named window, else built from ``win``."""
+    wkey = _window_key(window)
+    if wkey is not None:
+        return _istft_envelope_table(wkey, win_length, n_fft, n_frames, hop_length,
+                                     padded_length, device=win.device)
+    return torch.clamp(window_envelope(win, n_frames, hop_length, padded_length),
+                       min=WINDOW_SUM_EPSILON)
+
+
+def _istft_tier(use_pallas: bool | None, device: torch.device, fft_mode: str, n_fft: int,
+                hop_length: int, freq_bins: int) -> str:
+    """The inverse's tier, as the JAX package picks it: 'fused' (K3) under
+    the radix gate unless an explicit ``fft_mode`` pins the plain
+    transforms, else 'ola' (inverse transform, then K4) within K4's gate,
+    else 'none' (the plain composition)."""
+    want = dispatch.resolve_use_pallas(use_pallas, device)
+    if (
+        want
+        and (fft_mode == "auto" or use_pallas is True)
+        and dispatch.radix_shape_ok(n_fft, hop_length)
+        and freq_bins == n_fft // 2 + 1
+    ):
+        return "fused"
+    if want and ola_supported(n_fft, hop_length):
+        return "ola"
+    return "none"
+
+
+def _istft_core(S: torch.Tensor, win: torch.Tensor, env: torch.Tensor,
+                basis: torch.Tensor | None, *, n_fft: int, hop_length: int,
+                padded_length: int, tier: str, owned: bool = False) -> torch.Tensor:
+    """``(B, F, n_bins)`` spectrum (any strides) -> ``(B, padded_length)``
+    through ``tier`` (see :func:`_istft_tier`); shared by :func:`istft` and
+    Griffin-Lim, which passes ``owned`` for the spectra it builds itself
+    (see :func:`..kernels.dft.irfft_len`)."""
+    kw = dict(n_fft=n_fft, hop_length=hop_length)
+    if tier == "fused":
+        return istft_fused(S, win, env, padded_length=padded_length, **kw)
+    if tier == "ola":
+        frames = irfft_frames(S, n_fft, basis, owned=owned) * win
+        return overlap_add_fused(frames, env, hop_length=hop_length,
+                                 output_length=padded_length)
+    return istft_plain(S, win, env, padded_length=padded_length, basis=basis, owned=owned, **kw)
 
 
 def magnitude(stft_matrix: ArrayLike) -> torch.Tensor:

@@ -98,10 +98,10 @@ def get_window(
     - ``fftbins=True`` gives a periodic (DFT-even) window, ``False`` a
       symmetric one.
 
-    ``device`` places the result. When None, a named window is a CPU table
-    and an array window keeps its own device (a NumPy array goes to the
-    default device, as every entry point's input does). Named windows are
-    cached per device.
+    ``device`` places the result. When None, a named window is a table on
+    the default device and an array window keeps its own device (a NumPy
+    array goes to the default device, as every entry point's input does).
+    Named windows are cached per device.
     """
     if isinstance(window, (torch.Tensor, np.ndarray)):
         if window.shape[0] != n_fft:
@@ -133,7 +133,7 @@ def get_window(
 
     if n_fft <= 0:
         raise ValueError(f"n_fft must be positive, got {n_fft}")
-    return _window_table(name, n_fft, fftbins, beta, device=device)
+    return _window_table(name, n_fft, fftbins, beta, device=dispatch.default_device(device))
 
 
 def window_host(

@@ -44,13 +44,20 @@ def to_tensor(x, dtype: torch.dtype | None = None) -> torch.Tensor:
     no CUDA device this raises: an op never falls back to the CPU unasked."""
     if isinstance(x, torch.Tensor):
         return x if dtype is None or x.dtype == dtype else x.to(dtype)
-    dev = _config.DEFAULT_DEVICE
+    return torch.as_tensor(x, dtype=dtype, device=default_device())
+
+
+def default_device(device: torch.device | str | None = None) -> torch.device:
+    """``device``, or when None ``_config.DEFAULT_DEVICE``: where a
+    non-tensor input, or a table asked for without a device, is placed.
+    Raises for ``cuda`` without a CUDA device."""
+    dev = _config.DEFAULT_DEVICE if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device for a non-tensor input: pass a CPU tensor, or call "
             "set_default_device('cpu') to run NumPy inputs on the CPU"
         )
-    return torch.as_tensor(x, dtype=dtype, device=dev)
+    return dev
 
 
 def resolve_use_pallas(flag: bool | None, device: torch.device) -> bool:

@@ -25,6 +25,7 @@ _Y = signals(90, (2, 4096))
 _S = (signals(91, (2, 257, 9)) + 1j * signals(92, (2, 257, 9))).astype(np.complex64)
 _P = np.abs(signals(93, (2, 32, 9))) + 0.1
 _FEAT = dict(n_fft=512, hop_length=128)
+_ACF = dict(frame_length=512, hop_length=128, fmin=80.0, fmax=1000.0)
 
 # name -> (call, NumPy input)
 ENTRY_POINTS = {
@@ -58,6 +59,31 @@ ENTRY_POINTS = {
     "rms": (tap.rms, _Y),
     "preemphasis": (tap.preemphasis, _Y),
     "deemphasis": (tap.deemphasis, _Y),
+    "resample": (lambda x: tap.resample(x, 22050, 16000), _Y),
+    "resample_kaiser": (lambda x: tap.resample(x, 22050, 16000, res_type="kaiser_fast"), _Y),
+    "resample_poly": (lambda x: tap.resample_poly(x, 2, 3, padtype="median"), _Y),
+    "griffinlim": (lambda x: tap.griffinlim(x, n_iter=2, hop_length=128), np.abs(_S)),
+    "autocorrelation": (lambda x: tap.autocorrelation(x, max_lag=64), _Y),
+    "pitch_detect_acf": (lambda x: tap.pitch_detect_acf(x, **_ACF)[0], _Y),
+    "periodicity": (lambda x: tap.periodicity(x, **_ACF), _Y),
+    "yin": (lambda x: tap.yin(x, 100.0, 1000.0, frame_length=512), _Y),
+    "piptrack": (lambda x: tap.piptrack(x, **_FEAT)[0], _Y),
+    "piptrack_S": (lambda x: tap.piptrack(S=x)[1], np.abs(_S)),
+    "mel_to_stft": (lambda x: tap.mel_to_stft(x, n_fft=512, nnls_iter=5), _P),
+    "mel_to_audio": (lambda x: tap.mel_to_audio(x, n_fft=512, hop_length=128, n_iter=2,
+                                                nnls_iter=5), _P),
+    "mfcc_to_mel": (lambda x: tap.mfcc_to_mel(x[:, :8], n_mels=32), _P),
+    "mfcc_to_audio": (lambda x: tap.mfcc_to_audio(x[:, :8], n_mels=32, n_fft=512,
+                                                  hop_length=128, n_iter=2, nnls_iter=5), _P),
+}
+
+# name -> table builder: no array input, so the table goes where a
+# non-tensor input goes unless ``device=`` says otherwise
+BUILDERS = {
+    "get_window": lambda **kw: tap.get_window("hann", 512, **kw),
+    "mel_filterbank": lambda **kw: tap.mel_filterbank(22050, 512, n_mels=16, **kw),
+    "bark_filterbank": lambda **kw: tap.bark_filterbank(22050, 512, **kw),
+    "linear_filterbank": lambda **kw: tap.linear_filterbank(22050, 512, n_bands=16, **kw),
 }
 
 
@@ -99,6 +125,22 @@ def test_set_default_device_cpu_places_numpy_on_the_cpu(name, default_cuda):
     fn, x = ENTRY_POINTS[name]
     tap.set_default_device("cpu")
     assert fn(x).device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_a_table_goes_to_cuda_or_raises(name, default_cuda):
+    if torch.cuda.is_available():
+        assert BUILDERS[name]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="set_default_device"):
+            BUILDERS[name]()
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_a_table_follows_set_default_device_and_device(name, default_cuda):
+    assert BUILDERS[name](device="cpu").device.type == "cpu"
+    tap.set_default_device("cpu")
+    assert BUILDERS[name]().device.type == "cpu"
 
 
 def test_the_torch_default_device_is_not_read(default_cuda):
