@@ -37,7 +37,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    pitched clips and, through ``pitch_detect_acf``, on degenerate frames
    (silence, onset, constant, piecewise constant, DC offsets: masks and f0
    equal on the card's two routes and the CPU); one Griffin-Lim iteration,
-   K3 -> K2 -> projection -> K3, against the twins);
+   K3 -> K2 -> projection -> K3, against the twins; K1 with the 12-column
+   chroma weight at 64 x 30 s, power 2 and power 1 with a detuned weight);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -63,6 +64,15 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       kHz) and 64 x 30 s (22.05 -> 16 kHz) against scipy in float64 with
       the same FIR, and ``resample`` fft on 64 x 1 s (44.1 -> 16 kHz)
       against scipy's ``resample`` in float64;
+   e. the rhythm-and-harmony path on 64 clips of 30 s made on the card
+      (click tracks at tempi in 90-150 BPM over three-note chords and
+      noise): ``onset_strength`` (K1 once) against a float64 envelope,
+      ``chroma_stft`` (K1 once, 12 columns) against a float64 chromagram,
+      ``cqt`` and ``chroma_cqt`` (no kernel) against a float64 CQT on the
+      card, ``tempo`` of the envelopes against a float64 tempogram (and the
+      click tempi), ``pcen`` of the mel (K1 once) against scipy's
+      ``lfilter`` in float64, and ``beat_track`` on 4 clips (K1 once each)
+      index-equal to a float64 Ellis DP;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -82,10 +92,15 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    ``yin`` on one 1 s clip (bench config 5), ``griffinlim`` and
    ``pitch_detect_acf`` at 64 x 30 s, kernel route against plain route,
    ``yin`` at 64 x 30 s, and K1's device time at the ACF shape with its
-   bound;
-6. ``torch.profiler`` over the spectral-feature path and over
-   ``griffinlim`` at 64 x 30 s (kernels and plain): device time by kernel,
-   busy time and idle share.
+   bound; the rhythm-and-harmony slice at 64 x 30 s: ``onset_strength``
+   and ``chroma_stft`` (kernel route against plain route), ``tempo``,
+   ``pcen`` and its scan, ``cqt`` and ``chroma_cqt`` with the CQT's peak
+   memory, ``beat_track`` of one clip and its DP's host time, and K1's
+   device time at the chroma shape with its bound;
+6. ``torch.profiler`` over the spectral-feature path, over
+   ``griffinlim`` and over the rhythm-and-harmony path (onset, tempo, both
+   chromagrams, PCEN of the mel) at 64 x 30 s (kernels and plain), and over
+   ``pcen`` alone: device time by kernel, busy time and idle share.
 
 The last two lines of standard output are the card's name and power limit
 (as ``nvidia-smi`` prints them) and ``{"ok": true, "device": {...}}``; the
@@ -120,6 +135,7 @@ SMALL = (256, 128)  # their n_fft and hop: 4 frames a clip of 384 samples
 GL_ITERS = 32  # Griffin-Lim iterations (librosa's default)
 MEL_AUDIO = (16, 4 * SR)  # mel_to_audio: 16 clips of 4 s
 RESAMPLE_1S = (64, 44100)  # bench config 4: 64 clips of 1 s at 44.1 kHz -> 16 kHz
+RHYTHM_BPM = (90.0, 150.0)  # the click tempi of phase 4e's clips, drawn per clip
 #: the ACF's lag windows at sr 22,050, frame 2048: the defaults (fmin 50,
 #: fmax 2000: lags 11..441, 432 weight columns) and YIN's band (fmin 65,
 #: fmax 2093: lags 10..339, 331 columns)
@@ -137,6 +153,14 @@ FEATURE_PATH = ("mel_fused_kernel", "stft_mag_kernel", "select_extremes_kernel")
 #: moments, K2m for bandwidth, rolloff, flatness and contrast, K5 for the
 #: four contrast bands that take it
 FEATURE_LAUNCHES = {"mel_fused_kernel": 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
+#: the rhythm-and-harmony path's launches per public call (phase 4e): K1
+#: once for onset_strength's mel (so once for beat_track of a signal),
+#: once for chroma_stft's chroma weight and once for the mel PCEN takes;
+#: none for the CQT family, whose n_fft 16384 is outside the radix gate,
+#: or for tempo of an envelope
+RHYTHM_LAUNCHES = {"onset_strength": {"mel_fused_kernel": 1}, "chroma_stft": {"mel_fused_kernel": 1},
+                   "pcen": {"mel_fused_kernel": 1}, "beat_track": {"mel_fused_kernel": 1},
+                   "cqt": {}, "chroma_cqt": {}, "tempo": {}}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -583,6 +607,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     big_batch_vs_plain(gen, run, errs)
     k3_gate_sweep(gen, run, errs)
     slice_kernels_vs_plain(gen, run, errs)
+    rhythm_kernels_vs_plain(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -810,17 +835,23 @@ def big_batch_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     errs[k5.KERNEL.name] = max(errs[k5.KERNEL.name], e5)
 
 
-def mel_oracle(y: torch.Tensor) -> torch.Tensor:
-    """float64 CPU mel spectrogram: constant centre pad, periodic Hann,
-    rfft, |X|^2, Slaney mel filterbank (host float64 tables)."""
-    from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
+def power_oracle(y: torch.Tensor) -> torch.Tensor:
+    """float64 CPU power spectrum ``(B, F, n_bins)``: constant centre pad,
+    periodic Hann (host float64 table), rfft, |X|^2."""
     from mlx_audio_primitives_tpu_torch.ops.windows import window_host
 
     y64 = torch.nn.functional.pad(y.double().cpu(), (N_FFT // 2, N_FFT // 2))
     frames = y64.unfold(-1, N_FFT, HOP) * torch.from_numpy(window_host("hann", N_FFT))
-    p = torch.fft.rfft(frames).abs() ** 2
+    return torch.fft.rfft(frames).abs() ** 2
+
+
+def mel_oracle(y: torch.Tensor) -> torch.Tensor:
+    """float64 CPU mel spectrogram: :func:`power_oracle` through the Slaney
+    mel filterbank (host float64 table)."""
+    from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
+
     fb = torch.from_numpy(_mel_filterbank_table.host(SR, N_FFT, N_MELS, 0.0, SR / 2.0, False, "slaney"))
-    return torch.matmul(p, fb.T).transpose(1, 2)
+    return torch.matmul(power_oracle(y), fb.T).transpose(1, 2)
 
 
 def reset_counts() -> None:
@@ -838,6 +869,38 @@ def read_counts(path: str, required: tuple[str, ...]) -> dict:
     for name in required:
         check(launches[name] >= 1, f"{name} was not launched on the {path} path")
     return launches
+
+
+def counted_call(label: str, expect: dict, fn, total: dict):
+    """``fn()`` with every launch counter reset just before and read just
+    after; fails unless each kernel launched exactly ``expect[name]`` times
+    (0 when absent). Adds the launches to ``total``; returns ``fn()``."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counts(label, tuple(k for k, n in expect.items() if n))
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{label}: {name} launched {n} times, expected "
+              f"{expect.get(name, 0)}")
+        total[name] += n
+    return out
+
+
+def route_times(label: str, fn, reps: int) -> None:
+    """CUDA-event medians of ``fn()`` on the kernel route and on the plain
+    route (every kernel off), in turns: plain, kernel, kernel, plain."""
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    def run(enabled):
+        dispatch.KERNELS_ENABLED = enabled
+        try:
+            return fn()
+        finally:
+            dispatch.KERNELS_ENABLED = True
+    p_a = cuda_ms(lambda: run(False), 1, reps)
+    k_a, k_b = cuda_ms(lambda: run(True), 1, reps), cuda_ms(lambda: run(True), 1, reps)
+    p_b = cuda_ms(lambda: run(False), 1, reps)
+    print(f"{label}: kernel route {k_a:.4f} / {k_b:.4f}, plain route {p_a:.4f} / {p_b:.4f}")
 
 
 def main_path(gen: torch.Generator) -> dict:
@@ -1285,15 +1348,7 @@ def slice_paths(gen: torch.Generator) -> dict:
     total = {k.name: 0 for k in _build.KERNELS}
 
     def counted(label, expect, fn):
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        launches = read_counts(label, tuple(k for k, n in expect.items() if n))
-        for name, n in launches.items():
-            check(n == expect.get(name, 0), f"{label}: {name} launched {n} times, expected "
-                  f"{expect.get(name, 0)}")
-            total[name] += n
-        return out
+        return counted_call(label, expect, fn, total)
 
     def plain(fn):
         dispatch.KERNELS_ENABLED = False
@@ -1463,7 +1518,6 @@ def slice_times(gen: torch.Generator) -> None:
     import mlx_audio_primitives_tpu_torch as ap
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.ops import pitch as P
-    from mlx_audio_primitives_tpu_torch.utils import dispatch
 
     dev = gen.device
     x44 = torch.randn(RESAMPLE_1S, generator=gen, device=dev)
@@ -1472,31 +1526,19 @@ def slice_times(gen: torch.Generator) -> None:
     print(f"bench config 4, resample kaiser_best 64 x 1 s 44.1 -> 16 kHz (no kernel; one FP32 "
           f"GEMM): {t[0]:.4f} / {t[1]:.4f}")
 
-    def routes(label, fn, reps):
-        def run(enabled):
-            dispatch.KERNELS_ENABLED = enabled
-            try:
-                return fn()
-            finally:
-                dispatch.KERNELS_ENABLED = True
-        p_a = cuda_ms(lambda: run(False), 1, reps)
-        k_a, k_b = cuda_ms(lambda: run(True), 1, reps), cuda_ms(lambda: run(True), 1, reps)
-        p_b = cuda_ms(lambda: run(False), 1, reps)
-        print(f"{label}: kernel route {k_a:.4f} / {k_b:.4f}, plain route {p_a:.4f} / {p_b:.4f}")
-
     y1 = pitch_clips(gen, (1, SR))
     S1 = ap.stft(y1, n_fft=N_FFT, hop_length=HOP).abs()
-    routes("bench config 5, griffinlim 32 iterations + yin (65-2093 Hz) on one 1 s clip",
+    route_times("bench config 5, griffinlim 32 iterations + yin (65-2093 Hz) on one 1 s clip",
            lambda: (ap.griffinlim(S1, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=SR),
                     ap.yin(y1, 65.0, 2093.0, sr=SR)), 10)
-    routes("  of which griffinlim alone",
+    route_times("  of which griffinlim alone",
            lambda: ap.griffinlim(S1, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=SR),
            10)
     t = [cuda_ms(lambda: ap.yin(y1, 65.0, 2093.0, sr=SR), 2, 10) for _ in range(2)]
     print(f"  and yin alone: {t[0]:.4f} / {t[1]:.4f}")
     y = pitch_clips(gen, FEATURES)
     S = ap.stft(y, n_fft=N_FFT, hop_length=HOP).abs()
-    routes("griffinlim 64 x 30 s, 32 iterations",
+    route_times("griffinlim 64 x 30 s, 32 iterations",
            lambda: ap.griffinlim(S, n_iter=GL_ITERS, hop_length=HOP, random_state=0, length=LONG), 3)
     # its host-side phase initialisation, the JAX package's draw
     host = []
@@ -1509,7 +1551,7 @@ def slice_times(gen: torch.Generator) -> None:
     print(f"  of which the initial phases drawn on the host and copied to the card "
           f"({ang.numel()} values): {host[0]:.1f} / {host[1]:.1f} / {host[2]:.1f}")
     del S, ang
-    routes("pitch_detect_acf 64 x 30 s (defaults)", lambda: ap.pitch_detect_acf(y, sr=SR), 5)
+    route_times("pitch_detect_acf 64 x 30 s (defaults)", lambda: ap.pitch_detect_acf(y, sr=SR), 5)
     t = [cuda_ms(lambda: ap.yin(y, 65.0, 2093.0, sr=SR), 1, 3) for _ in range(2)]
     print(f"yin 64 x 30 s (65-2093 Hz, no kernel): {t[0]:.4f} / {t[1]:.4f}")
 
@@ -1537,6 +1579,328 @@ def slice_times(gen: torch.Generator) -> None:
           f"{twin[2]:.4f}, plain {twin[0]:.4f} / {twin[3]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
           f"{tf32 / 1e9:.1f} GFLOP of TF32 products, {fp32 / 1e9:.1f} GFLOP FP32, "
           f"{nbytes / 1e6:.1f} MB)")
+
+
+def rhythm_clips(gen: torch.Generator, shape: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Music-like test audio made on the generator's device, float32
+    ``(B, L)``, and each clip's tempo: a click track (librosa's click, a
+    1 kHz burst decaying with a 10 ms time constant, cut at 0.1 s) at a
+    tempo drawn in ``RHYTHM_BPM`` from a start drawn in the first beat, over
+    a sustained chord of three notes drawn in MIDI 48-72 (three partials at
+    1/k, 0.1 each), plus white noise at 1%."""
+    B, L = shape
+    dev = gen.device
+    f64 = dict(device=dev, dtype=torch.float64)
+    t = torch.arange(L, **f64) / SR
+    lo, hi = RHYTHM_BPM
+    bpm = lo + (hi - lo) * torch.rand((B, 1), generator=gen, **f64)
+    period = 60.0 / bpm
+    start = period * torch.rand((B, 1), generator=gen, **f64)
+    tau = torch.remainder(t - start, period)
+    y = torch.sin(2 * np.pi * 1000.0 * tau) * torch.exp(-tau / 0.01) * ((tau < 0.1) & (t >= start))
+    notes = 48 + torch.randint(0, 25, (B, 3), generator=gen, device=dev)
+    f0 = 440.0 * 2.0 ** ((notes.double() - 69.0) / 12.0)
+    for j in range(3):
+        for k in range(1, 4):
+            y = y + 0.1 / k * torch.sin(2 * np.pi * k * f0[:, j : j + 1] * t)
+    y = y + 0.01 * torch.randn((B, L), generator=gen, **f64)
+    return y.float(), bpm[:, 0]
+
+
+def rhythm_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's check of the rhythm-and-harmony slice's new K1 call site:
+    K1 with the ``(n_bins, 12)`` chroma weight (one 16-column m-tile, four
+    columns of it empty) on 64 x 30 s, power 2 with the default weight and
+    power 1 with a detuned one, against its twin; <= 1e-5 of max."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops.chroma import chroma_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
+
+    dev = gen.device
+    y, _ = rhythm_clips(gen, FEATURES)
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    for power, tuning in ((2.0, 0.0), (1.0, 0.3)):
+        fb_t = chroma_filterbank(SR, N_FFT, tuning=tuning, device=dev).t().contiguous()
+        got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, power=power, **kw)
+        ref = k1.melspectrogram_plain(y, win, fb_t, power=power, **kw)
+        e = rel_err(got, ref)
+        print(f"K1 at the chroma shape {FEATURES} power={power} tuning={tuning}: "
+              f"{tuple(fb_t.shape)} weight -> {tuple(got.shape)}: rel err {e:.3e} (limit 1e-5)")
+        check(got.shape == ref.shape == (FEATURES[0], 12, 1 + LONG // HOP) and e <= 1e-5,
+              "K1 disagrees with its twin at the chroma shape")
+        errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
+
+
+def onset_oracle(mel64: torch.Tensor) -> torch.Tensor:
+    """float64 onset envelope of a float64 mel ``(B, n_mels, F)``: dB with
+    an 80 dB floor under each clip's max, the rectified first difference
+    averaged over the mels, one lag frame and the centre's two frames
+    padded at the start, cut to F."""
+    db = 10.0 * torch.log10(torch.clamp(mel64, min=1e-10))
+    db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
+    env = torch.clamp(db[..., 1:] - db[..., :-1], min=0.0).mean(dim=1)
+    return torch.nn.functional.pad(env, (1 + N_FFT // (2 * HOP), 0))[..., : mel64.shape[-1]]
+
+
+def inf_norm_frames(C: torch.Tensor) -> torch.Tensor:
+    """Each frame (last axis) over its largest class (axis -2)."""
+    return C / C.abs().amax(dim=-2, keepdim=True)
+
+
+def cqt_oracle(y: torch.Tensor) -> torch.Tensor:
+    """float64 CQT at the defaults (fmin C1, 84 bins, n_fft 16384, hop
+    512) on ``y``'s device: constant centre pad, rectangular frames, rfft,
+    the product with the float64 wavelet table."""
+    from mlx_audio_primitives_tpu_torch.ops.cqt import _cqt_fft_basis, _cqt_setup
+
+    fmin, n_fft = _cqt_setup(SR, 84, None, 12, 1.0, 0.0)
+    tab = torch.from_numpy(_cqt_fft_basis.host(SR, n_fft, 84, fmin, 12, 1.0)).to(y.device)
+    frames = torch.nn.functional.pad(y.double(), (n_fft // 2, n_fft // 2)).unfold(-1, n_fft, HOP)
+    return torch.matmul(torch.fft.rfft(frames), torch.complex(tab[0], tab[1]).T).transpose(1, 2)
+
+
+def tempo_lag_oracle(env: np.ndarray) -> np.ndarray:
+    """float64 best tempo lag (frames) of each envelope row at the
+    defaults: the 8 s tempogram (linear-ramp pad, np.hanning frames,
+    autocorrelation by FFT, inf-norm per frame), its mean over frames,
+    the log-normal prior at 120 BPM (1 octave), nothing at or above 320
+    BPM."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    win = int(8.0 * SR // HOP)
+    e = np.pad(env.astype(np.float64), ((0, 0), (win // 2, win - 1 - win // 2)),
+               mode="linear_ramp", end_values=0.0)
+    frames = sliding_window_view(e, win, axis=-1) * np.hanning(win)
+    n = 1 << (2 * win - 2).bit_length()
+    ac = np.fft.irfft(np.abs(np.fft.rfft(frames, n)) ** 2, n)[..., :win]
+    ac = ac / np.maximum(np.abs(ac).max(-1, keepdims=True), np.finfo(np.float64).tiny)
+    with np.errstate(divide="ignore"):
+        bpms = 60.0 * SR / (HOP * np.arange(win))
+        prior = -0.5 * (np.log2(bpms) - np.log2(120.0)) ** 2
+    prior[(bpms >= 320.0) | (np.arange(win) == 0)] = -np.inf
+    return np.argmax(np.log1p(1e6 * np.maximum(ac.mean(1), 0.0)) + prior, axis=-1)
+
+
+def beat_oracle(env: np.ndarray, bpm: float) -> np.ndarray:
+    """float64 Ellis beat tracker on one envelope at a given tempo (librosa
+    `beat_track`'s algorithm, transliterated): the period-matched Gaussian
+    smoothing of the std-normalized envelope, the DP (tightness 100, the
+    first-beat rule), the last local max at or above half the median local
+    max, the backtrace, and the trim at half the RMS of the hann(5)
+    smoothed beat strengths."""
+    period = max(int(round(60.0 * SR / (bpm * HOP))), 1)
+    oe = env.astype(np.float64)
+    oe = oe / oe.std(ddof=1)
+    t = np.arange(-period, period + 1)
+    score = np.convolve(oe, np.exp(-0.5 * (t * 32.0 / period) ** 2), "same")
+    F, lo, hi = len(score), 2 * period, max(int(round(period / 2.0)), 1)
+    txwt = -100.0 * np.log(np.arange(lo, hi - 1, -1) / period) ** 2
+    cum, link, first = np.zeros(lo + F), np.zeros(F, np.int64), True
+    for i in range(F):
+        cand = txwt + cum[i : i + lo - hi + 1]
+        best = int(np.argmax(cand))
+        cum[lo + i] = score[i] + cand[best]
+        if first and score[i] < 0.01 * score.max():
+            link[i] = -1
+        else:
+            link[i], first = i - lo + best, False
+    cum = cum[lo:]
+    lm = np.concatenate(([False], (cum[1:-1] > cum[:-2]) & (cum[1:-1] >= cum[2:]),
+                         [cum[-1] > cum[-2]]))
+    good = np.flatnonzero(lm & (cum >= 0.5 * np.median(cum[lm])))
+    beats = [int(good[-1]) if good.size else F - 1]
+    while link[beats[-1]] >= 0:
+        beats.append(int(link[beats[-1]]))
+    beats = np.asarray(beats[::-1])
+    boe = np.convolve(score[beats], np.hanning(5), "same")
+    keep = np.flatnonzero(boe > 0.5 * np.sqrt(np.mean(boe**2)))
+    return beats[keep[0] : keep[-1] + 1] if keep.size else beats[:0]
+
+
+def pcen_oracle(S: np.ndarray) -> np.ndarray:
+    """float64 PCEN at librosa's defaults: scipy's lfilter from lfilter_zi's
+    steady state, then the log1p/expm1 compression."""
+    from scipy.signal import lfilter, lfilter_zi
+
+    tf = 0.4 * SR / HOP
+    b = (np.sqrt(1.0 + 4.0 * tf**2) - 1.0) / (2.0 * tf**2)
+    zi = lfilter_zi([b], [1.0, b - 1.0])[0] * S[..., :1]
+    M, _ = lfilter([b], [1.0, b - 1.0], S, axis=-1, zi=zi)
+    return 2.0**0.5 * np.expm1(0.5 * np.log1p(S * (1e-6 + M) ** -0.98 / 2.0))
+
+
+def within(got: torch.Tensor, ref, abs_tol: float, rel_tol: float) -> float:
+    """The largest ``|got - ref| / (abs_tol + rel_tol |ref|)``: <= 1 holds
+    the contract ``|got - ref| <= abs_tol + rel_tol |ref|`` elementwise."""
+    g = got.detach().cpu().numpy().astype(np.complex128 if got.is_complex() else np.float64)
+    r = ref.detach().cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
+    return float((np.abs(g - r) / (abs_tol + rel_tol * np.abs(r))).max())
+
+
+def rhythm_paths(gen: torch.Generator) -> dict:
+    """Phase 4e: the rhythm-and-harmony entry points on 64 x 30 s clips made
+    on the card, each with every launch counter reset just before and read
+    just after; the first clips against float64 oracles. Returns the
+    launches summed over these calls."""
+    phase(f"4e. public onset / tempo / beat / chroma / CQT / PCEN path on cuda tensors, "
+          f"{FEATURES[0]} clips of 30 s")
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.ops.chroma import _chroma_filterbank_table, _cq_to_chroma_table
+    from mlx_audio_primitives_tpu_torch.ops.cqt import _C1
+
+    total = {k.name: 0 for k in _build.KERNELS}
+    y, bpm_true = rhythm_clips(gen, FEATURES)
+    n_frames = 1 + LONG // HOP
+
+    def call(name, fn, label=""):
+        return counted_call(f"{name}{label} {FEATURES}", RHYTHM_LAUNCHES[name], fn, total)
+
+    env = call("onset_strength", lambda: ap.onset_strength(y, sr=SR))
+    mel64 = mel_oracle(y[:N_ORACLE])
+    e = rel_err(env[:N_ORACLE], onset_oracle(mel64))
+    print(f"onset_strength {tuple(y.shape)} -> {tuple(env.shape)}: first {N_ORACLE} clips against "
+          f"the f64 oracle {e:.3e} of max (limit 1e-4, the mel contract)")
+    check(env.shape == (FEATURES[0], n_frames) and bool(torch.isfinite(env).all()) and e <= 1e-4,
+          "onset_strength misses the float64 oracle")
+
+    chroma = call("chroma_stft", lambda: ap.chroma_stft(y=y, sr=SR))
+    fbc = torch.from_numpy(_chroma_filterbank_table.host(SR, N_FFT, 12, 0.0, 5.0, 2.0, 2.0, True))
+    ref = inf_norm_frames(torch.matmul(power_oracle(y[:N_ORACLE]), fbc.T).transpose(1, 2))
+    e = abs_err(chroma[:N_ORACLE], ref)
+    print(f"chroma_stft {tuple(y.shape)} -> {tuple(chroma.shape)}: first {N_ORACLE} clips against "
+          f"the f64 oracle abs err {e:.3e} (limit 5e-5, the end-to-end chromagram contract)")
+    check(chroma.shape == (FEATURES[0], 12, n_frames) and e <= 5e-5,
+          "chroma_stft misses the float64 oracle")
+    del chroma
+
+    C = call("cqt", lambda: ap.cqt(y, sr=SR))
+    C64 = cqt_oracle(y[:2])
+    r_c = within(C[:2], C64, 3e-5, 2e-4)
+    cc = call("chroma_cqt", lambda: ap.chroma_cqt(y, sr=SR))
+    fold = torch.from_numpy(_cq_to_chroma_table.host(84, 12, 12, _C1, True)).to(y.device)
+    r_cc = within(cc[:2], inf_norm_frames(torch.matmul(fold, C64.abs())), 3e-5, 2e-4)
+    print(f"cqt {tuple(y.shape)} -> {tuple(C.shape)} {C.dtype}, chroma_cqt -> {tuple(cc.shape)}: "
+          f"first 2 clips against the f64 oracle at {r_c:.3e} and {r_cc:.3e} of the contract "
+          f"|d| <= 3e-5 + 2e-4 |ref| (limit 1)")
+    check(C.shape == (FEATURES[0], 84, n_frames) and cc.shape == (FEATURES[0], 12, n_frames)
+          and r_c <= 1.0 and r_cc <= 1.0, "cqt / chroma_cqt miss the float64 oracle")
+    del C, C64, cc
+
+    tempo = call("tempo", lambda: ap.tempo(onset_envelope=env, sr=SR), " of the envelopes")
+    lag = np.rint(60.0 * SR / (HOP * tempo[:, 0])).astype(np.int64)
+    lag_o = tempo_lag_oracle(env[:8].cpu().numpy())
+    truth = 60.0 * SR / (HOP * bpm_true.cpu().numpy())
+    near = np.abs(lag - truth) <= 1.0
+    print(f"tempo {tuple(env.shape)} -> {tuple(tempo.shape)}: first 8 clips' lags {lag[:8].tolist()} "
+          f"against the f64 oracle's {lag_o.tolist()} (limit: within one lag bin); "
+          f"{int(near.sum())} of {len(near)} clips within one lag bin of the click tempo "
+          f"(limit 0.9 of them)")
+    check(np.abs(lag[:8] - lag_o).max() <= 1 and near.mean() >= 0.9,
+          "tempo misses the float64 oracle or the click tempi")
+
+    def mel_pcen():
+        M = ap.melspectrogram(y, sr=SR)
+        return ap.pcen(M), M
+
+    P, M = call("pcen", mel_pcen, " of the mel")
+    r_p = within(P[:N_ORACLE], pcen_oracle(M[:N_ORACLE].double().cpu().numpy()), 3e-5, 2e-4)
+    print(f"pcen of the mel {tuple(M.shape)}: first {N_ORACLE} clips against scipy's lfilter "
+          f"(f64) at {r_p:.3e} of the contract |d| <= 3e-5 + 2e-4 |ref| (limit 1)")
+    check(P.shape == M.shape and r_p <= 1.0, "pcen misses the float64 oracle")
+    del P, M
+
+    for i in range(N_ORACLE):
+        bpm, beats = call("beat_track", lambda i=i: ap.beat_track(y=y[i], sr=SR), f" of clip {i}")
+        ref = beat_oracle(env[i].cpu().numpy(), bpm)
+        period = 60.0 * SR / (HOP * float(bpm_true[i]))
+        print(f"beat_track clip {i}: {bpm:.2f} BPM (clicks {float(bpm_true[i]):.2f}), "
+              f"{len(beats)} beats, index-equal to the f64 oracle: "
+              f"{len(beats) == len(ref) and bool(np.all(beats == ref))}; steps "
+              f"{np.unique(np.diff(beats)).tolist()} frames (click period {period:.2f})")
+        check(len(beats) >= 10 and len(beats) == len(ref) and bool(np.all(beats == ref)),
+              f"beat_track on clip {i} misses the float64 oracle")
+    return total
+
+
+def rhythm_times(gen: torch.Generator) -> None:
+    """Phase 5's times of the rhythm-and-harmony slice at 64 x 30 s:
+    CUDA-event medians of the public paths (kernel route against plain
+    route, in turns, where a kernel runs), the CQT's peak memory, the
+    host's DP of ``beat_track`` on one clip, and K1's device time at the
+    chroma shape with its bound."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops import beat as beat_ops
+    from mlx_audio_primitives_tpu_torch.ops.chroma import chroma_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.pcen import pcen_smoother
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
+
+    dev = gen.device
+    y, _ = rhythm_clips(gen, FEATURES)
+    route_times("onset_strength 64 x 30 s", lambda: ap.onset_strength(y, sr=SR), 5)
+    route_times("chroma_stft 64 x 30 s", lambda: ap.chroma_stft(y=y, sr=SR), 5)
+    env = ap.onset_strength(y, sr=SR)
+    M = ap.melspectrogram(y, sr=SR)
+    tf = 0.4 * SR / HOP
+    b = torch.full((), (np.sqrt(1.0 + 4.0 * tf**2) - 1.0) / (2.0 * tf**2), device=dev)
+    for label, fn, reps in (
+        ("tempo 64 x 30 s from the envelope (no kernel; the prior and argmax on the host)",
+         lambda: ap.tempo(onset_envelope=env, sr=SR), 5),
+        (f"pcen of the 64 x 30 s mel {tuple(M.shape)} (no kernel)", lambda: ap.pcen(M), 5),
+        ("  of which the blocked scan (pcen_smoother)", lambda: pcen_smoother(M, b), 5),
+        ("cqt 64 x 30 s (no kernel: n_fft 16384 is outside the radix gate)",
+         lambda: ap.cqt(y, sr=SR), 3),
+        ("chroma_cqt 64 x 30 s (no kernel)", lambda: ap.chroma_cqt(y, sr=SR), 3),
+    ):
+        t = [cuda_ms(fn, 1, reps) for _ in range(2)]
+        print(f"{label}: {t[0]:.4f} / {t[1]:.4f}")
+    del M
+    route_times("beat_track one 30 s clip (y route: K1, tempo, the local score, the DP on the host)",
+                lambda: ap.beat_track(y=y[0], sr=SR), 5)
+    # the CQT's peak device memory above what was allocated before the call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C = ap.cqt(y, sr=SR)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"cqt 64 x 30 s peak device memory: {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+          f"GiB held before (output {C.numel() * 8 / 2**30:.3f} GiB)")
+    del C
+    # beat_track's forward DP on the host, one clip at its tempo
+    bpm = float(ap.tempo(onset_envelope=env[0], sr=SR)[0])
+    period = max(int(round(60.0 * SR / (bpm * HOP))), 1)
+    score = beat_ops._local_score(env[0], period=period).cpu().numpy()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        beat_ops._beat_dp(score, period=period, tightness=100.0)
+        host.append(1e3 * (time.perf_counter() - t0))
+    print(f"beat_track's DP on the host, one clip ({score.shape[0]} frames, period {period}): "
+          f"median {statistics.median(host):.3f} ms of 5 ({min(host):.3f} - {max(host):.3f})")
+
+    # K1 at the chroma shape: 64 x 30 s, n_fft 2048, hop 512, 12 columns
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    fb_t = chroma_filterbank(SR, N_FFT, device=dev).t().contiguous()
+    kw1 = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant", power=2.0)
+    dev_ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1), k1.KERNEL.name, 20)
+    ev = [cuda_ms(lambda: k1.melspectrogram_plain(y, win, fb_t, **kw1)),
+          cuda_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1)),
+          cuda_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1)),
+          cuda_ms(lambda: k1.melspectrogram_plain(y, win, fb_t, **kw1))]
+    B, L = y.shape
+    F, n_bins, n_cols = 1 + L // HOP, N_FFT // 2 + 1, fb_t.shape[1]
+    nbytes = 4 * (B * L + N_FFT + n_bins * n_cols + B * n_cols * F)
+    fp32 = B * F * (N_FFT + _rfft_flops(N_FFT) + 3 * n_bins)
+    tf32 = 3 * B * F * 2 * n_bins * n_cols
+    bound_ms, bound_by = _bound(nbytes, fp32, tf32)
+    print(f"K1 at the chroma shape ({B}, {L}), n_fft {N_FFT} hop {HOP}, {n_cols} columns, {F} "
+          f"frames: device {dev_ms:.4f} ms (torch.profiler, 20 calls); events kernel {ev[1]:.4f} / "
+          f"{ev[2]:.4f}, plain {ev[0]:.4f} / {ev[3]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {fp32 / 1e9:.2f} GFLOP FP32, {tf32 / 1e9:.2f} GFLOP of TF32 "
+          f"products)")
 
 
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
@@ -1865,6 +2229,7 @@ def times(gen: torch.Generator, card: str) -> dict:
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
     slice_times(gen)
+    rhythm_times(gen)
     return out
 
 
@@ -1882,21 +2247,21 @@ def device_busy_ms(prof, calls: int) -> float:
     return busy_us / 1e3 / calls
 
 
-def profile_path(fn, calls: int, order: bool) -> None:
+def profile_path(fn, calls: int, order: bool, plain: bool = True) -> None:
     """``fn()`` under ``torch.profiler`` for ``calls`` calls after two
-    warm-up calls, on the kernel path and on the plain path (every kernel
-    off): device time per call by kernel, the device's busy time (the union
-    of its kernel and copy spans) and its idle share of the host's wall
-    time; with ``order``, the port's kernels launch by launch in the first
-    profiled call. The profiler lengthens the host side, so the windows run
-    longer than the CUDA-event times."""
+    warm-up calls, on the kernel path and (with ``plain``) on the plain
+    path (every kernel off): device time per call by kernel, the device's
+    busy time (the union of its kernel and copy spans) and its idle share
+    of the host's wall time; with ``order``, the port's kernels launch by
+    launch in the first profiled call. The profiler lengthens the host
+    side, so the windows run longer than the CUDA-event times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mlx_audio_primitives_tpu_torch.kernels import _build
     from mlx_audio_primitives_tpu_torch.utils import dispatch
 
-    for label, enabled in (("kernel path", True), ("plain path", False)):
+    for label, enabled in (("kernel path", True), ("plain path", False))[: 1 + plain]:
         dispatch.KERNELS_ENABLED = enabled
         try:
             for _ in range(2):
@@ -1952,6 +2317,29 @@ def profile_griffinlim(gen: torch.Generator, card: str, calls: int = 2) -> None:
     S = ap.stft(pitch_clips(gen, FEATURES), n_fft=N_FFT, hop_length=HOP).abs()
     profile_path(lambda: ap.griffinlim(S, n_iter=GL_ITERS, hop_length=HOP, random_state=0,
                                        length=LONG), calls, order=False)
+
+
+def rhythm_set(ap, y: torch.Tensor) -> dict:
+    """The rhythm-and-harmony front end on ``y`` (B, L): the onset envelope
+    and its tempo, the STFT and CQT chromagrams, PCEN of the mel."""
+    env = ap.onset_strength(y, sr=SR)
+    return {"onset": env, "tempo": ap.tempo(onset_envelope=env, sr=SR),
+            "chroma_stft": ap.chroma_stft(y=y, sr=SR), "chroma_cqt": ap.chroma_cqt(y, sr=SR),
+            "pcen": ap.pcen(ap.melspectrogram(y, sr=SR))}
+
+
+def profile_rhythm(gen: torch.Generator, card: str) -> None:
+    """Phase 6c: where the rhythm-and-harmony path's time goes at 64 x 30 s
+    (:func:`profile_path`), and PCEN of the mel alone (no kernel)."""
+    phase(f"6c. where the rhythm path's time goes at 64 x 30 s (torch.profiler, ms per call) on "
+          f"{card}")
+    import mlx_audio_primitives_tpu_torch as ap
+
+    y, _ = rhythm_clips(gen, FEATURES)
+    profile_path(lambda: rhythm_set(ap, y), 2, order=True)
+    M = ap.melspectrogram(y, sr=SR)
+    print(f"pcen of the mel {tuple(M.shape)} alone:")
+    profile_path(lambda: ap.pcen(M), 5, order=False, plain=False)
 
 
 def host_path(root: str) -> None:
@@ -2171,13 +2559,16 @@ def main() -> None:
     features = feature_path(gen)
     large_batch(gen)
     slice_launches = slice_paths(gen)
+    rhythm_launches = rhythm_paths(gen)
     timing = times(gen, card)
     profile_features(gen, card)
     profile_griffinlim(gen, card)
+    profile_rhythm(gen, card)
 
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
-    launches = {name: log_mel[name] + features[name] + slice_launches[name] for name in log_mel}
+    launches = {name: log_mel[name] + features[name] + slice_launches[name] + rhythm_launches[name]
+                for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

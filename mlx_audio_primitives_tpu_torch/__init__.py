@@ -18,7 +18,11 @@ and the bark/linear filterbanks, the spectral features, MFCC, framing,
 resampling, Griffin-Lim, autocorrelation and ACF pitch, and the dB
 conversions; and, as the JAX package does outside ``__all__``, ``yin``,
 ``piptrack``, ``estimate_tuning``, ``pitch_tuning``, the mel/MFCC
-inversion and ``magphase``. ``magnitude_spectrogram`` is reached as
+inversion, ``magphase``, the rhythm-and-harmony names (onset strength and
+detection, tempo and the tempograms, beat tracking, the chroma family and
+tonnetz, the CQT/VQT, PCEN, mu-law and perceptual weighting), the test
+signals (``tone``, ``chirp``, ``clicks``) and the ``units`` and ``util``
+modules. ``magnitude_spectrogram`` is reached as
 ``ops.stft.magnitude_spectrogram`` and ``griffinlim_iter`` as
 ``ops.griffinlim.griffinlim_iter``, as in the JAX package. It imports
 neither JAX nor the JAX package.
@@ -34,7 +38,27 @@ except Exception:  # editable / in-tree use
     __version__ = "0.1.0"
 
 from ._config import set_default_device
-from .ops.convert import amplitude_to_db, db_to_amplitude, db_to_power, power_to_db
+from .ops import units  # noqa: F401  (frames/time/notes/MIDI converters)
+from .ops import utilx as util  # noqa: F401  (normalize/peak_pick/localmax/...)
+from .ops.beat import beat_track  # noqa: F401
+from .ops.chroma import (  # noqa: F401
+    chroma_cens,
+    chroma_cqt,
+    chroma_filterbank,
+    chroma_stft,
+    chroma_vqt,
+    tonnetz,
+)
+from .ops.convert import (  # noqa: F401
+    amplitude_to_db,
+    db_to_amplitude,
+    db_to_power,
+    mu_compress,
+    mu_expand,
+    perceptual_weighting,
+    power_to_db,
+)
+from .ops.cqt import cqt, cqt_frequencies, pseudo_cqt, vqt  # noqa: F401
 from .ops.features import (  # noqa: F401
     poly_features,
     spectral_bandwidth,
@@ -52,6 +76,8 @@ from .ops.griffinlim import griffinlim
 from .ops.inverse import mel_to_audio, mel_to_stft, mfcc_to_audio, mfcc_to_mel  # noqa: F401
 from .ops.mel import hz_to_mel, mel_filterbank, mel_to_hz, melspectrogram
 from .ops.mfcc import dct, delta, mfcc
+from .ops.onset import onset_backtrack, onset_detect, onset_strength  # noqa: F401
+from .ops.pcen import pcen  # noqa: F401
 from .ops.pitch import (  # noqa: F401
     autocorrelation,
     estimate_tuning,
@@ -62,6 +88,8 @@ from .ops.pitch import (  # noqa: F401
     yin,
 )
 from .ops.resample import resample, resample_poly
+from .ops.rhythm import fourier_tempogram, tempo, tempo_frequencies, tempogram  # noqa: F401
+from .ops.signals import chirp, clicks, tone  # noqa: F401
 from .ops.stft import check_nola, istft, magnitude, magphase, phase, stft  # noqa: F401
 from .ops.windows import get_window
 

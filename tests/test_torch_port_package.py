@@ -3,7 +3,9 @@
 The port's ``__version__`` reads the same distribution metadata as the JAX
 package's, with the same fallback, and stands first in ``__all__`` as it
 does there; ``__all__`` is the JAX package's with ``set_default_device``
-added, and importing the port imports no JAX. The launchers of K3, K4 and K5 cover any number of clips, so
+added, and importing the port imports no JAX; the rhythm-and-harmony
+names the JAX package imports outside ``__all__`` stand at the port's top
+level too. The launchers of K3, K4 and K5 cover any number of clips, so
 no wrapper caps the batch (``chip_smoke.py`` runs them at 65,537 clips on
 the card), and a kernel launch on a CPU tensor raises rather than falling
 back.
@@ -63,3 +65,26 @@ def test_kernel_launch_needs_cuda():
         k5._launch(torch.zeros(4, 8), 2, 2)
     with pytest.raises(ValueError, match="CUDA"):
         k4._launch(torch.zeros(1, 2, 8), torch.ones(12), hop_length=4, output_length=12)
+
+
+#: the names the JAX package's ``__init__`` imports outside ``__all__`` that
+#: the rhythm-and-harmony slice ports (`mlx_audio_primitives_tpu/__init__.py`)
+SLICE_NAMES = [
+    "chroma_cens", "chroma_cqt", "chroma_vqt", "chroma_filterbank", "chroma_stft", "tonnetz",
+    "cqt", "cqt_frequencies", "pseudo_cqt", "vqt", "onset_backtrack", "onset_detect",
+    "onset_strength", "beat_track", "pcen", "mu_compress", "mu_expand", "perceptual_weighting",
+    "units", "util", "chirp", "clicks", "tone", "fourier_tempogram", "tempo",
+    "tempo_frequencies", "tempogram",
+]
+
+
+@pytest.mark.parametrize("name", SLICE_NAMES)
+def test_slice_names_at_the_top_level(name):
+    got, ref = getattr(tap, name), getattr(jap, name)
+    assert name not in tap.__all__ and name not in jap.__all__
+    if name in ("units", "util"):
+        assert got.__name__.rsplit(".", 1)[1] == ref.__name__.rsplit(".", 1)[1]
+        assert got.__all__ == ref.__all__
+    else:
+        assert callable(got) and got.__name__ == ref.__name__
+        assert got.__module__.startswith("mlx_audio_primitives_tpu_torch.ops.")

@@ -212,3 +212,102 @@ def test_cpu_calls_launch_nothing():
     tap.spectral_centroid(y, n_fft=512, hop_length=128)
     tap.spectral_contrast(y, n_fft=512, hop_length=128)
     assert launch_counts() == before
+
+
+# The rhythm-and-harmony slice's host tables: the port's own copies of the
+# JAX package's float64 builders, equal in bits (float64 on the host, and
+# float32 as cached), and the JAX tables carried across drive the port's
+# ops to the port's own results.
+
+CHROMA_FB_CASES = [
+    (22050, 2048, 12, 0.0, 5.0, 2.0, 2.0, True),
+    (16000, 1024, 24, 0.3, 4.0, None, 1.0, False),
+    (44100, 4096, 12, -0.25, 5.0, 1.5, float("inf"), True),
+    (22050, 512, 36, 0.0, 5.0, 2.0, None, True),
+]
+
+
+@pytest.mark.parametrize("args", CHROMA_FB_CASES, ids=[str(i) for i in range(len(CHROMA_FB_CASES))])
+def test_chroma_filterbank_bit_equal(args):
+    from mlx_audio_primitives_tpu.ops.chroma import _chroma_filterbank_table as jax_table
+
+    from mlx_audio_primitives_tpu_torch.ops.chroma import _chroma_filterbank_table
+
+    np.testing.assert_array_equal(_chroma_filterbank_table.host(*args), jax_table.host(*args))
+    sr, n_fft, n_chroma, tuning, ctroct, octwidth, norm, base_c = args
+    kw = dict(n_chroma=n_chroma, tuning=tuning, ctroct=ctroct, octwidth=octwidth, norm=norm,
+              base_c=base_c)
+    assert same_bits(tap.chroma_filterbank(sr, n_fft, **kw), jap.chroma_filterbank(sr, n_fft, **kw))
+
+
+@pytest.mark.parametrize("args", [(84, 12, 12, 32.70319566257483, True), (72, 24, 12, 110.0, True),
+                                  (36, 12, 12, 100.0, False), (48, 36, 12, 55.0, True)])
+def test_cq_to_chroma_bit_equal(args):
+    from mlx_audio_primitives_tpu.ops.chroma import _cq_to_chroma_table as jax_table
+
+    from mlx_audio_primitives_tpu_torch.ops.chroma import _cq_to_chroma_table
+
+    np.testing.assert_array_equal(_cq_to_chroma_table.host(*args), jax_table.host(*args))
+    assert same_bits(_cq_to_chroma_table(*args), np.asarray(jax_table(*args)))
+
+
+@pytest.mark.parametrize("n_chroma", [12, 24])
+def test_tonnetz_basis_bit_equal(n_chroma):
+    from mlx_audio_primitives_tpu.ops.chroma import _tonnetz_basis as jax_table
+
+    from mlx_audio_primitives_tpu_torch.ops.chroma import _tonnetz_basis
+
+    assert same_bits(_tonnetz_basis.host(n_chroma), jax_table.host(n_chroma))
+    assert same_bits(_tonnetz_basis(n_chroma), np.asarray(jax_table(n_chroma)))
+
+
+@pytest.mark.parametrize("table,args", [
+    ("_cqt_fft_basis", (22050, 4096, 36, 110.0, 12, 1.0)),
+    ("_cqt_fft_basis", (16000, 2048, 48, 220.0, 24, 0.8)),
+    ("_vqt_fft_basis", (22050, 4096, 36, 110.0, 12, 1.0, 13.5)),
+    ("_vqt_fft_basis", (22050, 2048, 24, 98.0, 12, 1.0, 0.0)),
+])
+def test_cq_basis_bit_equal(table, args):
+    import importlib
+
+    jax_table = getattr(importlib.import_module("mlx_audio_primitives_tpu.ops.cqt"), table)
+    port_table = getattr(importlib.import_module("mlx_audio_primitives_tpu_torch.ops.cqt"), table)
+    np.testing.assert_array_equal(port_table.host(*args), jax_table.host(*args))
+    assert same_bits(port_table(*args), np.asarray(jax_table(*args)))
+
+
+def test_tempogram_window_is_numpy_hanning():
+    from mlx_audio_primitives_tpu_torch.ops.rhythm import _hanning
+
+    for n in (64, 97, 384):
+        assert same_bits(_hanning(n), np.hanning(n).astype(np.float32))
+
+
+def test_slice_tables_carried_across():
+    from mlx_audio_primitives_tpu.ops.chroma import _cq_to_chroma_table as jax_fold
+    from mlx_audio_primitives_tpu.ops.chroma import _tonnetz_basis as jax_tonnetz
+    from mlx_audio_primitives_tpu.ops.cqt import _cqt_fft_basis as jax_cqt_basis
+
+    from mlx_audio_primitives_tpu_torch.ops.cqt import _cqt_apply
+
+    sr, args = 22050, (22050, 4096, 36, 110.0, 12, 1.0)
+    tt = tables_from_numpy({
+        "chroma": np.asarray(jap.chroma_filterbank(sr, 2048)),
+        "cqt": jax_cqt_basis.host(*args),
+        "fold": jax_fold.host(36, 12, 12, 110.0, True),
+        "tonnetz": jax_tonnetz.host(12),
+    })
+    y = signals(12, (2, 2 * sr))
+    # chroma_stft's K1 route with the carried weight: the port's own result
+    win = tap.get_window("hann", 2048)
+    raw = filterbank_spectrogram(y, win, tt["chroma"], n_fft=2048, hop_length=512, center=True,
+                                 pad_mode="constant", power=2.0, use_pallas=True)
+    assert torch.equal(raw, tap.chroma_stft(y=y, norm=None, use_pallas=True))
+    # the CQT's product with the carried basis, and the fold onto classes
+    D = tap.stft(y, n_fft=4096, hop_length=512, window="ones")
+    C = _cqt_apply(tt["cqt"], D)
+    assert torch.equal(C, tap.cqt(y, sr=sr, fmin=110.0, n_bins=36))
+    chroma = torch.matmul(tt["fold"], C.abs())
+    assert torch.equal(chroma, tap.chroma_cqt(y, sr=sr, fmin=110.0, n_bins=36, norm=None))
+    l1 = chroma / chroma.abs().sum(dim=-2, keepdim=True)
+    assert max_rel(torch.matmul(tt["tonnetz"], l1), tap.tonnetz(chroma=chroma)) <= 1e-7
