@@ -38,7 +38,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    (silence, onset, constant, piecewise constant, DC offsets: masks and f0
    equal on the card's two routes and the CPU); one Griffin-Lim iteration,
    K3 -> K2 -> projection -> K3, against the twins; K1 with the 12-column
-   chroma weight at 64 x 30 s, power 2 and power 1 with a detuned weight);
+   chroma weight at 64 x 30 s, power 2 and power 1 with a detuned weight;
+   K2 with the reassignment windows ``dh`` and ``th`` at 64 x 30 s, K3 on a
+   phase-vocoded spectrum at rate 0.8 (1,615 frames, DC and Nyquist bins
+   not real), K1 and K2 without a centre pad on one streaming push of 43
+   frames at batch 64 and at batch 1);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -73,6 +77,21 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       click tempi), ``pcen`` of the mel (K1 once) against scipy's
       ``lfilter`` in float64, and ``beat_track`` on 4 clips (K1 once each)
       index-equal to a float64 Ellis DP;
+   f. the effects, decomposition and streaming path on 64 clips of 30 s
+      made on the card (steady harmonic tones, 1% noise, impulse clicks,
+      two gaps of exact silence; ``EFFECTS_LAUNCHES``): ``harmonic`` +
+      ``percussive`` (K2 and K3 once each) against the input, the median
+      filter against a float64 median, ``time_stretch`` at 0.8 and 1.25
+      against a float64 per-frame vocoder recurrence and ISTFT on the
+      port's spectrum and at 1.0 against the input, ``pitch_shift`` by +-2
+      steps against its plain route, ``reassigned_spectrogram`` (K2 three
+      times) on the tones and clicks, ``pyin`` against a float64 run of the
+      same algorithm on 4 clips, ``lpc`` against a float64 Burg, ``trim``
+      and ``split`` against a float64 rms + dB, ``recurrence_matrix`` (a
+      valid k-nearest selection of the float64 distances), ``nn_filter``
+      and NMF on one clip (objective monotone), and every ``Streaming*``
+      class at batch 64 in 30 pushes of 1 s against its offline op (K2 or
+      K1 once a push);
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -96,11 +115,18 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    and ``chroma_stft`` (kernel route against plain route), ``tempo``,
    ``pcen`` and its scan, ``cqt`` and ``chroma_cqt`` with the CQT's peak
    memory, ``beat_track`` of one clip and its DP's host time, and K1's
-   device time at the chroma shape with its bound;
+   device time at the chroma shape with its bound; the effects slice at 64
+   x 30 s: ``harmonic``, ``percussive``, ``time_stretch``, ``pitch_shift``
+   and ``reassigned_spectrogram`` (kernel route against plain route),
+   ``hpss``, ``pyin``, ``lpc``, ``trim``, ``split``, NMF, the recurrence
+   and ``nn_filter`` on one clip, the peak memory of ``hpss``, ``pyin`` and
+   ``nn_filter``, pYIN's CMND, observations, Viterbi and host backtrace,
+   and ``StreamingLogMel.push``'s latency at batch 1 and 64;
 6. ``torch.profiler`` over the spectral-feature path, over
    ``griffinlim`` and over the rhythm-and-harmony path (onset, tempo, both
-   chromagrams, PCEN of the mel) at 64 x 30 s (kernels and plain), and over
-   ``pcen`` alone: device time by kernel, busy time and idle share.
+   chromagrams, PCEN of the mel) at 64 x 30 s (kernels and plain), over
+   ``pcen`` alone, and over ``harmonic``, ``time_stretch`` and ``pyin`` at
+   64 x 30 s: device time by kernel, busy time and idle share.
 
 The last two lines of standard output are the card's name and power limit
 (as ``nvidia-smi`` prints them) and ``{"ok": true, "device": {...}}``; the
@@ -161,6 +187,23 @@ FEATURE_LAUNCHES = {"mel_fused_kernel": 2, "stft_mag_kernel": 4, "select_extreme
 RHYTHM_LAUNCHES = {"onset_strength": {"mel_fused_kernel": 1}, "chroma_stft": {"mel_fused_kernel": 1},
                    "pcen": {"mel_fused_kernel": 1}, "beat_track": {"mel_fused_kernel": 1},
                    "cqt": {}, "chroma_cqt": {}, "tempo": {}}
+#: the effects, decomposition and streaming path's launches per public call
+#: (phase 4f; per push for the streams): K2 and K3 once each for the
+#: STFT -> op -> ISTFT effects, K2 three times for the reassignment's
+#: three windows, K2 once a push of the STFT stream and K1 once a push of
+#: the mel and chroma streams; none for the rest, which run plain torch in
+#: either package
+_K2_K3 = {"stft_kernel": 1, "istft_kernel": 1}
+EFFECTS_LAUNCHES = {"harmonic": _K2_K3, "percussive": _K2_K3, "time_stretch": _K2_K3,
+                    "pitch_shift": _K2_K3, "reassigned_spectrogram": {"stft_kernel": 3},
+                    "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {"mel_fused_kernel": 1},
+                    "StreamingMFCC": {"mel_fused_kernel": 1}, "StreamingChroma": {"mel_fused_kernel": 1},
+                    "StreamingPCEN": {"mel_fused_kernel": 1}, "StreamingISTFT": {}, "StreamingPitch": {},
+                    "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {}, "split": {},
+                    "recurrence_matrix": {}, "nn_filter": {}, "decompose": {}}
+#: the streams of phase 4f: 30 pushes of 1 s (43 hops) at batch 64
+STREAM_CHUNK = 43 * HOP
+STREAM_PUSHES = 30
 
 
 def check(ok: bool, msg: str) -> None:
@@ -608,6 +651,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     k3_gate_sweep(gen, run, errs)
     slice_kernels_vs_plain(gen, run, errs)
     rhythm_kernels_vs_plain(gen, run, errs)
+    effects_kernels_vs_plain(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -1903,6 +1947,617 @@ def rhythm_times(gen: torch.Generator) -> None:
           f"products)")
 
 
+def effects_clips(gen: torch.Generator, shape: tuple[int, int]) -> tuple[torch.Tensor, list]:
+    """Test audio of the effects slice, made on the generator's device,
+    float32 ``(B, L)``, and each clip's layout: a steady harmonic tone (f0
+    drawn in 110-440 Hz, partials 1-3 at 0.3/k), white noise at 1% so that
+    every bin carries energy, impulse clicks of amplitude 4 every ~1.5 s,
+    and two gaps of exact silence (1-2 s each, drawn in 5-10 s and 18-24 s).
+    The layout lists, per clip, ``(f0, clicks, gaps)``: the click samples
+    at least 0.1 s from a gap, and the gaps as (start, end) samples."""
+    B, L = shape
+    dev = gen.device
+    f64 = dict(device=dev, dtype=torch.float64)
+    t = torch.arange(L, **f64) / SR
+    f0 = 110.0 * 2.0 ** (2.0 * torch.rand((B, 1), generator=gen, **f64))
+    y = torch.zeros((B, L), **f64)
+    for k in (1, 2, 3):
+        ph = 2 * np.pi * torch.rand((B, 1), generator=gen, **f64)
+        y += 0.3 / k * torch.sin(2 * np.pi * k * f0 * t + ph)
+    y += 0.01 * torch.randn((B, L), generator=gen, **f64)
+    starts = torch.rand((B, 2), generator=gen, **f64) * torch.tensor([5.0, 6.0], **f64)
+    starts += torch.tensor([5.0, 18.0], **f64)
+    lengths = 1.0 + torch.rand((B, 2), generator=gen, **f64)
+    jitter = (0.2 * SR * torch.rand((B, 20), generator=gen, **f64)).long().cpu().numpy()
+    layout = []
+    for b in range(B):
+        gaps = [(int(s * SR), int((s + d) * SR)) for s, d in zip(starts[b].tolist(), lengths[b].tolist())]
+        clicks = []
+        for j in range(20):
+            p = int(0.5 * SR + 1.5 * SR * j) + int(jitter[b, j])
+            if p < L - SR // 2:
+                y[b, p] += 4.0
+                if all(p < g0 - SR // 10 or p > g1 + SR // 10 for g0, g1 in gaps):
+                    clicks.append(p)
+        for g0, g1 in gaps:
+            y[b, g0:g1] = 0.0
+        layout.append((float(f0[b, 0]), clicks, gaps))
+    return y.float(), layout
+
+
+def effects_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's checks of the effects slice's kernel call sites, each
+    against its twin within 1e-5 of max: K2 with the reassignment windows
+    ``dh`` (negative taps) and ``th`` (up to +-n_fft/2 times ``h``) at 64 x
+    30 s; K3 on a phase-vocoded spectrum at rate 0.8 (1,615 frames, DC and
+    Nyquist bins not real); K1 and K2 without a centre pad on one streaming
+    push (the carry plus 1 s, 43 frames) at batch 64 and at batch 1."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.reassign import _reassign_windows
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    dev = gen.device
+    y, _ = effects_clips(gen, FEATURES)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    for name, w in zip(("h", "dh", "th"), _reassign_windows("hann", N_FFT, N_FFT)):
+        w = torch.from_numpy(w).to(dev)
+        got = run(k2.KERNEL, k2.stft_fused, y, w, **kw)
+        e = rel_err(got, k2.stft_plain(y, w, **kw))
+        print(f"K2 with the reassignment window {name} (taps {float(w.min()):.4g} .. "
+              f"{float(w.max()):.4g}) {FEATURES}: rel err {e:.3e} (limit 1e-5)")
+        check(e <= 1e-5, f"K2 disagrees with its twin on the window {name}")
+        errs[k2.KERNEL.name] = max(errs.get(k2.KERNEL.name, 0.0), abs_err(got, k2.stft_plain(y, w, **kw)))
+        del got
+
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    D = k2.stft_fused(y, win, **kw)
+    Sv = ap.phase_vocoder(D, 0.8, hop_length=HOP)
+    del D
+    F = Sv.shape[-1]
+    dc_imag = float(torch.maximum(Sv[:, 0].imag.abs().max(), Sv[:, -1].imag.abs().max()))
+    T = N_FFT + (F - 1) * HOP
+    env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, F, HOP, T, device=dev)
+    S = Sv.transpose(1, 2)
+    kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
+    got = run(k3.KERNEL, k3.istft_fused, S, win, env, **kw3)
+    ref = k3.istft_plain(S, win, env, **kw3)
+    keep = slice(N_FFT // 2, T - N_FFT // 2)
+    e = rel_err(got[:, keep], ref[:, keep])
+    print(f"K3 on the rate-0.8 vocoded spectrum {tuple(Sv.shape)} ({F} frames; DC/Nyquist "
+          f"imaginary parts up to {dc_imag:.3e}): rel err {e:.3e} over the kept samples (limit 1e-5)")
+    check(F == 1615 and dc_imag > 0 and e <= 1e-5, "K3 disagrees with its twin on the vocoded spectrum")
+    errs[k3.KERNEL.name] = max(errs.get(k3.KERNEL.name, 0.0), abs_err(got[:, keep], ref[:, keep]))
+    del Sv, S, got, ref
+
+    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    kwp = dict(n_fft=N_FFT, hop_length=HOP, center=False, pad_mode="constant")
+    push = N_FFT - HOP + STREAM_CHUNK
+    for batch in (FEATURES[0], 1):
+        ext = y[:batch, :push].contiguous()
+        Sx = run(k2.KERNEL, k2.stft_fused, ext, win, **kwp)
+        e2 = rel_err(Sx, k2.stft_plain(ext, win, **kwp))
+        M = run(k1.KERNEL, k1.melspectrogram_fused, ext, win, fb_t, **kwp)
+        e1 = rel_err(M, k1.melspectrogram_plain(ext, win, fb_t, **kwp))
+        print(f"one streaming push ({batch}, {push}), no centre pad, {Sx.shape[-1]} frames: K2 rel "
+              f"{e2:.3e}, K1 ({N_MELS} mels) rel {e1:.3e} (limit 1e-5)")
+        check(Sx.shape[-1] == M.shape[-1] == STREAM_CHUNK // HOP and e1 <= 1e-5 and e2 <= 1e-5,
+              "K1/K2 disagree with their twins on a streaming push")
+
+
+def median_oracle(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """float64 median filter of ``x`` along ``dim`` with scipy.ndimage's
+    'reflect' boundary, by its own construction: the edge samples repeat
+    (flipped slices), the middle value of each sorted odd window."""
+    x = x.double().movedim(dim, -1).contiguous()
+    h = size // 2
+    xp = torch.cat([x[..., :h].flip(-1), x, x[..., -h:].flip(-1)], dim=-1)
+    out = torch.empty_like(x)
+    rows = xp.reshape(-1, xp.shape[-1])
+    o = out.view(-1, x.shape[-1])
+    for r0 in range(0, rows.shape[0], 256):
+        o[r0 : r0 + 256] = rows[r0 : r0 + 256].unfold(-1, size, 1).sort(-1).values[..., h]
+    return out.movedim(-1, dim)
+
+
+def pv_oracle(D: torch.Tensor, rate: float) -> torch.Tensor:
+    """librosa's phase vocoder as its per-frame recurrence, in complex128 on
+    ``D``'s device: magnitudes interpolated, the phase advanced frame by
+    frame by the expected rotation plus the wrapped deviation."""
+    D = D.to(torch.complex128)
+    n_bins, F = D.shape[-2:]
+    Dp = torch.nn.functional.pad(D, (0, 2))
+    phi = torch.linspace(0, np.pi * HOP, n_bins, dtype=torch.float64, device=D.device)
+    acc = torch.angle(Dp[..., 0])
+    steps = np.arange(0, F, rate)
+    out = torch.empty(D.shape[:-1] + (len(steps),), dtype=torch.complex128, device=D.device)
+    for t, step in enumerate(steps):
+        i, a = int(step), float(step - int(step))
+        c0, c1 = Dp[..., i], Dp[..., i + 1]
+        out[..., t] = torch.polar((1 - a) * c0.abs() + a * c1.abs(), acc)
+        dp = torch.angle(c1) - torch.angle(c0) - phi
+        acc = acc + phi + dp - 2 * np.pi * torch.round(dp / (2 * np.pi))
+    return out
+
+
+def istft_oracle(S: torch.Tensor, length: int) -> torch.Tensor:
+    """float64 ISTFT (centre trimmed, cut to ``length``) of ``(B, n_bins,
+    F)`` on its device: the DC and Nyquist imaginary parts dropped, irfft,
+    the float64 Hann, overlap-add, the squared-window envelope."""
+    from mlx_audio_primitives_tpu_torch.ops.windows import window_host
+
+    S = S.to(torch.complex128).clone()
+    S[:, 0].imag = 0.0
+    S[:, -1].imag = 0.0
+    w = torch.from_numpy(window_host("hann", N_FFT)).to(S.device)
+    frames = torch.fft.irfft(S.transpose(1, 2), n=N_FFT) * w
+    F = frames.shape[1]
+    total = N_FFT + (F - 1) * HOP
+    fold = dict(output_size=(1, total), kernel_size=(1, N_FFT), stride=(1, HOP))
+    y = torch.nn.functional.fold(frames.transpose(1, 2), **fold).reshape(frames.shape[0], total)
+    env = torch.nn.functional.fold((w * w).expand(1, F, N_FFT).transpose(1, 2), **fold).reshape(total)
+    y = y / torch.clamp(env, min=1e-8)
+    y = y[:, N_FFT // 2 : N_FFT // 2 + length]
+    return torch.nn.functional.pad(y, (0, length - y.shape[1]))
+
+
+def burg_oracle(y: torch.Tensor, order: int) -> torch.Tensor:
+    """Burg's method in float64 (librosa's loop, vectorized over clips),
+    with the prediction errors shrinking by a sample a step."""
+    y = y.double()
+    B = y.shape[0]
+    ar = torch.zeros((B, order + 1), dtype=torch.float64, device=y.device)
+    ar[:, 0] = 1.0
+    fwd, bwd = y[:, 1:], y[:, :-1]
+    den = (fwd * fwd).sum(-1) + (bwd * bwd).sum(-1)
+    for i in range(order):
+        r = -2.0 * (bwd * fwd).sum(-1) / den
+        prev = ar.clone()
+        ar[:, 1 : i + 2] = prev[:, 1 : i + 2] + r[:, None] * prev[:, : i + 1].flip(-1)
+        fwd_new, bwd_new = fwd + r[:, None] * bwd, bwd + r[:, None] * fwd
+        den = (1.0 - r * r) * den - fwd_new[:, 0] ** 2 - bwd_new[:, -1] ** 2
+        fwd, bwd = fwd_new[:, 1:], bwd_new[:, :-1]
+    return ar
+
+
+def nonsilent_oracle(y: torch.Tensor, top_db: float = 60.0) -> np.ndarray:
+    """float64 frame mask of ``trim``/``split``: the mean square of each
+    centred 2048-sample frame (hop 512) in dB under the batch's loudest
+    frame, above ``-top_db``, any clip."""
+    yp = torch.nn.functional.pad(y.double(), (1024, 1024))
+    mse = (yp.unfold(-1, 2048, 512) ** 2).mean(-1)
+    db = 10.0 * torch.log10(torch.clamp(mse, min=1e-10) / torch.clamp(mse.max(), min=1e-10))
+    return (db.amax(0) > -top_db).cpu().numpy()
+
+
+def intervals(mask: np.ndarray, n: int) -> np.ndarray:
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], mask.astype(np.int8), [0]])))
+    return np.minimum(edges * 512, n).reshape(-1, 2)
+
+
+def pyin_oracle(y: torch.Tensor, fmin: float, fmax: float):
+    """pYIN as the port runs it, in float64 on the card: the CMND, the
+    threshold integration, the observation, the Viterbi over the float32
+    transition tables widened to float64, the backtrace."""
+    from mlx_audio_primitives_tpu_torch.ops import pitch as P
+    from mlx_audio_primitives_tpu_torch.ops import pyin as Y
+
+    fl, wl, hop = 2048, 1024, 512
+    min_p, max_p = max(int(np.floor(SR / fmax)), 1), min(int(np.ceil(SR / fmin)), fl - wl - 1)
+    yp = torch.nn.functional.pad(y.double(), (fl // 2, fl // 2))
+    band = P._yin_cmnd(yp, frame_length=fl, win_length=wl, hop_length=hop, min_period=min_p,
+                       max_period=max_p)
+    n_bins = int(np.ceil(120.0 * np.log2(fmax / fmin))) + 1
+    beta = torch.from_numpy(Y._beta_threshold_prior(100, 2.0, 18.0)).to(y.device)
+    obs, vp = Y._pyin_observations(band, beta, boltzmann_parameter=2.0, no_trough_prob=0.01,
+                                   n_bins=n_bins, bins_per_semitone=10, min_period=min_p, sr=SR,
+                                   fmin=fmin)
+    width = 2 * max(int(round(35.92 * 120 / (SR / hop))), 1) + 1
+    ll, ls = (torch.from_numpy(a).double().to(y.device)
+              for a in Y._transition_tables(n_bins, min(width, 2 * n_bins - 1), 0.01))
+    last, bps = Y._pyin_viterbi(obs, vp, ll, ls, n_bins=n_bins)
+    f0, voiced = Y._decode(last, bps, n_bins=n_bins, fmin=fmin, bins_per_semitone=10,
+                           fill_na=np.nan)
+    return f0, voiced, vp.cpu().numpy()
+
+
+def knn_bad_rows(keep: torch.Tensor, X: torch.Tensor, k: int, tol: float = 1e-3) -> int:
+    """Rows of a recurrence matrix (width 1) whose kept pairs are not a k
+    nearest selection of the float64 distances between the frames of ``X``
+    ``(d, t)`` up to ``tol``: a kept pair farther than the row's k-th
+    distance + ``tol``, a dropped one nearer than it - ``tol``, or fewer
+    than ``k`` kept. The float32 product ``|x|^2 + |y|^2 - 2 x.y`` leaves
+    up to ~7e-4 of rounding in a distance near 0 (chroma frames of a
+    steady tone are near duplicates), which reorders such neighbours."""
+    Xt = X.double().t().contiguous()
+    D = torch.cdist(Xt, Xt, compute_mode="donot_use_mm_for_euclid_dist")
+    Dm = D.fill_diagonal_(float("inf"))
+    kth = Dm.kthvalue(k, dim=1).values[:, None]
+    keep = keep.to(Dm.device)
+    bad = (keep & (Dm > kth + tol)) | (~keep & torch.isfinite(Dm) & (Dm < kth - tol))
+    return int((bad.any(1) | (keep.sum(1) < k)).sum())
+
+
+def effects_paths(gen: torch.Generator) -> dict:
+    """Phase 4f: the effects, decomposition and streaming entry points on 64
+    x 30 s clips made on the card (:func:`effects_clips`), each with every
+    launch counter reset just before and read just after; against float64
+    oracles on the card where one exists. Returns the launches summed over
+    these calls."""
+    phase(f"4f. public effects / decomposition / pyin / streaming paths on cuda tensors, "
+          f"{FEATURES[0]} clips of 30 s")
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.ops.decompose import median_filter_1d
+    from mlx_audio_primitives_tpu_torch.ops.pitch import pitch_detect_acf
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    dev = gen.device
+    total = {k.name: 0 for k in _build.KERNELS}
+    y, layout = effects_clips(gen, FEATURES)
+    B, L = y.shape
+
+    def call(name, fn, label="", times=1):
+        expect = {k: n * times for k, n in EFFECTS_LAUNCHES[name].items()}
+        return counted_call(f"{name}{label} {tuple(y.shape)}", expect, fn, total)
+
+    # HPSS: harmonic + percussive add up to the input; the median filters
+    # equal a float64 median of the same float32 values
+    H = call("harmonic", lambda: ap.harmonic(y))
+    P = call("percussive", lambda: ap.percussive(y))
+    e = rel_err(H + P, y)
+    print(f"harmonic + percussive {tuple(y.shape)}: against the input {e:.3e} of max (limit 1e-4)")
+    check(H.shape == P.shape == y.shape and e <= 1e-4, "harmonic + percussive miss the input")
+    del H, P
+    mag = ap.stft(y[:N_ORACLE]).abs()
+    for size, dim in ((31, -1), (31, -2)):
+        got = median_filter_1d(mag, size, axis=dim)
+        ok = torch.equal(got.double(), median_oracle(mag, size, dim))
+        print(f"median filter size {size} along {'time' if dim == -1 else 'frequency'} on "
+              f"{tuple(mag.shape)}: equal to the float64 median: {ok}")
+        check(ok, "the median filter differs from the float64 median")
+    del mag, got
+
+    # time stretch: the vocoder against its float64 recurrence on the same
+    # spectrum (K2's), the waveform against a float64 ISTFT of that
+    D = ap.stft(y[:2])
+    for rate in (0.8, 1.25):
+        ys = call("time_stretch", lambda rate=rate: ap.time_stretch(y, rate), f" rate {rate}")
+        ref_S = pv_oracle(D, rate)
+        e_mag = rel_err(ap.phase_vocoder(D, rate).abs(), ref_S.abs())
+        ref = istft_oracle(ref_S, int(round(L / rate)))
+        e_y = rel_err(ys[:2], ref)
+        l2 = float(torch.linalg.vector_norm(ys[:2].double() - ref) / torch.linalg.vector_norm(ref))
+        print(f"time_stretch rate {rate} {tuple(y.shape)} -> {tuple(ys.shape)}: vocoded magnitude "
+              f"{e_mag:.3e} of max (limit 2e-5), waveform {e_y:.3e} of max (limit 1e-2), "
+              f"{l2:.3e} in L2 (limit 2e-3) against the float64 recurrence on 2 clips")
+        check(ys.shape == (B, int(round(L / rate))) and e_mag <= 2e-5 and e_y <= 1e-2 and l2 <= 2e-3,
+              f"time_stretch at rate {rate} misses the float64 recurrence")
+        del ys, ref_S, ref
+    del D
+    y1 = call("time_stretch", lambda: ap.time_stretch(y, 1.0), " rate 1.0")
+    e = rel_err(y1, y)
+    print(f"time_stretch rate 1.0: against the input {e:.3e} of max (limit 1e-3, the float32 "
+          f"phase sum over 1,292 frames)")
+    check(y1.shape == y.shape and e <= 1e-3, "time_stretch at rate 1.0 misses the input")
+    del y1
+
+    for steps in (2, -2):
+        got = call("pitch_shift", lambda steps=steps: ap.pitch_shift(y, SR, steps), f" {steps:+d}")
+        dispatch.KERNELS_ENABLED = False
+        try:
+            ref = ap.pitch_shift(y, SR, steps)
+        finally:
+            dispatch.KERNELS_ENABLED = True
+        e = rel_err(got, ref)
+        l2 = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+        print(f"pitch_shift {steps:+d} steps {tuple(y.shape)}: kernel route against the plain route "
+              f"{e:.3e} of max (limit 1e-2), {l2:.3e} in L2 (limit 1e-3)")
+        check(got.shape == y.shape and e <= 1e-2 and l2 <= 1e-3, "pitch_shift routes disagree")
+        del got, ref
+
+    # reassignment: tones to their partials, clicks to their instants
+    fr, tr, mr = call("reassigned_spectrogram", lambda: ap.reassigned_spectrogram(y, sr=SR))
+    check(fr.shape == tr.shape == mr.shape == (B, N_FFT // 2 + 1, 1 + L // HOP),
+          "reassigned_spectrogram's shapes")
+    fr, tr = fr[:N_ORACLE].cpu().numpy(), tr[:N_ORACLE].cpu().numpy()
+    f_err, t_err = 0.0, 0.0
+    frame_t = np.arange(fr.shape[-1]) * HOP
+    for b in range(N_ORACLE):
+        f0, clicks, gaps = layout[b]
+        far = np.ones(fr.shape[-1], bool)
+        for p in clicks:
+            far &= np.abs(frame_t - p) > N_FFT
+        for g0, g1 in gaps:
+            far &= (frame_t < g0 - N_FFT) | (frame_t > g1 + N_FFT)
+        for k in (1, 2, 3):
+            kk = int(round(k * f0 / (SR / N_FFT)))
+            est = np.nanmedian(fr[b, kk, far])
+            f_err = max(f_err, abs(est - k * f0))
+        for p in clicks:
+            for f in np.flatnonzero(np.abs(frame_t - p) <= N_FFT // 4):
+                est = np.nanmedian(tr[b, 300:900, f])
+                t_err = max(t_err, abs(est - p / SR))
+    print(f"reassigned_spectrogram {tuple(y.shape)} -> {tuple(fr.shape)}: first {N_ORACLE} clips' "
+          f"partials at {f_err:.3e} Hz (limit 0.05 Hz), clicks at {t_err:.3e} s (limit 2e-3 s)")
+    check(f_err <= 0.05 and t_err <= 2e-3, "reassigned_spectrogram misses the tones or the clicks")
+    del fr, tr, mr
+
+    f0, voiced, vp = call("pyin", lambda: ap.pyin(y, fmin=65.0, fmax=2093.0, sr=SR))
+    of0, ov, ovp = pyin_oracle(y[:N_ORACLE], 65.0, 2093.0)
+    v_eq = float((voiced[:N_ORACLE] == ov).mean())
+    both = voiced[:N_ORACLE] & ov
+    bins = np.abs(np.round(120 * np.log2(f0[:N_ORACLE][both] / of0[both])))
+    e_vp = float(np.abs(vp[:N_ORACLE] - ovp).max())
+    print(f"pyin 65-2093 Hz {tuple(y.shape)} -> {f0.shape}, {float(voiced.mean()):.3f} voiced: first "
+          f"{N_ORACLE} clips against the float64 run: voicing equal on {v_eq:.4f} of frames (limit "
+          f"0.9), f0 bins equal on {float((bins == 0).mean()):.4f} of the frames both voice (median "
+          f"difference {float(np.median(bins)):.0f}, limit 0), voiced_prob {e_vp:.3e} (limit 5e-3)")
+    check(v_eq >= 0.9 and np.median(bins) == 0 and e_vp <= 5e-3, "pyin misses the float64 run")
+
+    A = call("lpc", lambda: ap.lpc(y, 16))
+    e = abs_err(A[:N_ORACLE], burg_oracle(y[:N_ORACLE], 16))
+    print(f"lpc order 16 {tuple(y.shape)} -> {tuple(A.shape)}: first {N_ORACLE} clips against a "
+          f"float64 Burg {e:.3e} (limit 5e-4)")
+    check(A.shape == (B, 17) and e <= 5e-4, "lpc misses the float64 Burg")
+
+    _, iv = call("trim", lambda: ap.trim(y))
+    sp = call("split", lambda: ap.split(y))
+    ref = intervals(nonsilent_oracle(y), L)
+    ok = list(iv) == [ref[0, 0], ref[-1, 1]] and np.array_equal(sp, ref)
+    for b in range(N_ORACLE):
+        ok &= np.array_equal(ap.split(y[b]), intervals(nonsilent_oracle(y[b : b + 1]), L))
+    print(f"trim / split {tuple(y.shape)}: [{iv[0]}, {iv[1]}], {len(sp)} intervals on the batch; "
+          f"index-equal to the float64 rms + dB on the batch and on the first {N_ORACLE} clips: {ok}")
+    check(ok, "trim / split differ from the float64 rms + dB")
+
+    chroma = ap.chroma_stft(y=y[0], sr=SR)
+    R = call("recurrence_matrix", lambda: ap.recurrence_matrix(chroma, mode="affinity"))
+    # the k-NN selection itself, on the connectivity matrix (an affinity
+    # exp(-D / bandwidth) may underflow to 0 for a kept pair)
+    C = call("recurrence_matrix", lambda: ap.recurrence_matrix(chroma), " connectivity")
+    C_cpu = ap.recurrence_matrix(chroma.cpu())
+    flips = int(((C.cpu() > 0) != (C_cpu > 0)).sum())
+    k_nn = min(int(2 * np.ceil(np.sqrt(chroma.shape[1] - 1))), chroma.shape[1] - 1)
+    bad_card, bad_cpu = knn_bad_rows(C > 0, chroma, k_nn), knn_bad_rows(C_cpu > 0, chroma, k_nn)
+    sm = call("nn_filter", lambda: ap.nn_filter(chroma, rec=R, aggregate="median"))
+    e_nn = abs_err(sm, ap.nn_filter(chroma.cpu(), rec=R.cpu(), aggregate="median"))
+    mag0 = ap.stft(y[0]).abs()
+    objs = []
+    for n_iter in (25, 50, 100, 200):
+        W, Hc = call("decompose", lambda n=n_iter: ap.decompose(mag0, n_components=8, n_iter=n),
+                     f" n_iter {n_iter}")
+        objs.append(float(torch.linalg.matrix_norm(mag0.double() - W.double() @ Hc.double())))
+    W_cpu, H_cpu = ap.decompose(mag0.cpu(), n_components=8, n_iter=200)
+    o_cpu = float(torch.linalg.matrix_norm(mag0.cpu().double() - W_cpu.double() @ H_cpu.double()))
+    print(f"recurrence_matrix on one clip's chromagram {tuple(chroma.shape)}: {int((C > 0).sum())} "
+          f"pairs ({flips} differ from the CPU's); rows that are not a {k_nn}-nearest selection of "
+          f"the float64 distances within 1e-3: card {bad_card}, CPU {bad_cpu} (limit 0); "
+          f"nn_filter median against "
+          f"the CPU {e_nn:.3e} (limit 1e-6); decompose of |S| {tuple(mag0.shape)}, 8 components: "
+          f"objective {', '.join(f'{o:.6g}' for o in objs)} after 25/50/100/200 updates "
+          f"(monotone), the CPU's {o_cpu:.6g} (limit 1e-3 apart)")
+    check(bad_card == 0 and bad_cpu == 0 and e_nn <= 1e-6
+          and all(b <= a for a, b in zip(objs, objs[1:])) and abs(objs[-1] - o_cpu) <= 1e-3 * o_cpu,
+          "recurrence_matrix / nn_filter / decompose miss their checks")
+
+    stream_checks(ap, y, call, pitch_detect_acf)
+    return total
+
+
+def stream_checks(ap, y: torch.Tensor, call, pitch_detect_acf) -> None:
+    """Phase 4f's streams at batch 64, in 1 s chunks (43 hops), against
+    their offline counterparts on the card; each push of the STFT stream
+    launches K2 and each push of the mel and chroma streams K1."""
+    from mlx_audio_primitives_tpu_torch.utils import dispatch
+
+    B = y.shape[0]
+    n = STREAM_PUSHES * STREAM_CHUNK
+    x = y[:, :n]
+    pad = N_FFT - HOP
+    xp = torch.nn.functional.pad(x, (pad, 0))
+    St = ap.streaming
+    make = {
+        "StreamingSTFT": lambda: St.StreamingSTFT(N_FFT, HOP, batch=B),
+        "StreamingLogMel": lambda: St.StreamingLogMel(SR, N_FFT, HOP, batch=B),
+        "StreamingMFCC": lambda: St.StreamingMFCC(SR, N_FFT, HOP, batch=B),
+        "StreamingChroma": lambda: St.StreamingChroma(SR, N_FFT, HOP, batch=B),
+        "StreamingPCEN": lambda: St.StreamingPCEN(SR, N_FFT, HOP, batch=B),
+        "StreamingPitch": lambda: St.StreamingPitch(SR, frame_length=N_FFT, hop_length=HOP, batch=B),
+    }
+
+    def run_stream(name, chunk, src):
+        s = make[name]()
+        return call(name, lambda: [s.push(src[..., i : i + chunk]) for i in range(0, src.shape[-1], chunk)],
+                    f" {STREAM_PUSHES} pushes", STREAM_PUSHES), s
+
+    lim = dict(StreamingSTFT=1e-5, StreamingLogMel=1e-5, StreamingMFCC=1e-5, StreamingPCEN=1e-5)
+    mel = ap.melspectrogram(xp, sr=SR, center=False)
+    offline = {
+        "StreamingSTFT": ap.stft(xp, center=False).transpose(1, 2),
+        "StreamingLogMel": ap.power_to_db(mel, top_db=None).transpose(1, 2),
+        "StreamingMFCC": ap.mfcc(S=ap.power_to_db(mel, top_db=None)).transpose(1, 2),
+        "StreamingPCEN": ap.pcen(mel, sr=SR, hop_length=HOP).transpose(1, 2),
+    }
+    for name, ref in offline.items():
+        got = torch.cat(run_stream(name, STREAM_CHUNK, x)[0], dim=1)
+        e = rel_err(got, ref)
+        print(f"{name} batch {B}, {STREAM_PUSHES} pushes of {STREAM_CHUNK}: {tuple(got.shape)} against "
+              f"offline {e:.3e} of max (limit {lim[name]:g})")
+        check(got.shape == ref.shape and e <= lim[name], f"{name} misses its offline counterpart")
+    del offline, mel
+    got = torch.cat(run_stream("StreamingChroma", STREAM_CHUNK, x)[0], dim=1)
+    ref = ap.chroma_stft(y=xp, sr=SR, center=False).transpose(1, 2)
+    e = abs_err(got, ref)
+    print(f"StreamingChroma batch {B}: against offline chroma_stft {e:.3e} (limit 1e-6)")
+    check(got.shape == ref.shape and e <= 1e-6, "StreamingChroma misses chroma_stft")
+
+    outs = run_stream("StreamingPitch", STREAM_CHUNK, x)[0]
+    f0, voiced = torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+    for label, enabled in (("K1 route", True), ("plain route", False)):
+        dispatch.KERNELS_ENABLED = enabled
+        try:
+            rf0, rv = pitch_detect_acf(xp, sr=SR, center=False)
+        finally:
+            dispatch.KERNELS_ENABLED = True
+        same = float(((voiced == rv) & ((f0 == rf0) | ~rv)).float().mean())
+        print(f"StreamingPitch batch {B}: voicing and f0 equal to offline pitch_detect_acf ({label}) "
+              f"on {same:.5f} of frames (limit 0.999)")
+        check(f0.shape == rf0.shape and same >= 0.999, f"StreamingPitch misses pitch_detect_acf ({label})")
+
+    S = ap.stft(x, center=False)
+    inv = St.StreamingISTFT(N_FFT, HOP, batch=B)
+    per = STREAM_CHUNK // HOP
+    parts = call("StreamingISTFT", lambda: [inv.push(S[:, :, i : i + per].transpose(1, 2))
+                                            for i in range(0, S.shape[-1], per)],
+                 f" {-(-S.shape[-1] // per)} pushes", -(-S.shape[-1] // per))
+    got = torch.cat(parts + [inv.flush()], dim=1)
+    ref = ap.istft(S, center=False)
+    w2 = ap.get_window("hann", N_FFT).double() ** 2
+    env = torch.nn.functional.fold(w2.expand(1, S.shape[-1], N_FFT).transpose(1, 2),
+                                   output_size=(1, ref.shape[-1]), kernel_size=(1, N_FFT),
+                                   stride=(1, HOP)).reshape(-1)
+    ok = env >= 1e-3
+    e = rel_err(got[:, ok], ref[:, ok])
+    print(f"StreamingISTFT batch {B}: pushes + flush {tuple(got.shape)} against offline istft "
+          f"{e:.3e} of max where the envelope is >= 1e-3 (limit 1e-5)")
+    check(got.shape == ref.shape and e <= 1e-5, "StreamingISTFT misses istft")
+    del S, parts, got, ref
+
+    xr = y[:, : STREAM_PUSHES * SR]
+    r = St.StreamingResample(320, 441, batch=B)
+    parts = call("StreamingResample", lambda: [r.push(xr[:, i : i + SR]) for i in range(0, xr.shape[1], SR)],
+                 f" {STREAM_PUSHES} pushes", STREAM_PUSHES)
+    got = torch.cat(parts + [r.flush()], dim=1)
+    ref = ap.resample_poly(xr, 320, 441)
+    d = (got.double() - ref.double()).abs() / (2e-6 + 1e-5 * ref.double().abs())
+    print(f"StreamingResample 22050 -> 16000 Hz batch {B}: {tuple(got.shape)} against resample_poly "
+          f"at {float(d.max()):.3e} of the bound 2e-6 + 1e-5 |ref| (limit 1)")
+    check(got.shape == ref.shape and float(d.max()) <= 1.0, "StreamingResample misses resample_poly")
+
+
+def peak_gib(fn) -> tuple[float, float]:
+    """(peak device memory above what was held before, held before), GiB,
+    over one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2**30, base / 2**30
+
+
+def effects_times(gen: torch.Generator) -> None:
+    """Phase 5's times of the effects slice at 64 x 30 s: CUDA-event medians
+    of the public paths (kernel route against plain route, in turns, where a
+    kernel runs), the peak memory of ``hpss`` and ``pyin``, pYIN's Viterbi
+    on the device and its backtrace on the host, and the per-push latency
+    of ``StreamingLogMel`` at batch 1 and 64."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.ops import pyin as Y
+    from mlx_audio_primitives_tpu_torch.ops.pitch import _yin_cmnd
+
+    y, _ = effects_clips(gen, FEATURES)
+    for label, fn, reps in (
+        ("harmonic 64 x 30 s (K2, hpss, K3)", lambda: ap.harmonic(y), 3),
+        ("percussive 64 x 30 s", lambda: ap.percussive(y), 3),
+        ("time_stretch 0.8 64 x 30 s (K2, vocoder, K3)", lambda: ap.time_stretch(y, 0.8), 3),
+        ("time_stretch 1.25 64 x 30 s", lambda: ap.time_stretch(y, 1.25), 3),
+        ("pitch_shift +2 64 x 30 s (K2, vocoder, K3, resample fft)", lambda: ap.pitch_shift(y, SR, 2), 3),
+        ("reassigned_spectrogram 64 x 30 s (K2 x 3)", lambda: ap.reassigned_spectrogram(y, sr=SR), 3),
+    ):
+        route_times(label, fn, reps)
+    S = ap.stft(y)
+    mag0 = S[0].abs()
+    chroma = ap.chroma_stft(y=y[0], sr=SR)
+    R = ap.recurrence_matrix(chroma, mode="affinity")
+    for label, fn, reps in (
+        ("hpss of the 64 x 30 s spectrum (no kernel: two median filters, the masks)",
+         lambda: ap.hpss(S), 3),
+        ("pyin 65-2093 Hz 64 x 30 s (no kernel)", lambda: ap.pyin(y, fmin=65.0, fmax=2093.0, sr=SR), 2),
+        ("lpc order 16 64 x 30 s (no kernel)", lambda: ap.lpc(y, 16), 5),
+        ("trim 64 x 30 s (rms on the device, the mask on the host)", lambda: ap.trim(y), 5),
+        ("split 64 x 30 s", lambda: ap.split(y), 5),
+        ("decompose |S| of one clip, 8 components, 200 updates", lambda: ap.decompose(mag0), 3),
+        ("recurrence_matrix of one clip's chromagram (affinity)",
+         lambda: ap.recurrence_matrix(chroma, mode="affinity"), 5),
+        ("nn_filter median of one clip's |S| over its recurrence",
+         lambda: ap.nn_filter(mag0, rec=R, aggregate="median"), 1),
+    ):
+        t = [cuda_ms(fn, 1, reps) for _ in range(2)]
+        print(f"{label}: {t[0]:.4f} / {t[1]:.4f}")
+    for label, fn in (("hpss", lambda: ap.hpss(S)),
+                      ("pyin", lambda: ap.pyin(y, fmin=65.0, fmax=2093.0, sr=SR)),
+                      ("nn_filter median of one clip's |S|", lambda: ap.nn_filter(mag0, rec=R,
+                                                                                 aggregate="median"))):
+        peak, base = peak_gib(fn)
+        print(f"{label} 64 x 30 s peak device memory: {peak:.3f} GiB above the {base:.3f} GiB held "
+              f"before (the spectrum {S.numel() * 8 / 2**30:.3f} GiB)")
+    del S
+
+    # pYIN's parts: the CMND and observations, the Viterbi on the device,
+    # the backtrace on the host
+    fl, wl, hop, fmin, fmax = 2048, 1024, 512, 65.0, 2093.0
+    min_p, max_p = max(int(np.floor(SR / fmax)), 1), min(int(np.ceil(SR / fmin)), fl - wl - 1)
+    n_bins = int(np.ceil(120.0 * np.log2(fmax / fmin))) + 1
+    yp = torch.nn.functional.pad(y, (fl // 2, fl // 2))
+    beta = torch.from_numpy(Y._beta_threshold_prior(100, 2.0, 18.0).astype(np.float32)).to(y.device)
+    width = 2 * max(int(round(35.92 * 120 / (SR / hop))), 1) + 1
+    ll, ls = (torch.from_numpy(a).to(y.device)
+              for a in Y._transition_tables(n_bins, min(width, 2 * n_bins - 1), 0.01))
+    band = _yin_cmnd(yp, frame_length=fl, win_length=wl, hop_length=hop, min_period=min_p,
+                     max_period=max_p)
+    kwo = dict(boltzmann_parameter=2.0, no_trough_prob=0.01, n_bins=n_bins, bins_per_semitone=10,
+               min_period=min_p, sr=SR, fmin=fmin)
+    obs, vp = Y._pyin_observations(band, beta, **kwo)
+    last, bps = Y._pyin_viterbi(obs, vp, ll, ls, n_bins=n_bins)
+    t_cmnd = cuda_ms(lambda: _yin_cmnd(yp, frame_length=fl, win_length=wl, hop_length=hop,
+                                       min_period=min_p, max_period=max_p), 1, 2)
+    t_obs = cuda_ms(lambda: Y._pyin_observations(band, beta, **kwo), 1, 2)
+    t_vit = cuda_ms(lambda: Y._pyin_viterbi(obs, vp, ll, ls, n_bins=n_bins), 1, 2)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Y._decode(last, bps, n_bins=n_bins, fmin=fmin, bins_per_semitone=10, fill_na=np.nan)
+        host.append(1e3 * (time.perf_counter() - t0))
+    print(f"pyin's parts at 64 x 30 s ({obs.shape[1]} frames, {2 * n_bins} states): CMND "
+          f"{t_cmnd:.4f} ms, observations {t_obs:.4f} ms, Viterbi on the device {t_vit:.4f} ms "
+          f"({obs.shape[1] - 1} steps), backtrace on the host (the backpointers' copy included) "
+          f"median {statistics.median(host):.3f} ms of 3")
+    del band, obs, bps
+
+    # per-push latency of the streaming log-mel (K1 once a push), kernel
+    # route against plain route, at batch 1 and 64
+    for batch in (1, FEATURES[0]):
+        s = ap.streaming.StreamingLogMel(SR, N_FFT, HOP, batch=batch)
+        chunk = y[:batch, :STREAM_CHUNK].contiguous()
+        s.push(chunk)
+        route_times(f"StreamingLogMel.push, batch {batch}, 1 s chunk ({STREAM_CHUNK // HOP} frames)",
+                    lambda s=s, chunk=chunk: s.push(chunk), 20)
+
+
+def profile_effects(gen: torch.Generator, card: str) -> None:
+    """Phase 6d: where ``harmonic``, ``time_stretch`` and ``pyin`` spend
+    their time at 64 x 30 s (:func:`profile_path`)."""
+    phase(f"6d. where the effects paths' time goes at 64 x 30 s (torch.profiler, ms per call) on "
+          f"{card}")
+    import mlx_audio_primitives_tpu_torch as ap
+
+    y, _ = effects_clips(gen, FEATURES)
+    print("harmonic:")
+    profile_path(lambda: ap.harmonic(y), 2, order=True)
+    print("time_stretch rate 0.8:")
+    profile_path(lambda: ap.time_stretch(y, 0.8), 2, order=True)
+    print("pyin 65-2093 Hz:")
+    profile_path(lambda: ap.pyin(y, fmin=65.0, fmax=2093.0, sr=SR), 1, order=False, plain=False)
+
+
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
     the memory rate, the FP32 operations over the FP32 peak and the TF32
@@ -2230,6 +2885,7 @@ def times(gen: torch.Generator, card: str) -> dict:
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
     slice_times(gen)
     rhythm_times(gen)
+    effects_times(gen)
     return out
 
 
@@ -2560,15 +3216,17 @@ def main() -> None:
     large_batch(gen)
     slice_launches = slice_paths(gen)
     rhythm_launches = rhythm_paths(gen)
+    effects_launches = effects_paths(gen)
     timing = times(gen, card)
     profile_features(gen, card)
     profile_griffinlim(gen, card)
     profile_rhythm(gen, card)
+    profile_effects(gen, card)
 
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
     launches = {name: log_mel[name] + features[name] + slice_launches[name] + rhythm_launches[name]
-                for name in log_mel}
+                + effects_launches[name] for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

@@ -21,8 +21,13 @@ conversions; and, as the JAX package does outside ``__all__``, ``yin``,
 inversion, ``magphase``, the rhythm-and-harmony names (onset strength and
 detection, tempo and the tempograms, beat tracking, the chroma family and
 tonnetz, the CQT/VQT, PCEN, mu-law and perceptual weighting), the test
-signals (``tone``, ``chirp``, ``clicks``) and the ``units`` and ``util``
-modules. ``magnitude_spectrogram`` is reached as
+signals (``tone``, ``chirp``, ``clicks``), the ``units`` and ``util``
+modules, and the effects, decomposition and streaming names (``hpss``,
+``harmonic``, ``percussive``, ``decompose``, ``phase_vocoder``,
+``time_stretch``, ``pitch_shift``, ``trim``, ``split``, ``remix``,
+``reassigned_spectrogram``, ``interp_harmonics``, ``salience``,
+``recurrence_matrix``, ``cross_similarity``, ``nn_filter``, ``lpc``,
+``pyin``, and the ``augment`` and ``streaming`` modules). ``magnitude_spectrogram`` is reached as
 ``ops.stft.magnitude_spectrogram`` and ``griffinlim_iter`` as
 ``ops.griffinlim.griffinlim_iter``, as in the JAX package. It imports
 neither JAX nor the JAX package.
@@ -38,6 +43,8 @@ except Exception:  # editable / in-tree use
     __version__ = "0.1.0"
 
 from ._config import set_default_device
+from .ops import augment  # noqa: F401  (spec_augment/time_mask/freq_mask/...)
+from .ops import streaming  # noqa: F401  (StreamingSTFT/ISTFT/LogMel/MFCC/Pitch/...)
 from .ops import units  # noqa: F401  (frames/time/notes/MIDI converters)
 from .ops import utilx as util  # noqa: F401  (normalize/peak_pick/localmax/...)
 from .ops.beat import beat_track  # noqa: F401
@@ -59,6 +66,15 @@ from .ops.convert import (  # noqa: F401
     power_to_db,
 )
 from .ops.cqt import cqt, cqt_frequencies, pseudo_cqt, vqt  # noqa: F401
+from .ops.decompose import decompose, harmonic, hpss, percussive  # noqa: F401
+from .ops.effects import (  # noqa: F401
+    phase_vocoder,
+    pitch_shift,
+    remix,
+    split,
+    time_stretch,
+    trim,
+)
 from .ops.features import (  # noqa: F401
     poly_features,
     spectral_bandwidth,
@@ -73,7 +89,9 @@ from .ops.features import (  # noqa: F401
 from .ops.filterbanks import bark_filterbank, bark_to_hz, hz_to_bark, linear_filterbank
 from .ops.framing import deemphasis, frame, preemphasis, rms
 from .ops.griffinlim import griffinlim
+from .ops.harmonics import interp_harmonics, salience  # noqa: F401
 from .ops.inverse import mel_to_audio, mel_to_stft, mfcc_to_audio, mfcc_to_mel  # noqa: F401
+from .ops.lpc import lpc  # noqa: F401
 from .ops.mel import hz_to_mel, mel_filterbank, mel_to_hz, melspectrogram
 from .ops.mfcc import dct, delta, mfcc
 from .ops.onset import onset_backtrack, onset_detect, onset_strength  # noqa: F401
@@ -87,8 +105,11 @@ from .ops.pitch import (  # noqa: F401
     pitch_tuning,
     yin,
 )
+from .ops.pyin import pyin  # noqa: F401
+from .ops.reassign import reassigned_spectrogram  # noqa: F401
 from .ops.resample import resample, resample_poly
 from .ops.rhythm import fourier_tempogram, tempo, tempo_frequencies, tempogram  # noqa: F401
+from .ops.segment import cross_similarity, nn_filter, recurrence_matrix  # noqa: F401
 from .ops.signals import chirp, clicks, tone  # noqa: F401
 from .ops.stft import check_nola, istft, magnitude, magphase, phase, stft  # noqa: F401
 from .ops.windows import get_window

@@ -4,8 +4,9 @@ The port's ``__version__`` reads the same distribution metadata as the JAX
 package's, with the same fallback, and stands first in ``__all__`` as it
 does there; ``__all__`` is the JAX package's with ``set_default_device``
 added, and importing the port imports no JAX; the rhythm-and-harmony
-names the JAX package imports outside ``__all__`` stand at the port's top
-level too. The launchers of K3, K4 and K5 cover any number of clips, so
+and the effects, decomposition and streaming names the JAX package
+imports outside ``__all__`` stand at the port's top level too, so every
+public top-level name of the JAX package has its counterpart. The launchers of K3, K4 and K5 cover any number of clips, so
 no wrapper caps the batch (``chip_smoke.py`` runs them at 65,537 clips on
 the card), and a kernel launch on a CPU tensor raises rather than falling
 back.
@@ -88,3 +89,37 @@ def test_slice_names_at_the_top_level(name):
     else:
         assert callable(got) and got.__name__ == ref.__name__
         assert got.__module__.startswith("mlx_audio_primitives_tpu_torch.ops.")
+
+
+#: the names the JAX package's ``__init__`` imports outside ``__all__`` that
+#: the effects, decomposition and streaming slice ports
+EFFECTS_NAMES = [
+    "hpss", "harmonic", "percussive", "decompose", "phase_vocoder", "time_stretch", "pitch_shift",
+    "trim", "split", "remix", "reassigned_spectrogram", "interp_harmonics", "salience",
+    "recurrence_matrix", "cross_similarity", "nn_filter", "lpc", "pyin", "augment", "streaming",
+]
+
+
+@pytest.mark.parametrize("name", EFFECTS_NAMES)
+def test_effects_names_at_the_top_level(name):
+    got, ref = getattr(tap, name), getattr(jap, name)
+    assert name not in tap.__all__ and name not in jap.__all__
+    if name in ("augment", "streaming"):
+        assert got.__name__.rsplit(".", 1)[1] == ref.__name__.rsplit(".", 1)[1] == name
+        # the public functions and classes the JAX module defines
+        own = [n for n, v in vars(ref).items() if not n.startswith("_") and callable(v)
+               and getattr(v, "__module__", None) == ref.__name__]
+        assert own and all(callable(getattr(got, n)) for n in own)
+    else:
+        assert callable(got) and got.__name__ == ref.__name__
+        assert got.__module__.startswith("mlx_audio_primitives_tpu_torch.ops.")
+
+
+def test_every_jax_top_level_name_is_in_the_port():
+    # a subpackage (``ops``, ``parallel``, ...) becomes an attribute of the
+    # package once any code imports it, so which ones stand here depends on
+    # what ran before; the names the package's ``__init__`` binds do not
+    public = [n for n, v in vars(jap).items() if not n.startswith("_")
+              and getattr(v, "__name__", None) != f"{jap.__name__}.{n}"]
+    missing = [n for n in public if not hasattr(tap, n)]
+    assert len(public) > 80 and missing == []
