@@ -20,7 +20,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    gate), ptxas's registers and spill bytes (a spill fails the run; for K3
    also a stack frame), its threads, frames per tile, shared memory per
    block and resident warps per SM; for each K5 instance (k slots), its
-   registers, stack frame and spill bytes (either fails the run);
+   registers, stack frame and spill bytes (either fails the run); then the
+   host table library and WAV codec from ``csrc/*.cpp`` with one g++ call
+   (timed; the run fails unless it loads: a silent NumPy fallback would
+   leave phase 4g's native path unexercised);
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K3 also through its natural-spectrum entries
@@ -42,7 +45,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    K2 with the reassignment windows ``dh`` and ``th`` at 64 x 30 s, K3 on a
    phase-vocoded spectrum at rate 0.8 (1,615 frames, DC and Nyquist bins
    not real), K1 and K2 without a centre pad on one streaming push of 43
-   frames at batch 64 and at batch 1);
+   frames at batch 64 and at batch 1; K1 on one pipeline batch of 16 x
+   30 s and K1, K2 and K3 on warmup's 1 s clip);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
@@ -92,6 +96,20 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       and NMF on one clip (objective monotone), and every ``Streaming*``
       class at batch 64 in 30 pushes of 1 s against its offline op (K2 or
       K1 once a push);
+   g. the utilities path: 64 stereo WAV files of 30 s at 44.1 kHz written
+      with ``write_wav`` (16-bit PCM, one in eight 24-bit, one in eight
+      float32) and read back with the native and the NumPy codec (bit-equal
+      to each other and to the samples written); ``load`` of each at
+      22,050 Hz (mono, kaiser_best on the card, no kernel) against scipy's
+      ``resample_poly`` in float64 with the same FIR; ``batch_iterator`` ->
+      ``prefetch_to_device`` -> ``power_to_db(melspectrogram)`` in batches
+      of 16 (K1 once a batch), bit-equal to the same batches copied
+      synchronously and against the float64 mel/dB oracle; ``warmup`` of
+      the six ops at (1 s, 30 s) x (1, 64) (K1 24, K2 12, K3 6), twice;
+      ``profile_section`` against ``cuda_ms``, the tracked transfers'
+      bytes, a ``start_device_trace`` trace that names K1, and
+      ``profile_memory`` of a 64 x 30 s mel beside
+      ``estimate_operation_memory``;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -121,12 +139,17 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    ``hpss``, ``pyin``, ``lpc``, ``trim``, ``split``, NMF, the recurrence
    and ``nn_filter`` on one clip, the peak memory of ``hpss``, ``pyin`` and
    ``nn_filter``, pYIN's CMND, observations, Viterbi and host backtrace,
-   and ``StreamingLogMel.push``'s latency at batch 1 and 64;
+   and ``StreamingLogMel.push``'s latency at batch 1 and 64; the
+   utilities: one 30 s stereo file's decode and encode (native against
+   NumPy), ``load`` per file, the prefetched and the synchronous
+   pipelines in turns (wall and CUDA events), and ``warmup``'s first and
+   second calls in this process and in a fresh one;
 6. ``torch.profiler`` over the spectral-feature path, over
    ``griffinlim`` and over the rhythm-and-harmony path (onset, tempo, both
    chromagrams, PCEN of the mel) at 64 x 30 s (kernels and plain), over
-   ``pcen`` alone, and over ``harmonic``, ``time_stretch`` and ``pyin`` at
-   64 x 30 s: device time by kernel, busy time and idle share.
+   ``pcen`` alone, over ``harmonic``, ``time_stretch`` and ``pyin`` at
+   64 x 30 s, and over the prefetched and the synchronous pipelines of
+   phase 4g: device time by kernel, busy time and idle share.
 
 The last two lines of standard output are the card's name and power limit
 (as ``nvidia-smi`` prints them) and ``{"ok": true, "device": {...}}``; the
@@ -135,13 +158,17 @@ line before them is a JSON object with one entry per kernel.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -204,6 +231,19 @@ EFFECTS_LAUNCHES = {"harmonic": _K2_K3, "percussive": _K2_K3, "time_stretch": _K
 #: the streams of phase 4f: 30 pushes of 1 s (43 hops) at batch 64
 STREAM_CHUNK = 43 * HOP
 STREAM_PUSHES = 30
+#: phase 4g's loader: 64 stereo WAV files of 30 s at 44.1 kHz, loaded at
+#: 22,050 Hz and fed to log-mel in batches of 16
+LOADER_FILES = 64
+LOADER_SR = 44100
+LOADER_SECONDS = 30
+PIPE_BATCH = 16
+#: warmup's call in phase 4g: (1 s, 30 s) x batch (1, 64), all six ops
+WARMUP_SHAPES = ((SR, LONG), (1, 64))
+WARMUP_OPS = ("stft", "istft", "melspectrogram", "mfcc", "chroma_stft", "pcen")
+#: warmup's launches per layout over the six ops: K2 for stft and for
+#: istft's spectrum, K3 for istft, K1 for melspectrogram, mfcc, chroma_stft
+#: and pcen's mel
+WARMUP_LAUNCHES = {"mel_fused_kernel": 4, "stft_kernel": 2, "istft_kernel": 1}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -293,21 +333,28 @@ def kernel_device_ms(fn, kernel: str | None, calls: int = 20) -> float:
     """Device time (ms) per call of ``fn()`` over ``calls`` calls, from
     ``torch.profiler``: the mean of the launches of ``kernel`` it records
     (each call launches it once; the profiler now and then misses a few of
-    them, which is reported), or of every device operation the call runs
-    when ``kernel`` is None (a library call). The host path, which the
-    CUDA-event time of one small call includes, is left out."""
+    them, which is reported, and once saw none of a window's 20, so a
+    window that records none is profiled once more, and reported), or of
+    every device operation the call runs when ``kernel`` is None (a library
+    call). The host path, which the CUDA-event time of one small call
+    includes, is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and (kernel is None or re.search(rf"::{kernel}[<(]", e.name))]
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (kernel is None or re.search(rf"::{kernel}[<(]", e.name))]
+        if kernel is None or us:
+            break
+        print(f"(the profiler recorded none of the {calls} launches of {kernel}"
+              f"{'; profiling the window once more' if attempt == 0 else ''})")
     if kernel is None:
         return sum(us) / 1e3 / calls
     check(0 < len(us) <= calls, f"the profiler saw {len(us)} launches of {kernel} in {calls} calls")
@@ -355,6 +402,15 @@ def build() -> None:
     fft_occupancy(log)
     k5_instances(log)
     k5_sass()
+    # the host table library and WAV codec: one g++ call, or a silent
+    # NumPy fallback, which would leave phase 4g's native path unexercised
+    from mlx_audio_primitives_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    ok = _native.HAS_NATIVE and _native.has_native_wav()
+    print(f"native table library and WAV codec: {time.perf_counter() - t0:.2f} s "
+          f"(g++ {_native.build_info.get('seconds', 0.0):.2f} s) at {_native.build_info.get('path')}")
+    check(ok, f"the native library did not load: {_native.build_info.get('error')}")
 
 
 def k5_instances(log: str) -> None:
@@ -652,6 +708,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     slice_kernels_vs_plain(gen, run, errs)
     rhythm_kernels_vs_plain(gen, run, errs)
     effects_kernels_vs_plain(gen, run, errs)
+    utils_kernels_vs_plain(gen, run, errs)
 
     # K1-K3 across the rest of the radix gate: other sizes, pad modes,
     # center=False, a clip shorter than the reflect pad, and column counts
@@ -2143,7 +2200,7 @@ def pyin_oracle(y: torch.Tensor, fmin: float, fmax: float):
     threshold integration, the observation, the Viterbi over the float32
     transition tables widened to float64, the backtrace."""
     from mlx_audio_primitives_tpu_torch.ops import pitch as P
-    from mlx_audio_primitives_tpu_torch.ops import pyin as Y
+    Y = importlib.import_module("mlx_audio_primitives_tpu_torch.ops.pyin")
 
     fl, wl, hop = 2048, 1024, 512
     min_p, max_p = max(int(np.floor(SR / fmax)), 1), min(int(np.ceil(SR / fmin)), fl - wl - 1)
@@ -2459,7 +2516,7 @@ def effects_times(gen: torch.Generator) -> None:
     on the device and its backtrace on the host, and the per-push latency
     of ``StreamingLogMel`` at batch 1 and 64."""
     import mlx_audio_primitives_tpu_torch as ap
-    from mlx_audio_primitives_tpu_torch.ops import pyin as Y
+    Y = importlib.import_module("mlx_audio_primitives_tpu_torch.ops.pyin")
     from mlx_audio_primitives_tpu_torch.ops.pitch import _yin_cmnd
 
     y, _ = effects_clips(gen, FEATURES)
@@ -2556,6 +2613,383 @@ def profile_effects(gen: torch.Generator, card: str) -> None:
     profile_path(lambda: ap.time_stretch(y, 0.8), 2, order=True)
     print("pyin 65-2093 Hz:")
     profile_path(lambda: ap.pyin(y, fmin=65.0, fmax=2093.0, sr=SR), 1, order=False, plain=False)
+
+
+def loader_clips(gen: torch.Generator, n: int) -> np.ndarray:
+    """Phase 4g's files: ``n`` stereo clips of 30 s at 44.1 kHz, float32
+    ``(n, 2, L)`` on the host, made on the generator's device: a harmonic
+    tone per clip (f0 drawn in 110-440 Hz, partials 1-3 at 0.2/k, each
+    channel its own phases and gain), white noise at 1% and clicks of 0.3
+    every ~1.5 s: the GTZAN-style tones, noise and clicks of the other
+    phases, within [-1, 1]."""
+    L = LOADER_SECONDS * LOADER_SR
+    dev = gen.device
+    f64 = dict(device=dev, dtype=torch.float64)
+    t = torch.arange(L, **f64) / LOADER_SR
+    f0 = 110.0 * 2.0 ** (2.0 * torch.rand((n, 1, 1), generator=gen, **f64))
+    gain = 0.7 + 0.3 * torch.rand((n, 2, 1), generator=gen, **f64)
+    y = torch.zeros((n, 2, L), **f64)
+    for k in (1, 2, 3):
+        ph = 2 * np.pi * torch.rand((n, 2, 1), generator=gen, **f64)
+        y += 0.2 / k * torch.sin(2 * np.pi * k * f0 * t + ph)
+    y = gain * y + 0.01 * torch.randn((n, 2, L), generator=gen, **f64)
+    m = (LOADER_SECONDS - 1) * 2 // 3  # clicks a clip, the last before L - 0.8 s
+    clicks = (LOADER_SR // 2 + (1.5 * LOADER_SR * torch.arange(m, device=dev)).long()
+              + (0.2 * LOADER_SR * torch.rand((n, m), generator=gen, device=dev)).long())
+    y.scatter_add_(2, clicks[:, None, :].expand(n, 2, m), torch.full((n, 2, m), 0.3, **f64))
+    return y.clamp(-1.0, 1.0).float().cpu().numpy()
+
+
+def decoded(x: np.ndarray, bits: int) -> np.ndarray:
+    """What a WAV file of float32 ``x`` at ``bits`` decodes to: PCM rounds
+    ``x * (2^(bits-1) - 1)`` to an integer and reads it back over
+    ``2^(bits-1)``; float32 keeps ``x``."""
+    if bits == 32:
+        return x
+    full = float(2 ** (bits - 1))
+    q = np.round(x.astype(np.float64) * (full - 1.0))
+    return (q.astype(np.int32).astype(np.float32) / np.float32(full)).astype(np.float32)
+
+
+def file_bits(i: int) -> int:
+    """The bit depth of phase 4g's file ``i``: 16-bit PCM for most, 24-bit
+    PCM for one in eight, IEEE float32 for another."""
+    return {6: 24, 7: 32}.get(i % 8, 16)
+
+
+def log_mel_batches(ap, batches) -> list[torch.Tensor]:
+    """The pipeline's consumer: ``power_to_db(melspectrogram)`` of each
+    batch's clips (K1 once a batch)."""
+    return [ap.power_to_db(ap.melspectrogram(b["y"], sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                             n_mels=N_MELS)) for b in batches]
+
+
+def prefetched_log_mel(ap, clips: np.ndarray) -> list[torch.Tensor]:
+    """The utilities path: ``batch_iterator`` -> ``prefetch_to_device`` ->
+    log-mel."""
+    from mlx_audio_primitives_tpu_torch.utils import batch_iterator, prefetch_to_device
+
+    return log_mel_batches(ap, prefetch_to_device(
+        batch_iterator({"y": clips}, PIPE_BATCH, seed=0), size=2))
+
+
+def synchronous_log_mel(ap, clips: np.ndarray) -> list[torch.Tensor]:
+    """The same batches, each copied to the default device (the card)
+    synchronously (pageable memory, the current stream) before its
+    log-mel."""
+    from mlx_audio_primitives_tpu_torch.utils import batch_iterator
+    from mlx_audio_primitives_tpu_torch.utils.dispatch import default_device
+
+    dev = default_device()
+    return log_mel_batches(ap, ({"y": torch.from_numpy(b["y"]).to(dev)}
+                                for b in batch_iterator({"y": clips}, PIPE_BATCH, seed=0)))
+
+
+def loop_ms(fn) -> tuple[float, float]:
+    """(wall ms, CUDA-event ms) of one ``fn()``, the device synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+
+def utils_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's checks at the utilities path's shapes: K1 with the 128-mel
+    weight on one pipeline batch (16 x 30 s), and K1, K2 and K3 on
+    warmup's one 1 s clip; limits as elsewhere (1e-5)."""
+    from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
+
+    dev = gen.device
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    for shape in ((PIPE_BATCH, LONG), (1, SR)):
+        y = torch.randn(shape, generator=gen, device=dev)
+        got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, **kw)
+        ref = k1.melspectrogram_plain(y, win, fb_t, **kw)
+        e = rel_err(got, ref)
+        print(f"K1 mel_fused {shape} (utilities path): rel err {e:.3e} (limit 1e-5)")
+        check(e <= 1e-5, "K1 disagrees with its plain twin")
+        errs[k1.KERNEL.name] = max(errs[k1.KERNEL.name], abs_err(got, ref))
+    # y is warmup's 1 s clip
+    S = run(k2.KERNEL, k2.stft_fused, y, win, **kw)
+    ref = k2.stft_plain(y, win, **kw)
+    e2 = rel_err(S, ref)
+    errs[k2.KERNEL.name] = max(errs[k2.KERNEL.name], abs_err(S, ref))
+    S = S.transpose(1, 2)
+    T = SR + N_FFT
+    env = _istft_envelope_table(("hann", None), N_FFT, N_FFT, S.shape[1], HOP, T, device=dev)
+    kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
+    got = run(k3.KERNEL, k3.istft_fused, S, win, env, **kw3)
+    keep = slice(N_FFT // 2, N_FFT // 2 + SR)
+    e3 = abs_err(got[:, keep], k3.istft_plain(S, win, env, **kw3)[:, keep])
+    errs[k3.KERNEL.name] = max(errs[k3.KERNEL.name], e3)
+    print(f"K2 stft (1, {SR}) (warmup's clip): rel err {e2:.3e}; K3 istft of it: abs err {e3:.3e} "
+          f"on the kept samples (limits 1e-5)")
+    check(e2 <= 1e-5 and e3 <= 1e-5, "K2 / K3 disagree with their plain twins at warmup's clip")
+
+
+def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
+    """Phase 4g: the utilities path at full width. 64 stereo WAV files of
+    30 s at 44.1 kHz written with ``write_wav`` (16-bit PCM, one in eight
+    24-bit, one in eight float32), read back with the native codec and the
+    NumPy one (bit-equal to each other and to the samples written);
+    ``load`` of each at 22,050 Hz (mono, kaiser_best on the card) against
+    scipy in float64 with the same FIR; ``batch_iterator`` ->
+    ``prefetch_to_device`` -> log-mel (K1 once a batch), bit-equal to the
+    same batches copied synchronously and against the float64 mel/dB
+    oracle; ``warmup`` of the six ops at (1 s, 30 s) x (1, 64); the
+    profilers. Returns the launches of the counted calls and what phases 5
+    and 6e reuse."""
+    phase(f"4g. public utilities path: WAV I/O, load, batching and prefetch, log-mel, warmup, "
+          f"profilers; {LOADER_FILES} files of 30 s")
+    from scipy.signal import resample_poly
+
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch import _native
+    from mlx_audio_primitives_tpu_torch import utils as U
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+
+    total = {k.name: 0 for k in _build.KERNELS}
+    check(_native.HAS_NATIVE and _native.has_native_wav(), "the native codec is not loaded")
+    x = loader_clips(gen, LOADER_FILES)
+    paths = [os.path.join(wav_dir, f"clip{i:02d}.wav") for i in range(LOADER_FILES)]
+    t0 = time.perf_counter()
+    for i, p in enumerate(paths):
+        U.write_wav(p, x[i], LOADER_SR, bits=file_bits(i))
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(p) for p in paths)
+    print(f"write_wav (native): {LOADER_FILES} files, {size / 1e6:.1f} MB in {write_s:.2f} s")
+
+    # both codecs bit-equal to each other and to what was written
+    bad = []
+    for i, p in enumerate(paths):
+        yn, srn = U.read_wav(p, use_native=True)
+        yf, srf = U.read_wav(p, use_native=False)
+        want = decoded(x[i], file_bits(i))
+        info = U.wav_info(p)
+        ok = (srn == srf == LOADER_SR and yn.shape == yf.shape == want.shape
+              and np.array_equal(yn.view(np.uint32), yf.view(np.uint32))
+              and np.array_equal(yn.view(np.uint32), want.view(np.uint32))
+              and info["bits"] == file_bits(i) and info["frames"] == want.shape[1])
+        if not ok:
+            bad.append(i)
+    print(f"read_wav native and NumPy codecs: bit-equal to each other and to the samples written "
+          f"on {LOADER_FILES - len(bad)} of {LOADER_FILES} files (16/24/32-bit; limit all)")
+    check(not bad, f"read_wav disagrees on files {bad}")
+
+    # load: mono mixdown and kaiser_best to 22,050 Hz on the card; no kernel
+    loaded = counted_call(f"load x {LOADER_FILES}", {},
+                          lambda: [U.load(p, sr=SR) for p in paths], total)
+    check(all(sr == SR and y.dtype == np.float32 and y.shape == (LONG,) and np.isfinite(y).all()
+              for y, sr in loaded), "load returned a wrong shape, rate or values")
+    g = int(np.gcd(LOADER_SR, SR))
+    up, down = SR // g, LOADER_SR // g
+    e_load = 0.0
+    for i in range(N_ORACLE):
+        mono = decoded(x[i], file_bits(i)).astype(np.float64).mean(axis=0)
+        ref = resample_poly(mono, up, down, window=_fir(up, down, "kaiser_best"))[:LONG]
+        e_load = max(e_load, float(np.abs(loaded[i][0].astype(np.float64) - ref).max()))
+    print(f"load(sr={SR}) of each file: ({LONG},) float32; the first {N_ORACLE} against scipy's "
+          f"resample_poly of the float64 mono mix (same FIR) abs err {e_load:.3e} (limit 2e-5)")
+    check(e_load <= 2e-5, "load misses the resampling contract")
+    clips = np.stack([y for y, _ in loaded])
+    del loaded
+
+    # the pipeline: prefetched against synchronous, bit for bit
+    n_batches = LOADER_FILES // PIPE_BATCH
+    t0 = time.perf_counter()
+    pre = counted_call(f"batch_iterator -> prefetch_to_device -> log-mel, {n_batches} x "
+                       f"({PIPE_BATCH}, {LONG})", {"mel_fused_kernel": n_batches},
+                       lambda: prefetched_log_mel(ap, clips), total)
+    wall_p = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    syn = counted_call("the same batches copied synchronously", {"mel_fused_kernel": n_batches},
+                       lambda: synchronous_log_mel(ap, clips), {k: 0 for k in total})
+    wall_s = 1e3 * (time.perf_counter() - t0)
+    e_pipe = max(exact_err(a, b) for a, b in zip(pre, syn))
+    print(f"prefetched log-mel {tuple(pre[0].shape)} x {len(pre)}: against the synchronous copies "
+          f"max |diff| {e_pipe:.3e} (limit 0, bit-equal); first wall times (ms): prefetched "
+          f"{wall_p:.1f}, synchronous {wall_s:.1f}")
+    check(len(pre) == len(syn) == n_batches and e_pipe == 0.0,
+          "the prefetched pipeline disagrees with the synchronous one")
+    from mlx_audio_primitives_tpu_torch.utils import batch_iterator
+
+    # the first batch: its mel's first clips against the float64 oracle,
+    # its dB against float64 dB of its mel (top_db holds over the batch)
+    y0 = torch.from_numpy(next(iter(batch_iterator({"y": clips}, PIPE_BATCH, seed=0)))["y"]).cuda()
+    mel0 = ap.melspectrogram(y0, sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS)
+    e_mel = rel_err(mel0[:N_ORACLE], mel_oracle(y0[:N_ORACLE]))
+    db_ref = 10.0 * torch.log10(torch.clamp(mel0.double().cpu(), min=1e-10))
+    e_db = abs_err(pre[0], torch.maximum(db_ref, db_ref.max() - 80.0))
+    print(f"the first batch: its first {N_ORACLE} clips' mel rel err vs f64 oracle {e_mel:.3e} "
+          f"(limit 1e-4), its dB abs err vs f64 {e_db:.3e} dB (limit 2e-5)")
+    check(e_mel <= 1e-4 and e_db <= 2e-5, "the pipeline's log-mel misses its contract")
+    del pre, syn
+
+    # warmup of the six ops at (1 s, 30 s) x (1, 64): K1 4, K2 2 and K3 1 a
+    # layout, two layouts at batch 1
+    lengths, batch_sizes = WARMUP_SHAPES
+    layouts = len(lengths) * sum(2 if b == 1 else 1 for b in batch_sizes)
+    expect = {k: n * layouts for k, n in WARMUP_LAUNCHES.items()}
+    first_call = counted_call(f"warmup {WARMUP_SHAPES}", expect,
+                              lambda: U.warmup(*WARMUP_SHAPES, ops=WARMUP_OPS), total)
+    second_call = counted_call("warmup, second call", expect,
+                               lambda: U.warmup(*WARMUP_SHAPES, ops=WARMUP_OPS),
+                               {k: 0 for k in total})
+    check(list(first_call) == list(second_call) == [
+        f"{op} b={b} len={n}" for b in batch_sizes for n in lengths for op in WARMUP_OPS],
+        "warmup's keys")
+    print("warmup seconds, first / second call: " + "; ".join(
+        f"{k} {first_call[k]:.4f} / {second_call[k]:.4f}" for k in first_call))
+    print(f"warmup total: first call {sum(first_call.values()):.3f} s, second "
+          f"{sum(second_call.values()):.3f} s; launches as expected: {expect}")
+
+    # the profilers
+    y_head = torch.randn(HEADLINE, generator=gen, device=gen.device)
+    y_scale = torch.randn(SCALE, generator=gen, device=gen.device)
+    for label, y in (("headline", y_head), ("scale", y_scale)):
+        fn = lambda y=y: ap.power_to_db(ap.melspectrogram(y, sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                                          n_mels=N_MELS))
+        ev_a = cuda_ms(fn)
+        U.clear_profiling()
+        U.enable_profiling()
+        try:
+            for _ in range(20):
+                with U.profile_section(label):
+                    fn()
+        finally:
+            U.disable_profiling()
+        ev_b = cuda_ms(fn)
+        sec = 1e3 * statistics.median(U.get_profiling_data()["timings"][label])
+        ev = (ev_a + ev_b) / 2
+        print(f"profile_section around the {label} log-mel {tuple(y.shape)}: median {sec:.4f} ms "
+              f"against cuda_ms {ev_a:.4f} / {ev_b:.4f} (limit 0.05 ms + 25%)")
+        check(abs(sec - ev) <= 0.05 + 0.25 * ev, f"profile_section disagrees with cuda_ms ({label})")
+    U.clear_profiling()
+    U.enable_profiling()
+    try:
+        host = clips[:PIPE_BATCH]
+        on_card = U.tracked_to_device(host, "batch")
+        back = U.tracked_to_host(ap.melspectrogram(on_card, sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                                   n_mels=N_MELS), "mel")
+    finally:
+        U.disable_profiling()
+    transfers = U.get_profiling_data()["transfers"]
+    want = [{"direction": "h2d", "context": "batch", "bytes": host.nbytes},
+            {"direction": "d2h", "context": "mel", "bytes": back.nbytes}]
+    print(f"tracked_to_device / tracked_to_host logged {transfers} (expected {want})")
+    check(on_card.device.type == "cuda" and transfers == want
+          and back.nbytes == PIPE_BATCH * N_MELS * (1 + LONG // HOP) * 4, "tracked transfers")
+    trace_dir = os.path.join(wav_dir, "trace")
+    batch = next(iter(U.prefetch_to_device(batch_iterator({"y": clips}, PIPE_BATCH, seed=0))))
+    U.start_device_trace(trace_dir)
+    log_mel_batches(ap, [batch])
+    U.stop_device_trace()
+    traces = [os.path.join(r, f) for r, _, fs in os.walk(trace_dir) for f in fs
+              if f.endswith(".pt.trace.json")]
+    named = sum("mel_fused_kernel" in Path(p).read_text() for p in traces)
+    print(f"start/stop_device_trace around one pipeline batch: {len(traces)} trace file(s), "
+          f"{named} naming K1's kernel symbol (limit 1)")
+    check(len(traces) == 1 and named == 1, "the device trace does not name K1")
+    y64 = torch.from_numpy(clips).cuda()
+    out, prof = U.profile_memory(lambda: ap.melspectrogram(y64, sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                                           n_mels=N_MELS))
+    est = U.estimate_operation_memory("mel", LONG, LOADER_FILES)
+    want_bytes = LOADER_FILES * N_MELS * (1 + LONG // HOP) * 4
+    print(f"profile_memory(melspectrogram {tuple(y64.shape)}): output_bytes {prof.output_bytes} "
+          f"(expected {want_bytes}), peak {prof.peak_mb:.1f} MB of which "
+          f"{(prof.peak - prof.active_before) / 1e6:.1f} MB above the {prof.active_before / 1e6:.1f} "
+          f"held before, efficiency {prof.efficiency:.3f}; estimate_operation_memory('mel', {LONG}, "
+          f"{LOADER_FILES}): {', '.join(f'{k} {v:.1f}' for k, v in est.items())}")
+    check(prof.output_bytes == want_bytes == out.numel() * 4, "profile_memory's output bytes")
+    del out, y64
+    return total, {"paths": paths, "clips": clips, "warmup": (first_call, second_call)}
+
+
+def utils_times(state: dict) -> None:
+    """Phase 5's times of the utilities path: decoding one 30 s stereo file
+    (native against NumPy, host ms), ``load`` per file (host ms, and its
+    resampling's CUDA-event ms), the prefetched and the synchronous
+    pipelines in turns (wall and CUDA-event ms), warmup's calls in this
+    process and, in a fresh process, its first and second calls."""
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch import utils as U
+
+    p = state["paths"][0]
+
+    def host_ms(fn, n=5):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    nat = host_ms(lambda: U.read_wav(p, use_native=True))
+    npy = host_ms(lambda: U.read_wav(p, use_native=False))
+    y, _ = U.read_wav(p)
+    w_nat = host_ms(lambda: U.write_wav(p + ".n.wav", y, LOADER_SR, use_native=True))
+    w_npy = host_ms(lambda: U.write_wav(p + ".f.wav", y, LOADER_SR, use_native=False))
+    print(f"read_wav of one 30 s stereo 16-bit file ({os.path.getsize(p) / 1e6:.2f} MB), host ms "
+          f"(median of 5): native {nat:.2f}, NumPy {npy:.2f}; write_wav native {w_nat:.2f}, "
+          f"NumPy {w_npy:.2f}")
+    per_file = [host_ms(lambda q=q: U.load(q, sr=SR), 1) for q in state["paths"][:8]]
+    mono = torch.from_numpy(U.to_mono(y)).cuda()
+    rs = cuda_ms(lambda: ap.resample(mono, LOADER_SR, SR, res_type="kaiser_best"))
+    print(f"load(sr={SR}) per file, host ms over 8 files: median {statistics.median(per_file):.2f} "
+          f"(min {min(per_file):.2f}, max {max(per_file):.2f}); its resampling on the card "
+          f"{rs:.4f} ms (CUDA events)")
+    clips = state["clips"]
+    runs = {"synchronous": [], "prefetched": []}
+    for label in ("synchronous", "prefetched", "prefetched", "synchronous"):
+        fn = synchronous_log_mel if label == "synchronous" else prefetched_log_mel
+        runs[label].append(loop_ms(lambda fn=fn: fn(ap, clips)))
+    for label, rr in runs.items():
+        print(f"{label} pipeline, {LOADER_FILES // PIPE_BATCH} batches of ({PIPE_BATCH}, {LONG}): "
+              f"wall {rr[0][0]:.2f} / {rr[1][0]:.2f} ms, CUDA events {rr[0][1]:.2f} / "
+              f"{rr[1][1]:.2f} ms")
+    first, second = state["warmup"]
+    print(f"warmup {WARMUP_SHAPES} in this process (kernels built, tables cached): first call "
+          f"{sum(first.values()):.3f} s, second {sum(second.values()):.3f} s")
+    code = (
+        "import json, time; t0 = time.perf_counter(); "
+        "import mlx_audio_primitives_tpu_torch.utils as U; t1 = time.perf_counter(); "
+        f"a = U.warmup(*{WARMUP_SHAPES!r}, ops={WARMUP_OPS!r}); "
+        f"b = U.warmup(*{WARMUP_SHAPES!r}, ops={WARMUP_OPS!r}); "
+        "print(json.dumps([t1 - t0, sum(a.values()), sum(b.values()), a]))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, f"warmup in a fresh process failed: {out.stderr[-2000:]}")
+    imp, a, b, keys = json.loads(out.stdout.strip().splitlines()[-1])
+    slowest = sorted(keys.items(), key=lambda kv: -kv[1])[:3]
+    print(f"warmup {WARMUP_SHAPES} in a fresh process (the kernel library on disk): import "
+          f"{imp:.3f} s, first call {a:.3f} s (slowest: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in slowest)}), second call {b:.3f} s")
+
+
+def profile_utils(state: dict, card: str) -> None:
+    """Phase 6e: the device's busy time and idle share over the prefetched
+    and the synchronous pipelines (:func:`profile_path`)."""
+    phase(f"6e. where the utilities pipeline's time goes (torch.profiler, ms per loop of "
+          f"{LOADER_FILES // PIPE_BATCH} batches) on {card}")
+    import mlx_audio_primitives_tpu_torch as ap
+
+    clips = state["clips"]
+    print("prefetched (batch_iterator -> prefetch_to_device -> log-mel):")
+    profile_path(lambda: prefetched_log_mel(ap, clips), 1, order=False, plain=False)
+    print("synchronous copies:")
+    profile_path(lambda: synchronous_log_mel(ap, clips), 1, order=False, plain=False)
 
 
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
@@ -3152,8 +3586,6 @@ def ablations(kernel: str, source: str, table: dict, split: str, prefix: str) ->
     (``split`` of each copy, the line that starts with ``prefix``) for the
     package as it is and for each entry of ``table``, copies under
     ``build/<kernel>_ablations/``, each in its own process, in two rounds."""
-    import shutil
-
     print(f"{kernel} ablations on", gpu_line(), flush=True)
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "mlx_audio_primitives_tpu_torch")
@@ -3217,16 +3649,23 @@ def main() -> None:
     slice_launches = slice_paths(gen)
     rhythm_launches = rhythm_paths(gen)
     effects_launches = effects_paths(gen)
-    timing = times(gen, card)
-    profile_features(gen, card)
-    profile_griffinlim(gen, card)
-    profile_rhythm(gen, card)
-    profile_effects(gen, card)
+    wav_dir = tempfile.mkdtemp(prefix="chip_smoke_wav_")
+    try:
+        utils_launches, utils_state = utils_paths(gen, wav_dir)
+        timing = times(gen, card)
+        utils_times(utils_state)
+        profile_features(gen, card)
+        profile_griffinlim(gen, card)
+        profile_rhythm(gen, card)
+        profile_effects(gen, card)
+        profile_utils(utils_state, card)
+    finally:
+        shutil.rmtree(wav_dir, ignore_errors=True)
 
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
     launches = {name: log_mel[name] + features[name] + slice_launches[name] + rhythm_launches[name]
-                + effects_launches[name] for name in log_mel}
+                + effects_launches[name] + utils_launches[name] for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

@@ -27,10 +27,17 @@ modules, and the effects, decomposition and streaming names (``hpss``,
 ``time_stretch``, ``pitch_shift``, ``trim``, ``split``, ``remix``,
 ``reassigned_spectrogram``, ``interp_harmonics``, ``salience``,
 ``recurrence_matrix``, ``cross_similarity``, ``nn_filter``, ``lpc``,
-``pyin``, and the ``augment`` and ``streaming`` modules). ``magnitude_spectrogram`` is reached as
-``ops.stft.magnitude_spectrogram`` and ``griffinlim_iter`` as
-``ops.griffinlim.griffinlim_iter``, as in the JAX package. It imports
-neither JAX nor the JAX package.
+``pyin``, and the ``augment`` and ``streaming`` modules). As in the JAX
+package, ``magnitude_spectrogram`` and ``griffinlim_iter`` are reached by
+``from mlx_audio_primitives_tpu_torch.ops.stft import
+magnitude_spectrogram`` and ``from mlx_audio_primitives_tpu_torch.ops.griffinlim
+import griffinlim_iter``: ``ops.stft`` and ``ops.griffinlim`` name the
+functions there, so attribute access through them fails in both packages.
+The ``ops`` and ``utils`` subpackages bind the JAX package's names
+(``utils``: WAV I/O and ``load``, batching and device prefetch, warmup,
+the table caches, the dispatch flags, the profilers), and ``_native``
+builds the host table library and WAV codec from ``csrc/*.cpp``. It
+imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations

@@ -135,7 +135,7 @@ def _moments_fused(y, sr, freq, *, n_fft, hop_length, win_length, window, center
     # the same argument checks as the magnitude route, so both raise alike
     _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
     y, input_is_1d = _as_batched(y, n_fft, center)
-    if not (dispatch.resolve_use_pallas(None, y.device)
+    if not (dispatch.kernel_route(None, y.device)
             and dispatch.radix_shape_ok(n_fft, hop_length)):
         return None
     if freq is None:
@@ -319,7 +319,7 @@ def spectral_contrast(
 
     B, n_bins, F = S.shape
     zeros = S.new_zeros((B, 1, F))
-    use_kernel = dispatch.resolve_use_pallas(None, S.device)
+    use_kernel = dispatch.kernel_route(None, S.device)
     valleys, peaks = [], []
     for band in contrast_bands(freq_np, fmin, n_bands, quantile):
         if band is None:

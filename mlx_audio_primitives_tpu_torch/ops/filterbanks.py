@@ -4,9 +4,10 @@ Counterpart of `mlx_audio_primitives_tpu/ops/filterbanks.py`, with the same
 signatures and tables. The Bark conversions are host float64 utilities
 (Zwicker with Newton-Raphson inversion, Traunmuller with edge corrections);
 the filterbank matrices are host float64 triangular-filter tables cached
-per device as float32, like the mel filterbank. The builders are the JAX
-package's NumPy fallbacks (there a native C++ builder is tried first;
-`tests/test_torch_port_filterbanks.py` holds the two bit-equal).
+per device as float32, like the mel filterbank. As in the JAX package,
+the native C++ builders (`_native.py`) are tried first and the NumPy
+builders, the JAX package's fallbacks, stand in without them
+(`tests/test_torch_port_native.py` holds the two bit-equal).
 """
 
 from __future__ import annotations
@@ -100,6 +101,13 @@ def _bark_filterbank_table(
     sr: int, n_fft: int, n_bands: int, fmin: float, fmax: float,
     formula: str, norm: str | None,
 ) -> np.ndarray:
+    """The native C++ builder first (`csrc/tables.cpp::mapt_bark_filterbank`),
+    the NumPy builder without it."""
+    from .._native import native_bark_filterbank
+
+    fb = native_bark_filterbank(sr, n_fft, n_bands, fmin, fmax, formula, norm)
+    if fb is not None:
+        return fb
     bark_min = hz_to_bark(np.array([fmin]), formula=formula)[0]
     bark_max = hz_to_bark(np.array([fmax]), formula=formula)[0]
     bark_points = np.linspace(bark_min, bark_max, n_bands + 2)
@@ -111,6 +119,12 @@ def _bark_filterbank_table(
 def _linear_filterbank_table(
     sr: int, n_fft: int, n_bands: int, fmin: float, fmax: float, norm: str | None
 ) -> np.ndarray:
+    """The native C++ builder first, the NumPy builder without it."""
+    from .._native import native_linear_filterbank
+
+    fb = native_linear_filterbank(sr, n_fft, n_bands, fmin, fmax, norm)
+    if fb is not None:
+        return fb
     hz_points = np.linspace(fmin, fmax, n_bands + 2)
     return _triangular_filterbank(hz_points, sr, n_fft, n_bands, norm)
 

@@ -72,7 +72,14 @@ def _mel_filterbank_table(
     htk: bool,
     norm: str | None,
 ) -> np.ndarray:
-    """librosa's exact fdiff/ramps triangular-filter algorithm in float64."""
+    """librosa's exact fdiff/ramps triangular-filter algorithm in float64:
+    the native C++ builder first, the NumPy builder without it."""
+    if norm in (None, "slaney"):
+        from .._native import native_mel_filterbank
+
+        fb = native_mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm)
+        if fb is not None:
+            return fb
     fftfreqs = np.linspace(0, sr / 2.0, 1 + n_fft // 2)
     mels = np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels + 2)
     mel_f = mel_to_hz(mels, htk)
@@ -186,7 +193,7 @@ def filterbank_spectrogram(
               power=float(power))
 
     if (
-        dispatch.resolve_use_pallas(use_pallas, y.device)
+        dispatch.kernel_route(use_pallas, y.device)
         and (fft_mode == "auto" or use_pallas is True)
         and power in (1.0, 2.0)
         and dispatch.radix_shape_ok(n_fft, hop_length)

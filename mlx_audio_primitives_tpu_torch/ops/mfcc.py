@@ -6,8 +6,8 @@ non-tensor input goes to the default device (`utils/dispatch.py::to_tensor`).
 
 * The DCT-II is a host float64 basis, cached per device as float32, in one
   plain FP32 ``torch.matmul`` (the JAX package leaves the same product to
-  XLA). The builder is the JAX package's NumPy fallback, so the table is
-  bit-equal to it.
+  XLA). As there, the native C++ builder is tried first and the NumPy
+  builder stands in without it; the table is bit-equal either way.
 * ``mfcc`` runs ``melspectrogram`` (the fused filterbank kernel, K1, on a
   CUDA tensor), ``power_to_db``, the DCT over the mel axis and the lifter.
 * ``delta`` applies the Savitzky-Golay filter as a linear operator: its
@@ -38,7 +38,14 @@ ArrayLike = Any
 def _dct_basis_t(n_out: int, n_in: int, norm: str | None) -> np.ndarray:
     """Transposed DCT-II basis ``(n_in, n_out)``: C[k,n] = cos(pi k (2n+1) /
     (2N)), with the orthonormal scaling for ``norm='ortho'`` and scipy's
-    factor 2 for ``norm=None`` (host float64)."""
+    factor 2 for ``norm=None`` (host float64). The native C++ builder
+    first, the NumPy builder without it."""
+    if norm in (None, "ortho"):
+        from .._native import native_dct_basis_t
+
+        basis_t = native_dct_basis_t(n_out, n_in, norm)
+        if basis_t is not None:
+            return basis_t
     n = np.arange(n_in, dtype=np.float64)
     k = np.arange(n_out, dtype=np.float64)
     basis = np.cos(np.pi * k[:, None] * (2.0 * n[None, :] + 1.0) / (2.0 * n_in))

@@ -168,7 +168,7 @@ def _framewise_acf(
     n_fft = _next_pow2(2 * frame_length - 1)
     C = _acf_lag_basis(n_fft, lo, hi, device=y.device)
     kw = dict(frame_length=frame_length, hop_length=hop_length, lo=lo, hi=hi)
-    if (dispatch.resolve_use_pallas(None, y.device)
+    if (dispatch.kernel_route(None, y.device)
             and _acf_kernel_route(n_fft, frame_length, hop_length, lo, hi)):
         return _framewise_acf_fused(y, C, **kw)
     return _framewise_acf_plain(y, C, **kw)

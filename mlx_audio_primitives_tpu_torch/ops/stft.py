@@ -182,7 +182,7 @@ def stft(
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
 
     if (
-        dispatch.resolve_use_pallas(use_pallas, y.device)
+        dispatch.kernel_route(use_pallas, y.device)
         and (fft_mode == "auto" or use_pallas is True)
         and dispatch.radix_shape_ok(n_fft, hop_length)
     ):
@@ -219,7 +219,7 @@ def magnitude_spectrogram(
     y, input_is_1d = _as_batched(y, n_fft, center)
     win = _get_padded_window(window, win_length, n_fft, y.device)
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
-    if dispatch.resolve_use_pallas(use_pallas, y.device) and dispatch.radix_shape_ok(n_fft, hop_length):
+    if dispatch.kernel_route(use_pallas, y.device) and dispatch.radix_shape_ok(n_fft, hop_length):
         out = stft_magnitude_fused(y, win, **kw)
     else:
         out = stft_magnitude_plain(y, win, **kw)
@@ -313,7 +313,7 @@ def _istft_tier(use_pallas: bool | None, device: torch.device, fft_mode: str, n_
     the radix gate unless an explicit ``fft_mode`` pins the plain
     transforms, else 'ola' (inverse transform, then K4) within K4's gate,
     else 'none' (the plain composition)."""
-    want = dispatch.resolve_use_pallas(use_pallas, device)
+    want = dispatch.kernel_route(use_pallas, device)
     if (
         want
         and (fft_mode == "auto" or use_pallas is True)

@@ -7,8 +7,8 @@ as the JAX package's NumPy builder, so the float32 result is bit-equal to
 scipy's. Periodic ("fftbins") windows are ``n+1``-point symmetric windows
 with the last sample dropped (scipy's DFT-even convention).
 
-The JAX package first tries a native C++ builder with the same float64
-math; the port uses the NumPy builder only.
+As in the JAX package, the native C++ builder (`_native.py`, the same
+float64 math) is tried first, and the NumPy builder stands in without it.
 """
 
 from __future__ import annotations
@@ -76,7 +76,13 @@ def _symmetric_window_np(name: str, n: int, beta: float | None) -> np.ndarray:
 
 @table_cache("window", maxsize=WINDOW_CACHE_SIZE)
 def _window_table(name: str, n: int, fftbins: bool, beta: float | None) -> np.ndarray:
-    """Host float64 window table (tier-1 cache)."""
+    """Host float64 window table (tier-1 cache): the native C++ builder
+    first (`csrc/tables.cpp::mapt_window`), the NumPy builder without it."""
+    from .._native import native_window
+
+    w = native_window(name, n, fftbins, beta)
+    if w is not None:
+        return w
     if fftbins and n > 1:
         return _symmetric_window_np(name, n + 1, beta)[:n]
     return _symmetric_window_np(name, n, beta)

@@ -10,9 +10,10 @@ ISTFT envelopes, FFT twiddles):
   tensor on that device, so a hit costs no host-to-device copy.
 
 The tensors handed out are shared: callers must not modify them in place.
-The JAX version also keeps a registry of caches for cold-cache benchmarks
-and reports hits to its profiler; the port has neither yet, so the hit and
-miss counts live on each cache.
+As in the JAX package, every cache registers itself, so that
+:func:`clear_all_caches` empties them all (cold-cache benchmarks) and
+:func:`cache_stats` reports their hits, misses and entries, and every hit
+and miss is reported to the profiler (`utils/profiler.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+
+# Registry of every live TableCache, for clear_all_caches() / cache_stats().
+_CACHE_REGISTRY: list["TableCache"] = []
+_REGISTRY_LOCK = threading.Lock()
 
 
 class TableCache:
@@ -45,6 +50,8 @@ class TableCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        with _REGISTRY_LOCK:
+            _CACHE_REGISTRY.append(self)
 
     def __call__(self, *args, device: torch.device | str | None = None) -> torch.Tensor:
         """The table for ``args`` as a float32 tensor on ``device`` (CPU
@@ -60,8 +67,11 @@ class TableCache:
                 # true LRU: a hit refreshes recency
                 self._order.remove(key)
                 self._order.append(key)
-                return hit
-            self.misses += 1
+            else:
+                self.misses += 1
+        self._note_profiler(hit is not None)
+        if hit is not None:
+            return hit
         host = np.asarray(self._host_builder(*args))
         table = torch.from_numpy(np.ascontiguousarray(host)).to(REAL_DTYPE).to(dev)
         with self._lock:
@@ -77,6 +87,25 @@ class TableCache:
         """Return the host float64 table (tier 1 only)."""
         return self._host_builder(*args)
 
+    def _note_profiler(self, hit: bool) -> None:
+        # lazy import: the profiler imports nothing of this module
+        from . import profiler
+
+        profiler.log_cache_access(self.name, hit)
+
+    def clear(self) -> None:
+        """Empty both tiers and zero the counts."""
+        with self._lock:
+            self._host_builder.cache_clear()
+            self._device_cache.clear()
+            self._order.clear()
+            self.hits = 0
+            self.misses = 0
+
+    @property
+    def stats(self) -> dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses, "entries": len(self._device_cache)}
+
 
 def table_cache(name: str, maxsize: int = 128):
     """Decorator: wrap a float64 NumPy builder into a TableCache."""
@@ -85,3 +114,18 @@ def table_cache(name: str, maxsize: int = 128):
         return TableCache(name, builder, maxsize=maxsize)
 
     return deco
+
+
+def clear_all_caches() -> None:
+    """Clear every registered table cache (cold-cache benchmarking hook)."""
+    with _REGISTRY_LOCK:
+        caches = list(_CACHE_REGISTRY)
+    for c in caches:
+        c.clear()
+
+
+def cache_stats() -> dict[str, dict[str, int]]:
+    """Hit/miss/entry counts for every registered cache."""
+    with _REGISTRY_LOCK:
+        caches = list(_CACHE_REGISTRY)
+    return {c.name: c.stats for c in caches}

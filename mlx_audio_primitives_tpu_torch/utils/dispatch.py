@@ -5,8 +5,9 @@ Counterpart of `mlx_audio_primitives_tpu/utils/dispatch.py`. There the
 Pallas kernels are the fast path and the XLA compositions the
 always-available one; here the CUDA kernels under `kernels/` are the fast
 path and plain torch ops the other. :func:`to_tensor` places a non-tensor
-input on ``_config.DEFAULT_DEVICE``; after that a call is routed by the
-device of its input tensor, never by a global device choice:
+input on ``_config.DEFAULT_DEVICE``; after that the ops route a call by the
+device of its input tensor (:func:`kernel_route`), never by a global device
+choice:
 
 * ``use_pallas=None`` takes the kernel for a CUDA tensor wherever the
   kernel's shape gate admits the shape, and the plain composition for a
@@ -19,8 +20,13 @@ device of its input tensor, never by a global device choice:
 ``MLX_AUDIO_TPU_DISABLE_PALLAS=1`` turns every kernel off, as it does in the
 JAX package (read once, at import, like the JAX package's ``HAS_PALLAS``).
 
-The JAX module's ``is_batch_traced`` and ``try_pallas`` guard against
-``jax.vmap`` batching traces and forward-mode autodiff traces reaching a
+The JAX module's public names keep their signatures here, each with its
+CUDA meaning: :data:`HAS_PALLAS`, :func:`has_pallas_tpu` (and the lazy
+``HAS_PALLAS_TPU``), :func:`is_tpu`, :func:`default_backend`,
+:func:`pallas_interpret_mode` and :func:`resolve_use_pallas` with its
+``default_on_tpu`` argument. The JAX module's ``is_batch_traced``,
+``try_pallas`` and ``vma_struct`` guard against ``jax.vmap`` batching
+traces, forward-mode autodiff traces and ``shard_map`` types reaching a
 ``pallas_call``. PyTorch runs eagerly and has no such traces, so they have
 no counterpart here.
 """
@@ -60,14 +66,68 @@ def default_device(device: torch.device | str | None = None) -> torch.device:
     return dev
 
 
-def resolve_use_pallas(flag: bool | None, device: torch.device) -> bool:
-    """Resolve a per-op ``use_pallas`` kwarg for a tensor on ``device``."""
+def kernel_route(flag: bool | None, device: torch.device) -> bool:
+    """Whether an op takes its kernel wrapper for a tensor on ``device``,
+    given its ``use_pallas`` kwarg (the routing in the module docstring)."""
     if not KERNELS_ENABLED:
         return False
     if flag is True:
         return True
     if flag is None:
         return torch.device(device).type == "cuda"
+    return False
+
+
+#: True unless ``MLX_AUDIO_TPU_DISABLE_PALLAS=1``: the kernels can run at
+#: all (compiled on a CUDA tensor, as their plain twins on a CPU tensor, the
+#: counterpart of Pallas interpret mode). The JAX package's ``HAS_PALLAS``.
+HAS_PALLAS: bool = KERNELS_ENABLED
+
+
+def default_backend() -> str:
+    """``"gpu"`` when a CUDA device is present, else ``"cpu"``: the
+    platform names ``jax.default_backend()`` gives on such a machine."""
+    return "gpu" if torch.cuda.is_available() else "cpu"
+
+
+def is_tpu() -> bool:
+    """Always False: the port runs on CUDA devices and the CPU."""
+    return False
+
+
+def has_pallas_tpu() -> bool:
+    """True when the compiled kernels are the default: kernels enabled and
+    a CUDA device present, so ``use_pallas=None`` launches them on CUDA
+    tensors. Read on each call; ``torch.cuda.is_available()`` does not
+    create a CUDA context."""
+    return KERNELS_ENABLED and torch.cuda.is_available()
+
+
+def pallas_interpret_mode() -> bool:
+    """True without a CUDA device: a kernel wrapper can then only run its
+    plain twin on CPU tensors (the counterpart of Pallas interpret mode)."""
+    return not torch.cuda.is_available()
+
+
+def __getattr__(name: str):
+    # the JAX package's lazy ``HAS_PALLAS_TPU``: read when asked for
+    if name == "HAS_PALLAS_TPU":
+        return has_pallas_tpu()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def resolve_use_pallas(flag: bool | None, default_on_tpu: bool = False) -> bool:
+    """Resolve a ``use_pallas`` kwarg against availability, with the JAX
+    package's signature and policy: ``True`` selects the kernels whenever
+    they are enabled (their plain twins on a CPU tensor); ``None`` selects
+    them when ``default_on_tpu`` is set and a CUDA device is present
+    (:func:`has_pallas_tpu`); ``False`` never. Honors
+    ``MLX_AUDIO_TPU_DISABLE_PALLAS``. The port's own ops route by their
+    input's device instead (:func:`kernel_route`)."""
+    if flag is True:
+        return KERNELS_ENABLED
+    if flag is None and default_on_tpu:
+        return has_pallas_tpu()
     return False
 
 

@@ -3,7 +3,7 @@
 ``chroma_stft`` of a signal runs, on the port's kernel route, the fused
 filterbank kernel (K1) with the ``(n_bins, 12)`` chroma weight; on the CPU
 its wrapper runs K1's plain twin (the kernel routes are forced on by
-patching ``resolve_use_pallas``). Contract (`NUMERICAL_ACCURACY.md`:
+patching ``kernel_route``). Contract (`NUMERICAL_ACCURACY.md`:
 chromagram fused vs XLA ~2e-6): both port routes, and the ``S`` route
 (one FP32 product), within 2e-6 of max of the JAX package's XLA route; the
 JAX package's Pallas route (interpret mode, 3-pass bf16-split products at
@@ -43,7 +43,7 @@ def _harmonic(f0s, n=2 * SR):
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas",
+        monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
     return request.param
 

@@ -50,7 +50,7 @@ TIES = np.round(signals(81, (3, 7, 40)) * 3).astype(np.float32)
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     return request.param
 
 

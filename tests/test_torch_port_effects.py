@@ -51,7 +51,7 @@ D = np.asarray(jap.stft(Y, n_fft=N_FFT, hop_length=HOP))
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     return request.param
 
 
@@ -128,7 +128,7 @@ def test_time_stretch_default_hop_one_clip():
 @pytest.mark.parametrize("port_route_", ["plain", "kernels"])
 def test_istft_drops_stretched_dc_and_nyquist_imaginary_parts(port_route_, monkeypatch):
     if port_route_ == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     Sv = to_np(tap.phase_vocoder(D, 0.8, hop_length=HOP))
     # the accumulated phase of the real DC and Nyquist bins is a multiple
     # of pi whose float32 sine is not 0

@@ -5,7 +5,7 @@ its kernel paths (``has_pallas_tpu`` patched to True, so its Pallas kernels
 run in interpret mode on the CPU: the fused moments, the magnitude STFT and
 the extreme-selection kernel) or its XLA paths. The port runs on CPU
 tensors either as it routes there (plain compositions) or with its kernel
-routes forced on (``resolve_use_pallas`` patched), where each kernel
+routes forced on (``kernel_route`` patched), where each kernel
 wrapper runs its plain twin. Contract: every feature within 1e-4 of its
 maximum (`NUMERICAL_ACCURACY.md:19`), with the rules stated below for
 rolloff, flatness on a tone and the zero-crossing rate.
@@ -38,7 +38,7 @@ KW_2048 = dict(n_fft=2048, hop_length=512)
 
 def _port_kernel_routes(mp: pytest.MonkeyPatch) -> None:
     """Take every kernel route on the CPU (the wrappers run their twins)."""
-    mp.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+    mp.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
 
 
 @pytest.fixture(params=["plain", "kernels"])

@@ -2,7 +2,7 @@
 
 The same seeded NumPy magnitude goes through the JAX package and the port.
 The port runs on CPU tensors either on its plain route or with its kernel
-routes forced on (``resolve_use_pallas`` patched), where K2's and K3's
+routes forced on (``kernel_route`` patched), where K2's and K3's
 wrappers run their plain twins; the JAX package runs its XLA route, and in
 one case its kernel route in interpret mode with the exact GEMMs
 (``ANALYSIS_FAST_GEMM`` off, in this test only). Momentum 0.99 over 32
@@ -50,7 +50,7 @@ S_MAG = np.abs(np.asarray(jap.stft(Y, n_fft=N_FFT, hop_length=HOP)))
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas",
+        monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
     return request.param
 
@@ -102,7 +102,7 @@ def test_griffinlim_matches_jax_kernel_route(monkeypatch):
         mp.setattr(jax_dispatch, "has_pallas_tpu", lambda: True)
         mp.setattr(jax_config, "ANALYSIS_FAST_GEMM", False)
         ref = to_np(jap.griffinlim(S_MAG, **kw))
-    monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+    monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     assert max_abs(tap.griffinlim(S_MAG, **kw), ref) <= GL_TOL * np.abs(ref).max()
 
 
@@ -135,7 +135,7 @@ def test_tiers_and_launch_counts(hop, tier, monkeypatch):
     _spy(monkeypatch, tap_gl, "stft_fused", calls)
     _spy(monkeypatch, tap_stft, "overlap_add_fused", calls)
     if tier != "none":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas",
+        monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
     n_iter = 5
     tap.griffinlim(S_MAG, n_iter=n_iter, hop_length=hop, random_state=0)
@@ -147,7 +147,7 @@ def test_tiers_and_launch_counts(hop, tier, monkeypatch):
 
 
 def test_wrappers_count_no_launch_on_the_cpu(monkeypatch):
-    monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+    monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     before = launch_counts()
     tap.griffinlim(S_MAG, n_iter=2, hop_length=HOP, random_state=0)
     assert launch_counts() == before
@@ -161,7 +161,7 @@ def test_istft_drops_dc_and_nyquist_imaginary_parts(route, monkeypatch):
     them on CUDA, and ``chip_smoke.py`` phase 3 holds the card's plain
     inverse to the CPU's on such a spectrum.)"""
     if route == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     rng = np.random.default_rng(14)
     X = (S_MAG * np.exp(1j * rng.uniform(-np.pi, np.pi, S_MAG.shape))).astype(np.complex64)
     real_edges = X.copy()

@@ -2,7 +2,7 @@
 the JAX package.
 
 ``onset_strength`` of a signal takes its mel from ``melspectrogram``: on
-the port's kernel route (forced on by patching ``resolve_use_pallas``) the
+the port's kernel route (forced on by patching ``kernel_route``) the
 fused filterbank kernel's twin, once, with the 128-mel weight. Its dB
 clip is taken per clip. Contracts (`NUMERICAL_ACCURACY.md`): the envelope
 within the mel / dB contracts, here 1e-5 of max; onset peak picking
@@ -48,7 +48,7 @@ Y = signals(100, (2, 3 * SR))
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas",
+        monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
     return request.param
 

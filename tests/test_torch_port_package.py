@@ -9,11 +9,15 @@ imports outside ``__all__`` stand at the port's top level too, so every
 public top-level name of the JAX package has its counterpart. The launchers of K3, K4 and K5 cover any number of clips, so
 no wrapper caps the batch (``chip_smoke.py`` runs them at 65,537 clips on
 the card), and a kernel launch on a CPU tensor raises rather than falling
-back.
+back. The ``ops`` namespaces bind the same names (functions where the JAX
+package has functions, so ``ops.stft`` is the function in both),
+``utils.__all__`` is the JAX list, ``utils`` and ``_native`` import no JAX,
+and no port file reaches the JAX package's native build.
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -123,3 +127,58 @@ def test_every_jax_top_level_name_is_in_the_port():
               and getattr(v, "__name__", None) != f"{jap.__name__}.{n}"]
     missing = [n for n in public if not hasattr(tap, n)]
     assert len(public) > 80 and missing == []
+
+
+def _public(module) -> set[str]:
+    return {n for n in dir(module) if not n.startswith("_")}
+
+
+def test_ops_namespaces_hold_the_same_names():
+    import mlx_audio_primitives_tpu.ops as jops
+    import mlx_audio_primitives_tpu_torch.ops as tops
+
+    assert tops.__all__ == jops.__all__
+    assert _public(tops) == _public(jops)
+    from mlx_audio_primitives_tpu_torch.ops import spectral_centroid  # noqa: F401
+
+
+@pytest.mark.parametrize("name", sorted(n for n in dir(jap.ops) if not n.startswith("_")))
+def test_ops_names_are_functions_where_jax_has_functions(name):
+    import types
+
+    got, ref = getattr(tap.ops, name), getattr(jap.ops, name)
+    assert isinstance(got, types.ModuleType) == isinstance(ref, types.ModuleType)
+    if isinstance(ref, types.ModuleType):
+        assert got.__name__.rsplit(".", 1)[1] == ref.__name__.rsplit(".", 1)[1]
+    else:
+        assert callable(got) and got.__name__ == ref.__name__
+
+
+def test_utils_all_is_the_jax_list():
+    import mlx_audio_primitives_tpu.utils as jutils
+    import mlx_audio_primitives_tpu_torch.utils as tutils
+
+    assert tutils.__all__ == jutils.__all__ and len(tutils.__all__) == 46
+    assert all(hasattr(tutils, n) for n in tutils.__all__)
+
+
+def test_utils_and_native_import_no_jax():
+    code = (
+        "import sys; before = set(sys.modules); import mlx_audio_primitives_tpu_torch; "
+        "import mlx_audio_primitives_tpu_torch.utils, mlx_audio_primitives_tpu_torch._native as n; "
+        "n.HAS_NATIVE; new = set(sys.modules) - before; "
+        "print(sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'mlx_audio_primitives_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=300, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_port_file_reads_the_jax_packages_native_build():
+    port = Path(tap.__file__).resolve().parent
+    for f in [*port.rglob("*.py"), *port.rglob("*.cpp")]:
+        text = f.read_text()
+        # the JAX package's library is ``_tables.so``; the port's is named
+        # ``libmapt_tables.so``
+        assert not re.search(r"(?<![A-Za-z])_tables\.so", text) and "Makefile" not in text, f

@@ -2,7 +2,7 @@
 
 The same seeded NumPy input goes through the JAX package and the port. The
 port runs on CPU tensors on its plain route, or with its kernel route
-forced on (``resolve_use_pallas`` patched: the framewise ACF then runs K1's
+forced on (``kernel_route`` patched: the framewise ACF then runs K1's
 wrapper, which on a CPU tensor runs its plain twin); the JAX package on its
 XLA route or its kernel route (``has_pallas_tpu`` patched: its fused
 kernel in interpret mode, with its exact GEMMs). Limits: ACF values 1e-5 absolute (they are
@@ -52,7 +52,7 @@ def tone(freq: float, n: int, seed: int = 0, noise: float = 0.2) -> np.ndarray:
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas",
+        monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
     return request.param
 
@@ -149,7 +149,7 @@ def test_degenerate_frames_masks(case, config, monkeypatch):
     constant frames, where the port is unvoiced."""
     y, kw = _degenerate()[case].astype(np.float32), CONFIGS[config]
     f0_p, v_p = map(to_np, tap.pitch_detect_acf(y, sr=SR, **kw))
-    monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+    monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     f0_k, v_k = map(to_np, tap.pitch_detect_acf(y, sr=SR, **kw))
     assert np.array_equal(v_k, v_p)
     assert np.array_equal(f0_k, f0_p)

@@ -47,7 +47,7 @@ TONE_CLICK[0, SR // 2] += 4.0
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     return request.param
 
 

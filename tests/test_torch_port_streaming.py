@@ -52,7 +52,7 @@ TONAL = (np.sin(2 * np.pi * 220.0 * T) + 0.5 * np.sin(2 * np.pi * 330.0 * T)
 @pytest.fixture(params=["plain", "kernels"])
 def port_route(request, monkeypatch):
     if request.param == "kernels":
-        monkeypatch.setattr(tap_dispatch, "resolve_use_pallas", lambda flag, device: flag is not False)
+        monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
     return request.param
 
 

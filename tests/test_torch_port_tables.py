@@ -8,6 +8,7 @@ JAX tables carried over with ``tables_from_numpy`` keep their bits.
 from __future__ import annotations
 
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -19,11 +20,13 @@ import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_table
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
-from mlx_audio_primitives_tpu_torch.ops import stft as tap_stft
 from mlx_audio_primitives_tpu_torch.ops.mel import filterbank_spectrogram
 from mlx_audio_primitives_tpu_torch.ops.stft import _istft_envelope_table
 from mlx_audio_primitives_tpu_torch.utils import dispatch
 from mlx_audio_primitives_tpu_torch.utils.interop import tables_from_numpy
+
+# the module: ``ops.stft`` names the function, as in the JAX package
+tap_stft = importlib.import_module("mlx_audio_primitives_tpu_torch.ops.stft")
 
 torch.set_num_threads(1)
 
@@ -147,14 +150,14 @@ def test_port_never_imports_jax():
 
 def test_use_pallas_resolution(monkeypatch):
     cpu, meta = torch.device("cpu"), torch.device("meta")
-    assert dispatch.resolve_use_pallas(None, cpu) is False
-    assert dispatch.resolve_use_pallas(True, cpu) is True
-    assert dispatch.resolve_use_pallas(False, cpu) is False
-    assert dispatch.resolve_use_pallas(None, torch.device("cuda", 0)) is True
+    assert dispatch.kernel_route(None, cpu) is False
+    assert dispatch.kernel_route(True, cpu) is True
+    assert dispatch.kernel_route(False, cpu) is False
+    assert dispatch.kernel_route(None, torch.device("cuda", 0)) is True
     # MLX_AUDIO_TPU_DISABLE_PALLAS=1 turns every kernel off
     monkeypatch.setattr(dispatch, "KERNELS_ENABLED", False)
-    assert dispatch.resolve_use_pallas(True, cpu) is False
-    assert dispatch.resolve_use_pallas(None, torch.device("cuda", 0)) is False
+    assert dispatch.kernel_route(True, cpu) is False
+    assert dispatch.kernel_route(None, torch.device("cuda", 0)) is False
     # a kernel wrapper runs on CUDA or the CPU and nowhere else
     with pytest.raises(ValueError):
         dispatch.on_cuda(torch.zeros(2, device=meta))
