@@ -110,6 +110,30 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       bytes, a ``start_device_trace`` trace that names K1, and
       ``profile_memory`` of a 64 x 30 s mel beside
       ``estimate_operation_memory``;
+   h. ``parallel/`` and the conv trainers of ``models/`` at one rank: a
+      world of one over NCCL (a ``FileStore`` in a temporary directory) and
+      a ``(1, 1)`` mesh; ``logmel_time_sharded`` at 64 x 30 s with
+      'pallas' (K1 once) against ``power_to_db(melspectrogram)`` and
+      against 'matmul', ``stft_time_sharded`` -> ``istft_time_sharded``
+      (K2 and K3 once each) against the input; the keyword spotter of
+      ``examples/train_keyword_spotter.py`` (``TrainableLogMelFrontend``
+      at 16 kHz, n_fft 512, hop 128, 40 mels; convs (16, 32), 4 classes)
+      on 32 x 1 s: its mel and the first step's gradient, kernel route
+      against plain route, leaf by leaf at the same activations (the net is
+      ReLU: a rounding-sized change of its input can flip a unit and move
+      the gradient of the layers below it past 1e-4), then 10 steps (K1
+      once a step, the
+      loss falls),
+      and the same with ``TrainablePCENFrontend``;
+      ``make_sharded_train_step`` at its defaults on 64 x 3.99 s with
+      'pallas' (5 steps); ``make_tp_train_step`` on a (1, 1) mesh and
+      ``make_pp_train_step`` on one stage (5 steps each) against
+      ``make_convnet_train_step`` and ``deep_classifier_apply``; a
+      checkpoint of the trained state, restored bit-equal; then (5h) the
+      keyword-spotter step's CUDA-event times at batch 32 and 256 and the
+      sharded log-mel's, kernel route against plain route, and (6f) one
+      step at batch 256 under ``torch.profiler``; the process group is
+      destroyed before phase 5;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -244,6 +268,19 @@ WARMUP_OPS = ("stft", "istft", "melspectrogram", "mfcc", "chroma_stft", "pcen")
 #: istft's spectrum, K3 for istft, K1 for melspectrogram, mfcc, chroma_stft
 #: and pcen's mel
 WARMUP_LAUNCHES = {"mel_fused_kernel": 4, "stft_kernel": 2, "istft_kernel": 1}
+#: phase 4h, parallel and training at one rank: the keyword spotter of
+#: examples/train_keyword_spotter.py (16 kHz, n_fft 512, hop 128, 40 mels,
+#: convs (16, 32), 4 classes) on 1 s clips, its steps timed at batch 32 and
+#: 256; the sequence-parallel trainer at its defaults on 64 clips of 172
+#: hops (3.99 s: its frames are uncentred, so a clip is whole hops); the
+#: sequence-parallel frontend at the feature path's 64 x 30 s
+KWS_FRONTEND = dict(sr=16000, n_fft=512, hop_length=128, n_mels=40)
+KWS_NET = dict(n_classes=4, channels=(16, 32), lr=3e-2)
+KWS_BATCH = (32, 256)
+KWS_STEPS = 10
+SP_TRAIN = (64, 172 * HOP)
+SP_STEPS = 5
+SP_LR = 1e-2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2992,6 +3029,281 @@ def profile_utils(state: dict, card: str) -> None:
     profile_path(lambda: synchronous_log_mel(ap, clips), 1, order=False, plain=False)
 
 
+def kws_batch(gen: torch.Generator, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch`` clips of 1 s at 16 kHz for the keyword spotter, made on the
+    card: class k is a tone at 200 * 2**k Hz plus 10% noise (the JAX
+    package's convnet test task), the labels drawn from ``gen``."""
+    dev = torch.device("cuda", 0)
+    sr = KWS_FRONTEND["sr"]
+    labels = torch.randint(0, KWS_NET["n_classes"], (batch,), generator=gen, device=dev)
+    t = torch.arange(sr, device=dev, dtype=torch.float64) / sr
+    y = torch.sin(2 * np.pi * (200.0 * 2.0 ** labels.double())[:, None] * t)
+    noise = torch.randn((batch, sr), generator=gen, device=dev, dtype=torch.float64)
+    return (y + 0.1 * noise).float(), labels
+
+
+def sp_batch(gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequence-parallel trainer's 64 clips of 172 hops (3.99 s) at
+    22,050 Hz, made on the card: class k of 10 is a tone at 110 * 2**(k/2) Hz
+    plus 10% noise."""
+    dev = torch.device("cuda", 0)
+    B, L = SP_TRAIN
+    labels = torch.randint(0, 10, (B,), generator=gen, device=dev)
+    t = torch.arange(L, device=dev, dtype=torch.float64) / SR
+    y = torch.sin(2 * np.pi * (110.0 * 2.0 ** (labels.double() / 2))[:, None] * t)
+    noise = torch.randn((B, L), generator=gen, device=dev, dtype=torch.float64)
+    return (y + 0.1 * noise).float(), labels
+
+
+def leaf_errs(got, ref) -> dict[str, float]:
+    """max |got - ref| / max |ref| per leaf of two trees of tensors."""
+    from mlx_audio_primitives_tpu_torch.utils.tree import leaves
+
+    names = [".".join(p) for p in tree_paths(ref)]
+    return {n: rel_err(a, b) for n, a, b in zip(names, leaves(got), leaves(ref))}
+
+
+def tree_paths(tree, prefix=()) -> list[tuple]:
+    """The key paths of a tree of dicts, in ``jax.tree`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def local(tree):
+    """Each DTensor leaf's local tensor (the whole tensor at one rank)."""
+    from mlx_audio_primitives_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t, tree)
+
+
+def train(step, params, y, labels, n: int) -> tuple[object, list[float], list]:
+    """``n`` steps; the losses and the parameters before each step."""
+    losses, before = [], []
+    for _ in range(n):
+        before.append(params)
+        params, loss = step(params, y, labels)
+        losses.append(float(loss))
+    return params, losses, before
+
+
+class _PinValue(torch.autograd.Function):
+    """``value`` forward, the gradient handed to ``x``: a network fed
+    through it sees the same activations whichever route computed ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def parallel_paths(gen: torch.Generator, card: str) -> dict:
+    """Phase 4h: ``parallel/`` and the conv trainers of ``models/`` at one
+    rank, on a world of one over NCCL (a ``FileStore`` in a temporary
+    directory) and a ``(1, 1)`` mesh on the card; then their times (5h) and
+    a profile of one training step (6f). The process group is destroyed
+    before the phases that follow. Returns the launches of the counted
+    calls."""
+    phase("4h. parallel and training at one rank: time-sharded log-mel / STFT / ISTFT at "
+          f"{FEATURES[0]} x 30 s, the keyword-spotter, sequence-, tensor- and pipeline-parallel "
+          "trainers, checkpoint")
+    import torch.distributed as dist
+
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch import models as M
+    from mlx_audio_primitives_tpu_torch import parallel as PP
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.models.convnet import _local_grads
+    from mlx_audio_primitives_tpu_torch.models.pipelines import _nll_loss
+    from mlx_audio_primitives_tpu_torch.utils.tree import leaves
+
+    total = {k.name: 0 for k in _build.KERNELS}
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = PP.make_mesh(n_data=1, n_time=1)
+        check(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+              f"mesh on {mesh.device_type} over {dist.get_backend()}")
+        print(f"world of {dist.get_world_size()} over {dist.get_backend()}, mesh {mesh}")
+
+        # the sequence-parallel frontend at the feature path's size
+        y = torch.randn(FEATURES, generator=gen, device=dev)
+        kw = dict(sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, center=True)
+        lm = counted_call("logmel_time_sharded", {"mel_fused_kernel": 1},
+                          lambda: PP.logmel_time_sharded(y, mesh, fft_mode="pallas", **kw), total)
+        got = lm.to_local()
+        check(tuple(got.shape) == (FEATURES[0], 1 + LONG // HOP, N_MELS), f"shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), "non-finite sharded log-mel")
+        ref = ap.power_to_db(ap.melspectrogram(y, sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                               n_mels=N_MELS), top_db=None).transpose(1, 2)
+        e_ref = abs_err(got, ref)
+        e_mm = abs_err(got, PP.logmel_time_sharded(y, mesh, fft_mode="matmul", **kw).to_local())
+        print(f"logmel_time_sharded {tuple(y.shape)} 'pallas' -> {tuple(got.shape)}: against "
+              f"power_to_db(melspectrogram) {e_ref:.3e} dB (limit 2e-5), against 'matmul' "
+              f"{e_mm:.3e} dB (limit 2e-3)")
+        check(e_ref <= 2e-5 and e_mm <= 2e-3, "sharded log-mel misses its limits")
+        del lm, got, ref
+
+        def roundtrip():
+            S = PP.stft_time_sharded(y, mesh, n_fft=N_FFT, hop_length=HOP, center=True,
+                                     fft_mode="pallas")
+            return PP.istft_time_sharded(S, mesh, n_fft=N_FFT, hop_length=HOP, center=True,
+                                         length=LONG, fft_mode="pallas")
+
+        rec = counted_call("stft_time_sharded -> istft_time_sharded",
+                           {"stft_kernel": 1, "istft_kernel": 1}, roundtrip, total).to_local()
+        e_rt = abs_err(rec, y)
+        print(f"stft_time_sharded -> istft_time_sharded 'pallas' {tuple(y.shape)}: round trip "
+              f"max abs err {e_rt:.3e} (limit 1e-5)")
+        check(rec.shape == y.shape and e_rt <= 1e-5, "sharded round trip misses 1e-5")
+        del y, rec
+
+        # the keyword spotter: data-parallel convnet over the trainable frontend
+        fe = M.TrainableLogMelFrontend(**KWS_FRONTEND)
+        net = dict(n_classes=KWS_NET["n_classes"], channels=KWS_NET["channels"])
+        params = M.init_audio_classifier_params(fe, seed=0, **net)
+        yk, lk = kws_batch(gen, KWS_BATCH[0])
+
+        # the first step's gradient on the two routes. The net is ReLU, so
+        # the routes' ~1e-7 difference in the features can flip a unit and
+        # move the gradient of the layers below it past 1e-4: the routes'
+        # gradients are held at the same activations (the plain route's
+        # features on both, each route's own backward through _PinValue),
+        # the free comparison printed unheld, and the routes' mel power
+        # apart, to the mel contract (1e-4 of max: tones over 10% noise span
+        # ~60 dB, so dB near the noise floor carries the FFTs' rounding)
+        feats_p = fe.apply(params["frontend"], yk, use_pallas=False)
+        e_feat = rel_err(fe.apply(params["frontend"], yk, db=False),
+                         fe.apply(params["frontend"], yk, use_pallas=False, db=False))
+
+        def grads(use_pallas, pin):
+            def loss(p):
+                f = fe.apply(p["frontend"], yk, use_pallas=use_pallas)
+                return _nll_loss(M.convnet_apply(p["net"], _PinValue.apply(f, feats_p)
+                                                 if pin else f), lk)
+            return _local_grads(loss, params)[1]
+
+        errs = leaf_errs(grads(None, True), grads(False, True))
+        free = leaf_errs(grads(None, False), grads(False, False))
+        print(f"keyword-spotter mel {tuple(feats_p.shape)}, kernel route against plain "
+              f"route: rel err {e_feat:.3e} (limit 1e-4)")
+        print("first step's gradient at the same activations, kernel route against plain "
+              "route, rel err by leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + " (limit 1e-4); each route on its own features, not held (ReLU kinks): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in free.items()))
+        check(e_feat <= 1e-4, "the kernel route's mel disagrees")
+        check(max(errs.values()) <= 1e-4, "the kernel route's gradient disagrees")
+        step = M.make_convnet_train_step(mesh, fe, lr=KWS_NET["lr"], **net)
+        trained, losses, _ = counted_call(
+            f"keyword spotter, {KWS_STEPS} steps", {"mel_fused_kernel": KWS_STEPS},
+            lambda: train(step, params, yk, lk, KWS_STEPS), total)
+        print(f"keyword spotter {tuple(yk.shape)} x {KWS_STEPS} steps: losses "
+              + ", ".join(f"{v:.4f}" for v in losses))
+        check(np.isfinite(losses).all() and losses[-1] < losses[0], "keyword-spotter loss")
+
+        pcen = M.pipelines.TrainablePCENFrontend(**KWS_FRONTEND)
+        pstep = M.make_convnet_train_step(mesh, pcen, lr=KWS_NET["lr"], **net)
+        _, plosses, _ = counted_call(
+            f"PCEN keyword spotter, {KWS_STEPS} steps", {"mel_fused_kernel": KWS_STEPS},
+            lambda: train(pstep, M.init_audio_classifier_params(pcen, seed=0, **net), yk, lk,
+                          KWS_STEPS), total)
+        print("PCEN frontend: losses " + ", ".join(f"{v:.4f}" for v in plosses))
+        check(np.isfinite(plosses).all() and plosses[-1] < plosses[0], "PCEN-frontend loss")
+
+        # the sequence-parallel trainer at its defaults
+        ys, ls = sp_batch(gen)
+        sstep = M.make_sharded_train_step(mesh, lr=SP_LR, fft_mode="pallas")
+        _, slosses, _ = counted_call(
+            f"sequence-parallel trainer, {SP_STEPS} steps", {"mel_fused_kernel": SP_STEPS},
+            lambda: train(sstep, M.init_classifier_params(N_MELS, 10), ys, ls, SP_STEPS), total)
+        print(f"make_sharded_train_step {tuple(ys.shape)} (n_fft {N_FFT}, hop {HOP}, {N_MELS} "
+              f"mels, 10 classes, lr {SP_LR}) x {SP_STEPS}: losses "
+              + ", ".join(f"{v:.4f}" for v in slosses))
+        check(np.isfinite(slosses).all() and slosses[-1] < slosses[0], "sequence-parallel loss")
+        del ys, ls
+
+        # tensor and pipeline parallelism at one rank, against the plain models
+        tstep = M.make_tp_train_step(PP.make_tp_mesh(1, 1), fe, lr=KWS_NET["lr"], **net)
+        _, tlosses, seen = counted_call(
+            "tensor-parallel trainer, 5 steps", {"mel_fused_kernel": 5},
+            lambda: train(tstep, params, yk, lk, 5), total)
+        # the data-parallel step's loss on the same parameters, step by step
+        dense = [float(step(p, yk, lk)[1]) for p in seen]
+        e_tp = max(abs(a - b) / abs(b) for a, b in zip(tlosses, dense))
+        print("make_tp_train_step (1, 1): losses " + ", ".join(f"{v:.4f}" for v in tlosses)
+              + f"; against make_convnet_train_step's on the same parameters, rel {e_tp:.2e} "
+              "(limit 1e-5)")
+        check(tlosses[-1] < tlosses[0] and e_tp <= 1e-5, "tensor-parallel trainer")
+        deep = M.init_deep_classifier_params(fe, KWS_NET["n_classes"], n_blocks=4, width=16)
+        pps = M.make_pp_train_step(PP.make_pp_mesh(1), fe, n_classes=KWS_NET["n_classes"],
+                                   n_blocks=4, width=16, n_microbatches=2, lr=KWS_NET["lr"])
+        _, plosses2, seen = counted_call(
+            "pipeline-parallel trainer, 5 steps", {"mel_fused_kernel": 5},
+            lambda: train(pps, deep, yk, lk, 5), total)
+        serial = [float(_nll_loss(M.deep_classifier_apply(fe, local(p), yk), lk)) for p in seen]
+        e_pp = max(abs(a - b) / abs(b) for a, b in zip(plosses2, serial))
+        print("make_pp_train_step (1 stage, 2 microbatches): losses "
+              + ", ".join(f"{v:.4f}" for v in plosses2)
+              + f"; against deep_classifier_apply's rel {e_pp:.2e} (limit 1e-5)")
+        check(plosses2[-1] < plosses2[0] and e_pp <= 1e-5, "pipeline-parallel trainer")
+
+        # checkpoint of the trained keyword spotter
+        state = {"params": trained, "step": KWS_STEPS}
+        path = M.save_checkpoint(os.path.join(tmp, "kws"), state)
+        back = M.restore_checkpoint(path, target=state)
+        same = all(torch.equal(a, b) for a, b in zip(leaves(local(back["params"])),
+                                                      leaves(local(trained))))
+        print(f"checkpoint {os.path.getsize(path)} bytes: restored bit-equal {same}, "
+              f"step {int(back['step'])}")
+        check(same and int(back["step"]) == KWS_STEPS, "checkpoint did not come back bit-equal")
+
+        parallel_times(gen, mesh, fe, net)
+        profile_training(gen, mesh, fe, net, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def parallel_times(gen: torch.Generator, mesh, fe, net: dict) -> None:
+    """Phase 5h: CUDA-event ms of one keyword-spotter step at batch 32 and
+    256 and of the sequence-parallel frontend at 64 x 30 s, kernel route
+    against plain route (:func:`route_times`)."""
+    phase("5h. parallel and training times at one rank (CUDA events, ms)")
+    from mlx_audio_primitives_tpu_torch import models as M
+    from mlx_audio_primitives_tpu_torch import parallel as PP
+
+    step = M.make_convnet_train_step(mesh, fe, lr=KWS_NET["lr"], **net)
+    params = M.init_audio_classifier_params(fe, seed=0, **net)
+    for b in KWS_BATCH:
+        yk, lk = kws_batch(gen, b)
+        route_times(f"keyword-spotter step ({b}, {KWS_FRONTEND['sr']})",
+                    lambda: step(params, yk, lk), 10)
+    y = torch.randn(FEATURES, generator=gen, device=torch.device("cuda", 0))
+    route_times(f"logmel_time_sharded {FEATURES} 'pallas'",
+                lambda: PP.logmel_time_sharded(y, mesh, sr=SR, n_fft=N_FFT, hop_length=HOP,
+                                               n_mels=N_MELS, center=True, fft_mode="pallas"), 10)
+
+
+def profile_training(gen: torch.Generator, mesh, fe, net: dict, card: str) -> None:
+    """Phase 6f: one keyword-spotter step at batch 256 under
+    ``torch.profiler`` (:func:`profile_path`): device time by kernel, busy
+    time and idle share, kernel and plain routes."""
+    phase(f"6f. where a keyword-spotter training step's time goes at batch {KWS_BATCH[-1]} "
+          f"(torch.profiler, ms per step) on {card}")
+    from mlx_audio_primitives_tpu_torch import models as M
+
+    step = M.make_convnet_train_step(mesh, fe, lr=KWS_NET["lr"], **net)
+    params = M.init_audio_classifier_params(fe, seed=0, **net)
+    yk, lk = kws_batch(gen, KWS_BATCH[-1])
+    profile_path(lambda: step(params, yk, lk), 3, order=True)
+
+
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
     the memory rate, the FP32 operations over the FP32 peak and the TF32
@@ -3652,6 +3964,7 @@ def main() -> None:
     wav_dir = tempfile.mkdtemp(prefix="chip_smoke_wav_")
     try:
         utils_launches, utils_state = utils_paths(gen, wav_dir)
+        parallel_launches = parallel_paths(gen, card)
         timing = times(gen, card)
         utils_times(utils_state)
         profile_features(gen, card)
@@ -3665,7 +3978,8 @@ def main() -> None:
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
     launches = {name: log_mel[name] + features[name] + slice_launches[name] + rhythm_launches[name]
-                + effects_launches[name] + utils_launches[name] for name in log_mel}
+                + effects_launches[name] + utils_launches[name] + parallel_launches[name]
+                for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

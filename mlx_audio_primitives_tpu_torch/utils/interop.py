@@ -6,15 +6,20 @@ that holds them from the JAX package (``np.asarray`` of its
 ``get_window(...)``, ``mel_filterbank(...)`` or
 ``_istft_envelope_table.host(...)``) turns them into the port's float32
 tensors here, and can pass them on as array windows or as
-``filterbank_spectrogram``'s ``fb``.
+``filterbank_spectrogram``'s ``fb``. The trainable models of ``models/``
+have weights; :func:`params_from_jax` carries the JAX package's parameter
+trees across.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+from .tree import tree_map
 
 
 def tables_from_numpy(
@@ -28,3 +33,13 @@ def tables_from_numpy(
         name: torch.tensor(np.asarray(arr), dtype=REAL_DTYPE, device=device)
         for name, arr in tables.items()
     }
+
+
+def params_from_jax(tree: Any, device: torch.device | str | None = None) -> Any:
+    """The JAX package's parameters (a tree of NumPy arrays, e.g. each leaf
+    through ``np.asarray``) as the same tree of float32 tensors on
+    ``device`` (CPU when None), for the port's ``models/``. Shapes and
+    layouts are kept: conv weights stay OIHW, the pipeline's stacked blocks
+    keep their leading axis. The tensors are copies: they never alias the
+    caller's buffers."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), dtype=REAL_DTYPE, device=device), tree)

@@ -12,11 +12,16 @@ the card), and a kernel launch on a CPU tensor raises rather than falling
 back. The ``ops`` namespaces bind the same names (functions where the JAX
 package has functions, so ``ops.stft`` is the function in both),
 ``utils.__all__`` is the JAX list, ``utils`` and ``_native`` import no JAX,
-and no port file reaches the JAX package's native build.
+and no port file reaches the JAX package's native build. ``parallel``
+holds the JAX package's 18 names and ``models`` its names but the 16 of the
+expert-parallel and transformer modules; both import without JAX, and each
+public function and class of their modules has its JAX counterpart's
+parameters and defaults.
 """
 
 from __future__ import annotations
 
+import importlib
 import re
 import subprocess
 import sys
@@ -182,3 +187,82 @@ def test_no_port_file_reads_the_jax_packages_native_build():
         # the JAX package's library is ``_tables.so``; the port's is named
         # ``libmapt_tables.so``
         assert not re.search(r"(?<![A-Za-z])_tables\.so", text) and "Makefile" not in text, f
+
+
+#: the names of the JAX package's ``models`` that the port leaves to a later
+#: slice: ``expert_parallel`` (Switch MoE over ``all_to_all``) and
+#: ``transformer`` (ring attention)
+MODELS_NOT_PORTED = {
+    "ep_batch_sharding", "init_moe_classifier_params", "make_ep_train_step",
+    "make_ep_tp_train_step", "moe_batch_sharding", "moe_classifier_apply",
+    "moe_param_sharding", "moe_param_specs", "moe_tp_param_sharding", "moe_tp_param_specs",
+    "init_transformer_params", "make_cp_train_step", "ring_attention", "transformer_apply",
+    "transformer_param_sharding", "transformer_param_specs",
+}
+
+
+def test_parallel_holds_the_jax_names():
+    import mlx_audio_primitives_tpu.parallel as jp
+    import mlx_audio_primitives_tpu_torch.parallel as tp
+
+    assert tp.__all__ == jp.__all__ and len(tp.__all__) == 18
+    assert all(hasattr(tp, n) for n in tp.__all__)
+
+
+def test_models_holds_the_jax_names_but_sixteen():
+    import mlx_audio_primitives_tpu.models as jm
+    import mlx_audio_primitives_tpu_torch.models as tm
+
+    assert len(MODELS_NOT_PORTED) == 16 and MODELS_NOT_PORTED <= set(jm.__all__)
+    assert tm.__all__ == [n for n in jm.__all__ if n not in MODELS_NOT_PORTED]
+    assert all(hasattr(tm, n) for n in tm.__all__)
+    assert not any(hasattr(tm, n) for n in MODELS_NOT_PORTED)
+
+
+def test_parallel_and_models_import_without_jax():
+    # jax made unimportable in a fresh interpreter
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "import mlx_audio_primitives_tpu_torch.parallel, mlx_audio_primitives_tpu_torch.models; "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'mlx_audio_primitives_tpu'))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=300, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+SLICE_MODULES = ["parallel.mesh", "parallel.sharding", "parallel.time_shard", "models.pipelines",
+                 "models.presets", "models.checkpoint", "models.convnet",
+                 "models.tensor_parallel", "models.pipeline_parallel"]
+
+
+def _own_public(module) -> list[str]:
+    return sorted(n for n, v in vars(module).items() if not n.startswith("_") and callable(v)
+                  and getattr(v, "__module__", None) == module.__name__)
+
+
+def _shape(fn) -> list[tuple]:
+    """Parameter names, kinds and defaults (annotations name each
+    package's own types)."""
+    import inspect
+
+    return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+SLICE_NAMES_BY_MODULE = [
+    (mod, name) for mod in SLICE_MODULES
+    for name in _own_public(importlib.import_module(f"mlx_audio_primitives_tpu.{mod}"))
+]
+
+
+@pytest.mark.parametrize("mod,name", SLICE_NAMES_BY_MODULE)
+def test_slice_signatures_match_jax(mod, name):
+    ref = getattr(importlib.import_module(f"mlx_audio_primitives_tpu.{mod}"), name)
+    got = getattr(importlib.import_module(f"mlx_audio_primitives_tpu_torch.{mod}"), name)
+    if isinstance(ref, type):
+        assert isinstance(got, type)
+        methods = ["__init__"] + [m for m in vars(ref) if not m.startswith("_")]
+        for m in methods:
+            assert _shape(getattr(got, m)) == _shape(getattr(ref, m)), f"{name}.{m}"
+    else:
+        assert _shape(got) == _shape(ref)
