@@ -134,6 +134,26 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       sharded log-mel's, kernel route against plain route, and (6f) one
       step at batch 256 under ``torch.profiler``; the process group is
       destroyed before phase 5;
+   i. the expert-parallel and context-parallel trainers of ``models/`` at
+      one rank, in a world of one over NCCL of their own: the Switch-MoE
+      classifier at the JAX package's defaults (4 experts, 64 hidden,
+      capacity factor 1.25) over the keyword spotter's frontend on 32 x
+      1 s, 10 steps of ``make_ep_train_step`` (K1 once a step, the loss
+      falls) against ``moe_classifier_apply`` on the same parameters, its
+      first gradient kernel route against plain route at the same
+      activations, 5 steps of ``make_ep_tp_train_step`` against the ep
+      step; the transformer at ``make_cp_train_step``'s defaults on 32
+      clips of 1,722 tokens with ``fft_mode='pallas'`` (10 steps, K1 once
+      a step, the loss falls), its first step against
+      ``single_device_cp_oracle`` and 'matmul' leaf by leaf, and
+      ``ring_attention`` against ``_full_attention`` at
+      ``(32, 1722, 4, 16)``; the convnet's forward with
+      ``cudnn.allow_tf32`` at PyTorch's default (True) against float64 on
+      the CPU; ``examples_torch/train_keyword_spotter.py`` at its
+      defaults (K1 61, accuracy > 0.9); then (5i) the MoE step's
+      CUDA-event times and peak memory at batch 32 and 256 and the cp
+      step's, kernel route against plain route, and (6i) one cp step under
+      ``torch.profiler``; the process group is destroyed before phase 5;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), and of
@@ -281,6 +301,23 @@ KWS_STEPS = 10
 SP_TRAIN = (64, 172 * HOP)
 SP_STEPS = 5
 SP_LR = 1e-2
+#: phase 4i, the expert-parallel and context-parallel trainers at one rank:
+#: the Switch MoE classifier at the JAX package's defaults (4 experts, 64
+#: hidden, capacity factor 1.25) over the keyword spotter's frontend, on
+#: its 1 s clips at batch 32 (steps) and 32 and 256 (times); the
+#: transformer at make_cp_train_step's defaults (22,050 Hz, n_fft 512, hop
+#: 128, 64 mels, d_model 64, 4 heads, d_ff 128, 2 blocks, 10 classes) on 32
+#: clips of 1,722 tokens (220,416 samples, ~10 s)
+MOE = dict(n_experts=4, d_hidden=64, capacity_factor=1.25)
+MOE_STEPS = 10
+MOE_TP_STEPS = 5
+CP = dict(sr=22050, n_fft=512, hop_length=128, n_mels=64)
+CP_NET = dict(n_classes=10, d_model=64, n_heads=4, d_ff=128, n_blocks=2)
+CP_TRAIN = (32, 1722 * 128)
+CP_STEPS = 10
+#: the keyword-spotter example at its documented defaults: 60 steps of
+#: batch 32, then one evaluation batch (K1 once each)
+KWS_EXAMPLE_LAUNCHES = {"mel_fused_kernel": 61}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3304,6 +3341,277 @@ def profile_training(gen: torch.Generator, mesh, fe, net: dict, card: str) -> No
     profile_path(lambda: step(params, yk, lk), 3, order=True)
 
 
+def cp_batch(gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transformer's 32 clips of 1,722 hops (~10 s) at 22,050 Hz, made
+    on the card: class k of 10 is a tone at 110 * 2**(k/2) Hz plus 10%
+    noise."""
+    dev = torch.device("cuda", 0)
+    B, L = CP_TRAIN
+    labels = torch.randint(0, CP_NET["n_classes"], (B,), generator=gen, device=dev)
+    t = torch.arange(L, device=dev, dtype=torch.float64) / CP["sr"]
+    y = torch.sin(2 * np.pi * (110.0 * 2.0 ** (labels.double() / 2))[:, None] * t)
+    noise = torch.randn((B, L), generator=gen, device=dev, dtype=torch.float64)
+    return (y + 0.1 * noise).float(), labels
+
+
+class _PinnedFrontend:
+    """A frontend whose features are ``value`` whatever it computes, with
+    the gradient handed to its own features (:class:`_PinValue`)."""
+
+    def __init__(self, fe, value: torch.Tensor):
+        self.fe, self.value, self.n_mels = fe, value, fe.n_mels
+
+    def apply(self, params, y, use_pallas=None):
+        return _PinValue.apply(self.fe.apply(params, y, use_pallas=use_pallas), self.value)
+
+
+#: the JAX package's leaf tolerance for the cp step against its oracle
+#: (`tests/test_transformer.py`): |new - ref| <= CP_ATOL + CP_RTOL |ref|
+CP_ATOL, CP_RTOL = 5e-6, 5e-4
+
+
+def step_errs(new, ref) -> dict[str, float]:
+    """Per leaf of two parameter trees after a step, the largest
+    |new - ref| / (CP_ATOL + CP_RTOL |ref|): at most 1 where the leaf is
+    within the JAX package's tolerance."""
+    from mlx_audio_primitives_tpu_torch.utils.tree import leaves
+
+    names = [".".join(p) for p in tree_paths(ref)]
+    return {n: float(((a.double() - b.double()).abs() / (CP_ATOL + CP_RTOL * b.double().abs())).max())
+            for n, a, b in zip(names, leaves(local(new)), leaves(local(ref)))}
+
+
+def convnet_oracle(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    """``convnet_apply`` in float64 on the CPU."""
+    from mlx_audio_primitives_tpu_torch.models.convnet import _conv_same
+
+    x = feats.double().cpu()
+    x = (x - x.mean(dim=(-2, -1), keepdim=True)) / (
+        x.std(dim=(-2, -1), keepdim=True, correction=0) + 1e-5)
+    x = x[:, None]
+    p = {k: {n: t.double().cpu() for n, t in v.items()} for k, v in params.items()}
+    i = 0
+    while f"conv{i}" in p:
+        x = torch.relu(_conv_same(x, p[f"conv{i}"]["w"], 2) + p[f"conv{i}"]["b"][None, :, None, None])
+        i += 1
+    return x.mean(dim=(-2, -1)) @ p["head"]["w"] + p["head"]["b"]
+
+
+def conv_tf32_check(gen: torch.Generator) -> None:
+    """The convnet's forward at the keyword spotter's size with cuDNN's TF32
+    flag at PyTorch's default (True), against float64 on the CPU: the
+    convolutions set the flag off for themselves (`convnet._fp32_cudnn`).
+    The same forward with that pin taken out is printed beside it: what a
+    caller got before."""
+    from contextlib import nullcontext
+
+    from mlx_audio_primitives_tpu_torch import models as M
+    from mlx_audio_primitives_tpu_torch.models import convnet
+
+    fe = M.TrainableLogMelFrontend(**KWS_FRONTEND)
+    params = M.init_convnet_params(KWS_NET["n_classes"], channels=KWS_NET["channels"], seed=0)
+    yk, _ = kws_batch(gen, KWS_BATCH[0])
+    feats = fe.apply(fe.init_params(), yk)
+    ref = convnet_oracle(params, feats)
+    before, pin = torch.backends.cudnn.allow_tf32, convnet._fp32_cudnn
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = M.convnet_apply(params, feats)
+        convnet._fp32_cudnn = nullcontext
+        unpinned = M.convnet_apply(params, feats)
+        torch.cuda.synchronize()
+        flags = (f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+                 f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+                 f"{torch.get_float32_matmul_precision()!r}")
+    finally:
+        torch.backends.cudnn.allow_tf32, convnet._fp32_cudnn = before, pin
+    e, e_raw = rel_err(got, ref), rel_err(unpinned, ref)
+    print(f"convnet_apply {tuple(feats.shape)} with {flags}: against float64 on the CPU rel err "
+          f"{e:.3e} (limit 1e-5); with the FP32 pin taken out {e_raw:.3e}")
+    check(e <= 1e-5, "the convnet's convolutions are not FP32 under cuDNN's TF32 default")
+
+
+def models_paths(gen: torch.Generator, card: str) -> dict:
+    """Phase 4i: the expert-parallel and context-parallel trainers of
+    ``models/`` at one rank, in a world of one over NCCL of its own (phase
+    4h destroyed its group), the convnet's FP32 check and the
+    keyword-spotter example; then their times (5i) and a profile of one cp
+    step (6i). Returns the launches of the counted calls."""
+    phase("4i. the expert-parallel (Switch MoE) and context-parallel (ring attention) trainers "
+          "at one rank, the convnet under cuDNN's TF32 default, examples_torch's keyword spotter")
+    import importlib
+
+    import torch.distributed as dist
+
+    from mlx_audio_primitives_tpu_torch import models as M
+    from mlx_audio_primitives_tpu_torch import parallel as PP
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.models import transformer as TR
+    from mlx_audio_primitives_tpu_torch.models.convnet import _local_grads
+    from mlx_audio_primitives_tpu_torch.models.pipelines import _nll_loss
+
+    total = {k.name: 0 for k in _build.KERNELS}
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        print(f"world of {dist.get_world_size()} over {dist.get_backend()}; float32 matmul "
+              f"precision {torch.get_float32_matmul_precision()!r}, cuda.matmul.allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}")
+        check(torch.get_float32_matmul_precision() == "highest"
+              and not torch.backends.cuda.matmul.allow_tf32, "the products would run in TF32")
+
+        # the Switch MoE classifier over the keyword spotter's frontend
+        fe = M.TrainableLogMelFrontend(**KWS_FRONTEND)
+        n_cls, lr = KWS_NET["n_classes"], KWS_NET["lr"]
+        params = M.init_moe_classifier_params(fe, n_cls, n_experts=MOE["n_experts"],
+                                              d_hidden=MOE["d_hidden"], seed=0)
+        yk, lk = kws_batch(gen, KWS_BATCH[0])
+        ep_mesh = PP.make_ep_mesh(1, 1)
+        step = M.make_ep_train_step(ep_mesh, fe, n_classes=n_cls, lr=lr, **MOE)
+        _, losses, seen = counted_call(
+            f"ep trainer, {MOE_STEPS} steps", {"mel_fused_kernel": MOE_STEPS},
+            lambda: train(step, params, yk, lk, MOE_STEPS), total)
+
+        def dense_loss(p, frontend=fe, use_pallas=None):
+            logits, aux = M.moe_classifier_apply(frontend, p, yk, MOE["n_experts"],
+                                                 MOE["capacity_factor"], use_pallas=use_pallas)
+            return _nll_loss(logits, lk) + 0.01 * aux
+
+        dense = [float(dense_loss(local(p))) for p in seen]
+        e_dense = max(abs(a - b) / abs(b) for a, b in zip(losses, dense))
+        print(f"make_ep_train_step (1, 1) {tuple(yk.shape)}: losses "
+              + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; against moe_classifier_apply's on the same parameters, rel {e_dense:.2e} "
+              "(limit 1e-5)")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0] and e_dense <= 1e-5,
+              "the ep trainer")
+
+        # the first step's gradient, kernel route against plain route at the
+        # same activations (routing is an argmax: a rounding-sized change
+        # of the tokens can send one to another expert)
+        feats_p = fe.apply(params["frontend"], yk, use_pallas=False)
+        pinned = _PinnedFrontend(fe, feats_p)
+        errs = leaf_errs(_local_grads(lambda p: dense_loss(p, pinned), params)[1],
+                         _local_grads(lambda p: dense_loss(p, pinned, False), params)[1])
+        print("MoE first step's gradient at the same activations, kernel route against plain "
+              "route, rel err by leaf: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + " (limit 1e-4)")
+        check(max(errs.values()) <= 1e-4, "the MoE kernel route's gradient disagrees")
+
+        tp_step = M.make_ep_tp_train_step(PP.make_moe_mesh(1, 1, 1), fe, n_classes=n_cls, lr=lr,
+                                          **MOE)
+        _, tlosses, seen = counted_call(
+            f"ep x tp trainer, {MOE_TP_STEPS} steps", {"mel_fused_kernel": MOE_TP_STEPS},
+            lambda: train(tp_step, params, yk, lk, MOE_TP_STEPS), total)
+        ep_losses = [float(step(p, yk, lk)[1]) for p in seen]
+        e_tp = max(abs(a - b) / abs(b) for a, b in zip(tlosses, ep_losses))
+        print("make_ep_tp_train_step (1, 1, 1): losses " + ", ".join(f"{v:.4f}" for v in tlosses)
+              + f"; against make_ep_train_step's on the same parameters, rel {e_tp:.2e} "
+              "(limit 1e-5)")
+        check(tlosses[-1] < tlosses[0] and e_tp <= 1e-5, "the ep x tp trainer")
+        del seen
+
+        # the ring-attention transformer at its defaults
+        mesh = PP.make_mesh(1, 1)
+        yc, lc = cp_batch(gen)
+        cparams = M.init_transformer_params(CP["n_mels"], n_frames=CP_TRAIN[1] // CP["hop_length"],
+                                            seed=0, **CP_NET)
+        cstep = M.make_cp_train_step(mesh, fft_mode="pallas", **CP, **CP_NET)
+        new1, closses, _ = counted_call(
+            f"cp trainer, {CP_STEPS} steps", {"mel_fused_kernel": CP_STEPS},
+            lambda: train(cstep, cparams, yc, lc, CP_STEPS), total)
+        print(f"make_cp_train_step (1, 1) {tuple(yc.shape)} 'pallas' ({CP_TRAIN[1] // CP['hop_length']}"
+              " tokens): losses " + ", ".join(f"{v:.4f}" for v in closses))
+        check(np.isfinite(closses).all() and closses[-1] < closses[0], "the cp trainer's loss")
+        del new1
+        first, loss1 = cstep(cparams, yc, lc)
+        oracle, oracle_loss = TR.single_device_cp_oracle(cparams, yc, lc, **CP)
+        mm, mm_loss = M.make_cp_train_step(mesh, fft_mode="matmul", **CP, **CP_NET)(cparams, yc, lc)
+        e_o, e_m = step_errs(first, oracle), step_errs(first, mm)
+        l_o = abs(float(loss1) - float(oracle_loss)) / abs(float(oracle_loss))
+        l_m = abs(float(loss1) - float(mm_loss)) / abs(float(mm_loss))
+        for label, lo, e in (("single_device_cp_oracle", l_o, e_o), ("fft_mode='matmul'", l_m, e_m)):
+            print(f"the first cp step, 'pallas' against {label}: loss rel {lo:.2e} (limit 1e-4); "
+                  f"new parameters, |diff| / ({CP_ATOL:g} + {CP_RTOL:g} |ref|) by leaf, at most "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) + " (limit 1)")
+        check(l_o <= 1e-4 and l_m <= 1e-4 and max(e_o.values()) <= 1 and max(e_m.values()) <= 1,
+              "the cp step disagrees with its oracle")
+        del first, oracle, mm
+
+        q, k, v = (torch.randn((CP_TRAIN[0], CP_TRAIN[1] // CP["hop_length"], CP_NET["n_heads"],
+                                CP_NET["d_model"] // CP_NET["n_heads"]), generator=gen, device=dev)
+                   for _ in range(3))
+        e_ring = rel_err(M.ring_attention(q, k, v, mesh[PP.TIME_AXIS]), TR._full_attention(q, k, v))
+        print(f"ring_attention at one rank {tuple(q.shape)} against _full_attention: rel err "
+              f"{e_ring:.3e} (limit 1e-5)")
+        check(e_ring <= 1e-5, "ring attention disagrees with full attention")
+        del q, k, v
+
+        conv_tf32_check(gen)
+
+        # examples_torch's keyword spotter at its documented defaults
+        kws = importlib.import_module("examples_torch.train_keyword_spotter")
+        acc = counted_call("examples_torch/train_keyword_spotter.py (60 steps of 32)",
+                           KWS_EXAMPLE_LAUNCHES, lambda: kws.main(checkpoint_dir=tmp), total)
+        print(f"keyword-spotter example: accuracy on 256 held-out clips {acc:.3f} (limit > 0.9)")
+        check(acc > 0.9, "the keyword-spotter example misses its documented accuracy")
+
+        models_times(gen, fe, params, mesh, cparams)
+        profile_cp(cstep, cparams, yc, lc, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def models_times(gen: torch.Generator, fe, params: dict, mesh, cparams: dict) -> None:
+    """Phase 5i: CUDA-event ms of one MoE step at batch 32 and 256 with its
+    peak memory, and of one cp step at 32 x 1,722 tokens, kernel route
+    against plain route (:func:`route_times`)."""
+    phase("5i. MoE and cp step times at one rank (CUDA events, ms) and peak memory")
+    from mlx_audio_primitives_tpu_torch import models as M
+    from mlx_audio_primitives_tpu_torch import parallel as PP
+
+    step = M.make_ep_train_step(PP.make_ep_mesh(1, 1), fe, n_classes=KWS_NET["n_classes"],
+                                lr=KWS_NET["lr"], **MOE)
+    for b in KWS_BATCH:
+        yk, lk = kws_batch(gen, b)
+        T = b * (1 + KWS_FRONTEND["sr"] // KWS_FRONTEND["hop_length"])
+        C = M.expert_parallel.moe_capacity(T, MOE["n_experts"], MOE["capacity_factor"])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, yk, lk)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"MoE step ({b}, {KWS_FRONTEND['sr']}): {T} tokens, capacity {C}, dispatch "
+              f"({T}, {MOE['n_experts']}, {C}) {4 * T * MOE['n_experts'] * C / 2**30:.3f} GiB; "
+              f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the "
+              f"{base / 2**30:.3f} GiB held before)")
+        route_times(f"MoE step ({b}, {KWS_FRONTEND['sr']})", lambda: step(params, yk, lk), 5)
+    del yk, lk
+    yc, lc = cp_batch(gen)
+    cstep = M.make_cp_train_step(mesh, fft_mode="pallas", **CP, **CP_NET)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cstep(cparams, yc, lc)
+    torch.cuda.synchronize()
+    print(f"cp step {tuple(yc.shape)}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          "GiB")
+    route_times(f"cp step {tuple(yc.shape)} 'pallas'", lambda: cstep(cparams, yc, lc), 5)
+
+
+def profile_cp(cstep, cparams: dict, yc: torch.Tensor, lc: torch.Tensor, card: str) -> None:
+    """Phase 6i: one cp step under ``torch.profiler`` (:func:`profile_path`):
+    device time by kernel, busy time and idle share, kernel and plain
+    routes."""
+    phase(f"6i. where a cp training step's time goes at {tuple(yc.shape)} (torch.profiler, ms "
+          f"per step) on {card}")
+    profile_path(lambda: cstep(cparams, yc, lc), 2, order=True)
+
+
 def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
     the memory rate, the FP32 operations over the FP32 peak and the TF32
@@ -3965,6 +4273,7 @@ def main() -> None:
     try:
         utils_launches, utils_state = utils_paths(gen, wav_dir)
         parallel_launches = parallel_paths(gen, card)
+        models_launches = models_paths(gen, card)
         timing = times(gen, card)
         utils_times(utils_state)
         profile_features(gen, card)
@@ -3979,7 +4288,7 @@ def main() -> None:
 
     launches = {name: log_mel[name] + features[name] + slice_launches[name] + rhythm_launches[name]
                 + effects_launches[name] + utils_launches[name] + parallel_launches[name]
-                for name in log_mel}
+                + models_launches[name] for name in log_mel}
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[k.name]} for k in _build.KERNELS]
     # the natural-spectrum entries launch K3; no main path calls them, in

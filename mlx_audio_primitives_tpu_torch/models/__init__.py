@@ -1,9 +1,10 @@
 """Composed flagship pipelines, the conv classifier with its data-, tensor-
-and pipeline-parallel training steps, and checkpoint/resume.
+and pipeline-parallel training steps, the expert-parallel (Switch MoE)
+classifier, the ring-attention transformer with its context-parallel step,
+and checkpoint/resume.
 
-Counterpart of `mlx_audio_primitives_tpu/models/`, without its
-expert-parallel (MoE) and transformer modules, which the port does not
-hold yet."""
+Counterpart of `mlx_audio_primitives_tpu/models/`, with its names in its
+order."""
 
 from .checkpoint import HAS_ORBAX, restore_checkpoint, save_checkpoint
 from .convnet import (
@@ -33,6 +34,26 @@ from .tensor_parallel import (
     tp_param_sharding,
     tp_param_specs,
 )
+from .expert_parallel import (
+    ep_batch_sharding,
+    init_moe_classifier_params,
+    make_ep_train_step,
+    make_ep_tp_train_step,
+    moe_batch_sharding,
+    moe_classifier_apply,
+    moe_param_sharding,
+    moe_param_specs,
+    moe_tp_param_sharding,
+    moe_tp_param_specs,
+)
+from .transformer import (
+    init_transformer_params,
+    make_cp_train_step,
+    ring_attention,
+    transformer_apply,
+    transformer_param_sharding,
+    transformer_param_specs,
+)
 from .presets import (
     PRESETS,
     music_logmel,
@@ -59,8 +80,24 @@ __all__ = [
     "make_pp_train_step",
     "pp_param_specs",
     "pp_param_sharding",
+    "make_ep_train_step",
+    "make_ep_tp_train_step",
+    "moe_param_specs",
+    "moe_param_sharding",
+    "moe_tp_param_specs",
+    "moe_tp_param_sharding",
+    "moe_classifier_apply",
+    "moe_batch_sharding",
+    "init_moe_classifier_params",
+    "ep_batch_sharding",
     "init_deep_classifier_params",
     "deep_classifier_apply",
+    "init_transformer_params",
+    "transformer_apply",
+    "ring_attention",
+    "make_cp_train_step",
+    "transformer_param_specs",
+    "transformer_param_sharding",
     "save_checkpoint",
     "restore_checkpoint",
     "HAS_ORBAX",

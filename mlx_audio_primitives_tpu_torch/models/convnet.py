@@ -13,9 +13,13 @@ Design notes:
   package's layout, in float32. JAX pads ``"SAME"`` asymmetrically at
   stride 2 (low side ``total // 2``, high side the rest), which PyTorch's
   ``padding='same'`` refuses, so :func:`_conv_same` pads explicitly. cuDNN
-  runs a float32 convolution in TF32 unless
-  ``torch.backends.cudnn.allow_tf32`` is False (`chip_smoke.py` sets it
-  False, the counterpart of the JAX package's HIGHEST matmul precision).
+  runs a float32 convolution in TF32 while
+  ``torch.backends.cudnn.allow_tf32`` is True, PyTorch's default, so
+  :func:`_conv_same` turns the flag off around its forward and backward
+  convolutions and restores the caller's value after each: FP32, the
+  counterpart of the JAX package's HIGHEST precision, whatever the
+  caller's setting. The head's ``torch.matmul`` follows PyTorch's float32
+  matmul precision, FP32 by default.
 * The training step shards the batch over EVERY mesh axis (the dp x sp
   meshes used elsewhere flatten into one data axis here: convs over the
   frame axis would couple time shards, so the conv model is data-parallel
@@ -27,6 +31,8 @@ Design notes:
 from __future__ import annotations
 
 from typing import Any
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -44,16 +50,53 @@ from .pipelines import TrainableLogMelFrontend, _nll_loss
 ArrayLike = Any
 
 
+@contextmanager
+def _fp32_cudnn():
+    """cuDNN's float32 convolutions in FP32 (no TF32) for the block, the
+    caller's ``torch.backends.cudnn.allow_tf32`` restored after it."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _Conv2dFP32(torch.autograd.Function):
+    """``conv2d`` without padding, its forward and both of its backward
+    convolutions in FP32 (the backward runs after the forward's call has
+    returned, so it sets the flag again)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _fp32_cudnn():
+            return tnf.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _fp32_cudnn():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, w, grad, stride=ctx.stride)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, w.shape, grad, stride=ctx.stride)
+        return gx, gw, None
+
+
 def _conv_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """``lax.conv_general_dilated(x, w, (stride, stride), "SAME")`` in
-    NCHW/OIHW: XLA's SAME padding (``ceil(n / stride)`` outputs; the low
-    side gets ``total // 2`` of the padding, the high side the rest)."""
+    NCHW/OIHW at FP32: XLA's SAME padding (``ceil(n / stride)`` outputs;
+    the low side gets ``total // 2`` of the padding, the high side the
+    rest)."""
     pads = []
     for n, k in ((x.shape[3], w.shape[3]), (x.shape[2], w.shape[2])):
         out = -(-n // stride)
         total = max((out - 1) * stride + k - n, 0)
         pads += [total // 2, total - total // 2]
-    return tnf.conv2d(tnf.pad(x, pads), w, stride=stride)
+    return _Conv2dFP32.apply(tnf.pad(x, pads), w, stride)
 
 
 def standardize_features(feats: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,11 @@ tensor-parallel ones):
   of a replicated value is the sum of its ranks' parts;
 * :func:`all_gather`: a tiled ``all_gather``; backward keeps this rank's
   slice of the cotangent;
-* :func:`pmean_`: an in-place mean over axes for values that take no
-  gradient (a loss, gradients).
+* :func:`all_to_all`: a tiled ``all_to_all`` (``dist.all_to_all_single``);
+  backward is the same exchange with the split and concatenated dimensions
+  swapped;
+* :func:`psum_` and :func:`pmean_`: an in-place sum or mean over axes for
+  values that take no gradient (a loss, gradients).
 
 A group of one rank makes each of them the identity without a call, as
 JAX's collectives over an axis of size 1 are. gloo has no ``AVG``, so a
@@ -154,16 +157,64 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int) -> torch.
     return _AllGather.apply(x, group, dim)
 
 
-def pmean_(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...]) -> torch.Tensor:
-    """``lax.pmean`` over ``axes``, in place, for a tensor that takes no
-    gradient: one SUM ``all_reduce`` per axis, then one divide."""
-    n = 1
+def _exchange(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Split ``split_dim`` into one chunk per rank of ``group``, send chunk
+    ``j`` to rank ``j`` and concatenate what arrives along ``concat_dim``,
+    in rank order."""
+    n = dist.get_world_size(group)
+    moved = x.movedim(split_dim, 0)
+    send = moved.reshape(n, moved.shape[0] // n, *moved.shape[1:]).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # (rank, chunk in x's layout) -> the ranks' chunks side by side on concat_dim
+    chunks = recv.movedim(1, split_dim + 1).movedim(0, concat_dim)
+    shape = list(x.shape)
+    shape[split_dim] //= n
+    shape[concat_dim] *= n
+    return chunks.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.split_dim, ctx.concat_dim = group, split_dim, concat_dim
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group, ctx.concat_dim, ctx.split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: DeviceMesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Tiled ``lax.all_to_all`` over ``axis``: ``split_dim`` is split into
+    one chunk per rank, chunk ``j`` goes to rank ``j`` of the axis, and the
+    chunks that arrive are concatenated along ``concat_dim`` in the axis's
+    rank order. Backward runs the same exchange with the two dimensions
+    swapped, the transpose JAX gives it."""
+    group = _group(mesh, axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.ndim, concat_dim % x.ndim)
+
+
+def psum_(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """``lax.psum`` over ``axes``, in place, for a tensor that takes no
+    gradient: one SUM ``all_reduce`` per axis of more than one rank."""
     for axis in axes:
         group = _group(mesh, axis)
-        size = dist.get_world_size(group)
-        if size > 1:
+        if dist.get_world_size(group) > 1:
             dist.all_reduce(x, group=group)
-            n *= size
+    return x
+
+
+def pmean_(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """``lax.pmean`` over ``axes``, in place, for a tensor that takes no
+    gradient: :func:`psum_`, then one divide."""
+    n = 1
+    for axis in axes:
+        n *= dist.get_world_size(_group(mesh, axis))
+    psum_(x, mesh, axes)
     if n > 1:
         x.div_(n)
     return x

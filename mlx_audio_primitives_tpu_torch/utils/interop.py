@@ -39,7 +39,10 @@ def params_from_jax(tree: Any, device: torch.device | str | None = None) -> Any:
     """The JAX package's parameters (a tree of NumPy arrays, e.g. each leaf
     through ``np.asarray``) as the same tree of float32 tensors on
     ``device`` (CPU when None), for the port's ``models/``. Shapes and
-    layouts are kept: conv weights stay OIHW, the pipeline's stacked blocks
-    keep their leading axis. The tensors are copies: they never alias the
-    caller's buffers."""
+    layouts are kept: conv weights stay OIHW, the pipeline's stacked blocks,
+    the MoE classifier's expert stacks and the transformer's stacked blocks
+    keep their leading axis, the attention weights stay 4-D (``wq``/``wk``/
+    ``wv`` ``(n_blocks, d_model, n_heads, d_head)``, ``wo`` ``(n_blocks,
+    n_heads, d_head, d_model)``), the ``pos`` table ``(n_frames, d_model)``.
+    The tensors are copies: they never alias the caller's buffers."""
     return tree_map(lambda a: torch.tensor(np.asarray(a), dtype=REAL_DTYPE, device=device), tree)

@@ -327,6 +327,55 @@ def test_params_from_jax_copies_as_float32():
         jm.init_deep_classifier_params(jfront(), 4, n_blocks=4, width=8)["stem"]["w"]))
     f64 = params_from_jax({"a": np.arange(3, dtype=np.float64), "b": [np.ones(2)]})
     assert f64["a"].dtype == torch.float32 and f64["b"][0].dtype == torch.float32
+    # the MoE tree's expert stacks and the transformer's 4-D attention
+    # weights and position table keep their shapes and bits
+    moe = host(jm.init_moe_classifier_params(jfront(), 4, n_experts=6, d_hidden=20))
+    tr = host(jm.init_transformer_params(32, 4, n_frames=24, d_model=16, n_heads=2, d_ff=32,
+                                         n_blocks=3))
+    for tree in (moe, tr):
+        got = params_from_jax(tree)
+        for path, a in jax.tree_util.tree_leaves_with_path(tree):
+            b = got
+            for k in path:
+                b = b[k.key]
+            assert b.dtype == torch.float32 and tuple(b.shape) == a.shape
+            np.testing.assert_array_equal(b.numpy(), a, err_msg=jax.tree_util.keystr(path))
+    got = params_from_jax(tr)
+    assert tuple(got["blocks"]["attn"]["wq"].shape) == (3, 16, 2, 8)
+    assert tuple(got["blocks"]["attn"]["wo"].shape) == (3, 2, 8, 16)
+    assert tuple(got["pos"].shape) == (24, 16)
+    assert tuple(params_from_jax(moe)["experts"]["w2"].shape) == (6, 20, 32)
+
+
+def test_conv_same_turns_tf32_off_only_inside_its_calls(monkeypatch):
+    """cuDNN runs float32 convolutions in TF32 while ``allow_tf32`` is True
+    (PyTorch's default): ``_conv_same`` turns it off around its forward and
+    both backward convolutions and gives the caller's value back. On the
+    CPU the flag changes no number; the card check is `chip_smoke.py`'s."""
+    from mlx_audio_primitives_tpu_torch.models import convnet
+
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            seen.append((fn.__name__, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(convnet.tnf, "conv2d", spy(torch.nn.functional.conv2d))
+    monkeypatch.setattr(torch.nn.grad, "conv2d_input", spy(torch.nn.grad.conv2d_input))
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight", spy(torch.nn.grad.conv2d_weight))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.randn(2, 1, 9, 13, requires_grad=True)
+    w = torch.randn(4, 1, 3, 3, requires_grad=True)
+    out = convnet._conv_same(x, w, 2)
+    assert torch.backends.cudnn.allow_tf32 is True
+    out.sum().backward()
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert seen == [("conv2d", False), ("conv2d_input", False), ("conv2d_weight", False)]
+    # the same numbers as the plain convolution on the same padding
+    ref = torch.nn.functional.conv2d(torch.nn.functional.pad(x, [1, 1, 1, 1]), w, stride=2)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -189,18 +189,6 @@ def test_no_port_file_reads_the_jax_packages_native_build():
         assert not re.search(r"(?<![A-Za-z])_tables\.so", text) and "Makefile" not in text, f
 
 
-#: the names of the JAX package's ``models`` that the port leaves to a later
-#: slice: ``expert_parallel`` (Switch MoE over ``all_to_all``) and
-#: ``transformer`` (ring attention)
-MODELS_NOT_PORTED = {
-    "ep_batch_sharding", "init_moe_classifier_params", "make_ep_train_step",
-    "make_ep_tp_train_step", "moe_batch_sharding", "moe_classifier_apply",
-    "moe_param_sharding", "moe_param_specs", "moe_tp_param_sharding", "moe_tp_param_specs",
-    "init_transformer_params", "make_cp_train_step", "ring_attention", "transformer_apply",
-    "transformer_param_sharding", "transformer_param_specs",
-}
-
-
 def test_parallel_holds_the_jax_names():
     import mlx_audio_primitives_tpu.parallel as jp
     import mlx_audio_primitives_tpu_torch.parallel as tp
@@ -209,14 +197,12 @@ def test_parallel_holds_the_jax_names():
     assert all(hasattr(tp, n) for n in tp.__all__)
 
 
-def test_models_holds_the_jax_names_but_sixteen():
+def test_models_holds_the_jax_names():
     import mlx_audio_primitives_tpu.models as jm
     import mlx_audio_primitives_tpu_torch.models as tm
 
-    assert len(MODELS_NOT_PORTED) == 16 and MODELS_NOT_PORTED <= set(jm.__all__)
-    assert tm.__all__ == [n for n in jm.__all__ if n not in MODELS_NOT_PORTED]
+    assert tm.__all__ == jm.__all__ and len(tm.__all__) == 43
     assert all(hasattr(tm, n) for n in tm.__all__)
-    assert not any(hasattr(tm, n) for n in MODELS_NOT_PORTED)
 
 
 def test_parallel_and_models_import_without_jax():
@@ -233,7 +219,8 @@ def test_parallel_and_models_import_without_jax():
 
 SLICE_MODULES = ["parallel.mesh", "parallel.sharding", "parallel.time_shard", "models.pipelines",
                  "models.presets", "models.checkpoint", "models.convnet",
-                 "models.tensor_parallel", "models.pipeline_parallel"]
+                 "models.tensor_parallel", "models.pipeline_parallel", "models.expert_parallel",
+                 "models.transformer"]
 
 
 def _own_public(module) -> list[str]:

@@ -103,7 +103,8 @@ def _flat(tree, prefix="") -> dict:
 def _mesh(kind: str, dims: list[int]):
     from mlx_audio_primitives_tpu_torch import parallel as tp
 
-    make = {"mesh": tp.make_mesh, "tp": tp.make_tp_mesh, "pp": tp.make_pp_mesh}[kind]
+    make = {"mesh": tp.make_mesh, "tp": tp.make_tp_mesh, "pp": tp.make_pp_mesh,
+            "ep": tp.make_ep_mesh, "moe": tp.make_moe_mesh}[kind]
     return make(*dims)
 
 
@@ -332,6 +333,114 @@ def job_pp(inputs, mesh, frontend, n_classes, n_blocks, n_micro, width, y="y_tra
                          inputs[labels], n_steps)
     return {"loss": np.array(losses), "local_blocks": np.array(
         new["blocks"]["w"].to_local().shape), **_flat(new, "p.")}
+
+
+def job_ep(inputs, mesh, frontend, n_experts, d_hidden, tp=False, y="y_train",
+           labels="labels", n_steps=1):
+    """The ep step (on a ``(data, expert)`` mesh) or the ep x tp step (on a
+    ``(data, expert, model)`` mesh), its params placed as a deployment
+    would place them."""
+    from mlx_audio_primitives_tpu_torch import models as tm
+    from mlx_audio_primitives_tpu_torch.parallel.sharding import distribute
+    from mlx_audio_primitives_tpu_torch.utils.tree import tree_map
+
+    m = _mesh("moe" if tp else "ep", mesh)
+    if m.get_coordinate() is None:
+        return {"outside": np.array(True)}
+    make = tm.make_ep_tp_train_step if tp else tm.make_ep_train_step
+    shardings = (tm.moe_tp_param_sharding if tp else tm.moe_param_sharding)(m)
+    params = tree_map(distribute, _params(inputs, "moe_params"), shardings)
+    step = make(m, _frontend(*frontend), n_classes=8, n_experts=n_experts, d_hidden=d_hidden,
+                use_pallas=False)
+    new, losses = _steps(step, params, inputs[y], inputs[labels], n_steps)
+    return {"loss": np.array(losses), "local_w1": np.array(
+        new["experts"]["w1"].to_local().shape), **_flat(new, "p.")}
+
+
+def job_ep_errors(inputs):
+    """The messages of the ep trainers' shape errors on meshes of four ranks."""
+    from mlx_audio_primitives_tpu_torch import models as tm
+    from mlx_audio_primitives_tpu_torch import parallel as tp
+
+    fe = _frontend(22050, 256, 64, 32)
+    ep, moe = tp.make_ep_mesh(1, 4), tp.make_moe_mesh(1, 2, 2)
+    calls = {
+        "ep_experts": lambda: tm.make_ep_train_step(ep, fe, n_experts=6),
+        "ep_tp_experts": lambda: tm.make_ep_tp_train_step(moe, fe, n_experts=3),
+        "ep_tp_hidden": lambda: tm.make_ep_tp_train_step(moe, fe, n_experts=4, d_hidden=33),
+        "ep_batch": lambda: tm.make_ep_train_step(ep, fe, n_classes=8)(
+            tm.init_moe_classifier_params(fe, 8), inputs["y_train"][:6], inputs["labels"][:6]),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = np.array("no error")
+        except ValueError as e:
+            out[name] = np.array(str(e))
+    return out
+
+
+def job_cp(inputs, mesh, frontend, y, labels, n_steps=1, fft_mode="matmul"):
+    from mlx_audio_primitives_tpu_torch.models import make_cp_train_step
+
+    m = _mesh("mesh", mesh)
+    if m.get_coordinate() is None:
+        return {"outside": np.array(True)}
+    sr, n_fft, hop, n_mels = frontend
+    step = make_cp_train_step(m, sr=sr, n_fft=n_fft, hop_length=hop, n_mels=n_mels, n_classes=6,
+                              d_model=16, n_heads=2, d_ff=32, n_blocks=2, fft_mode=fft_mode)
+    new, losses = _steps(step, _params(inputs, "cp_params"), inputs[y], inputs[labels], n_steps)
+    return {"loss": np.array(losses), **_flat(new, "p.")}
+
+
+def job_ring(inputs, mesh):
+    """``ring_attention`` on this rank's blocks of q/k/v sharded over
+    'time', and the gradients of a rank-weighted sum of its output."""
+    import torch
+
+    from mlx_audio_primitives_tpu_torch.models import ring_attention
+    from mlx_audio_primitives_tpu_torch.parallel import TIME_AXIS
+    from mlx_audio_primitives_tpu_torch.parallel.mesh import placements, P
+    from mlx_audio_primitives_tpu_torch.parallel.sharding import from_local, local_shard
+
+    m = _mesh("mesh", mesh)
+    if m.get_coordinate() is None:
+        return {"outside": np.array(True)}
+    place = placements(m, P(None, TIME_AXIS))
+    q, k, v, w = (local_shard(torch.from_numpy(inputs[n]), m, place).requires_grad_(n != "ring_w")
+                  for n in ("ring_q", "ring_k", "ring_v", "ring_w"))
+    out = ring_attention(q, k, v, m[TIME_AXIS])
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+    return {"out": _np(from_local(out.detach(), m, place)),
+            **{f"grad_{n}": _np(from_local(g, m, place)) for n, g in zip("qkv", grads)}}
+
+
+def job_all_to_all(inputs, mesh, split_dim, concat_dim):
+    """``_comm.all_to_all`` over 'expert' of this rank's ``a2a_x[rank]``:
+    the output, and the gradient of ``sum(out * w)`` with ``w`` drawn from
+    ``default_rng(100 + rank)`` in the output's shape."""
+    import torch
+    import torch.distributed as dist
+
+    from mlx_audio_primitives_tpu_torch.parallel import EXPERT_AXIS, _comm
+
+    m = _mesh("ep", mesh)
+    r = dist.get_rank()
+    x = torch.from_numpy(inputs["a2a_x"][r]).requires_grad_(True)
+    out = _comm.all_to_all(x, m, EXPERT_AXIS, split_dim=split_dim, concat_dim=concat_dim)
+    w = torch.from_numpy(np.random.default_rng(100 + r).standard_normal(out.shape)
+                         .astype(np.float32))
+    (grad,) = torch.autograd.grad((out * w).sum(), (x,))
+    return {"out": out.detach().numpy(), "grad": grad.numpy()}
+
+
+def job_tour(inputs, steps):
+    """``examples_torch/multichip_parallelism.run_tour`` in this world."""
+    import importlib
+
+    tour = importlib.import_module("examples_torch.multichip_parallelism")
+    return {k: np.array(v) for k, v in tour.run_tour(steps=steps, device="cpu").items()}
 
 
 JOBS = {name[4:]: fn for name, fn in dict(globals()).items() if name.startswith("job_")}
