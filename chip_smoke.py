@@ -9,17 +9,22 @@ prints only phase 5's device times of K1 and K2m, ``--k3-split DIR`` those
 of K3, ``--k345-split DIR`` those of K3, K4 and K5 and the feature path's
 time, ``--istft-ola DIR`` the public ``istft``'s times at hop 441, and
 ``--k1-ablations`` and ``--k3-ablations`` those of K1 or K3 with
-parts of their work left out, one at a time.
+parts of their work left out, one at a time; ``--acf-split DIR`` K1's ACF
+entry's device time at the ACF shape with its registers and blocks an SM,
+``--acf-ablations`` the same for variants of its source, and
+``--pitch-split DIR`` ``pitch_detect_acf``'s kernel device time and route
+times at 64 x 30 s.
 It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
    source, all at once (timed, and each source's process); for each
-   K1/K2/K2m instance and each K3 instance (one per shape of the radix
-   gate), ptxas's registers and spill bytes (a spill fails the run; for K3
-   also a stack frame), its threads, frames per tile, shared memory per
-   block and resident warps per SM; for each K5 instance (k slots), its
+   K1/K2/K2m instance, each instance of K1's ACF entry and each K3
+   instance (one per shape of the radix gate), ptxas's registers and spill
+   bytes (a spill fails the run; for K3 also a stack frame), its threads,
+   frames per tile, shared memory per block and resident warps per SM; for
+   each K5 instance (k slots), its
    registers, stack frame and spill bytes (either fails the run); then the
    host table library and WAV codec from ``csrc/*.cpp`` with one g++ call
    (timed; the run fails unless it loads: a silent NumPy fallback would
@@ -36,7 +41,9 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
    and K5 at 65,537 clips; K1 at the pitch ACF's shapes, n_fft 4096, hop
    512, no centre pad, the boxcar window, 432 and 331 lag-basis columns,
-   64 x 30 s; the framewise ACF's K1 route against its plain route, on
+   64 x 30 s, through the dense entry and through the ACF entry (the
+   inverse FFT in the kernel, no weight), each against its twin; the
+   framewise ACF's K1 route (the ACF entry) against its plain route, on
    pitched clips and, through ``pitch_detect_acf``, on degenerate frames
    (silence, onset, constant, piecewise constant, DC offsets: masks and f0
    equal on the card's two routes and the CPU); one Griffin-Lim iteration,
@@ -66,7 +73,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       spectrum whose DC and Nyquist bins are not real, K4 tier and plain
       route against the CPU; ``mel_to_audio`` on 16 x 4 s
       (K2 32, K3 33); ``pitch_detect_acf`` and ``periodicity`` at 64 x 30 s
-      (K1 once each) against a float64 oracle of the centered frame ACF;
+      (K1's ACF entry once each, dense K1 never) against a float64 oracle
+      of the centered frame ACF;
       ``yin`` (no kernel) against a float64 YIN; ``piptrack`` (K2m once)
       against the CPU; ``resample`` kaiser_best on 64 x 1 s (44.1 -> 16
       kHz) and 64 x 30 s (22.05 -> 16 kHz) against scipy in float64 with
@@ -172,8 +180,9 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    kaiser_best 64 x 1 s (bench config 4), ``griffinlim`` 32 iterations plus
    ``yin`` on one 1 s clip (bench config 5), ``griffinlim`` and
    ``pitch_detect_acf`` at 64 x 30 s, kernel route against plain route,
-   ``yin`` at 64 x 30 s, and K1's device time at the ACF shape with its
-   bound; the rhythm-and-harmony slice at 64 x 30 s: ``onset_strength``
+   ``yin`` at 64 x 30 s, and at the ACF shape the device and CUDA-event
+   times of K1's ACF entry beside the dense entry with the lag basis and
+   the twin, with both bounds; the rhythm-and-harmony slice at 64 x 30 s: ``onset_strength``
    and ``chroma_stft`` (kernel route against plain route), ``tempo``,
    ``pcen`` and its scan, ``cqt`` and ``chroma_cqt`` with the CQT's peak
    memory, ``beat_track`` of one clip and its DP's host time, and K1's
@@ -517,12 +526,13 @@ def ptxas_rows(log: str) -> dict:
     """ptxas's registers, spill bytes and stack frame bytes of each K1, K2,
     K2m and K3 instance, keyed by (kernel name, log2 of the complex FFT
     size), and for K3 also by n_fft / hop."""
-    names = {"mel_fused_kernelI": "mel_fused_kernel", "stft_kernelI6float2": "stft_kernel",
-             "stft_kernelIf": "stft_mag_kernel", "istft_kernelI": "istft_kernel"}
+    names = {"mel_fused_kernelI": "mel_fused_kernel", "mel_fused_acf_kernelI": "mel_fused_acf_kernel",
+             "stft_kernelI6float2": "stft_kernel", "stft_kernelIf": "stft_mag_kernel",
+             "istft_kernelI": "istft_kernel"}
     rows, entry, spill, frame = {}, None, 0, 0
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(mel_fused_kernelI|stft_kernelI6float2|"
-                      r"stft_kernelIf|istft_kernelI)Li(\d+)E(?:Li(\d+)E)?", ln)
+        m = re.search(r"Compiling entry function '\S*?(mel_fused_kernelI|mel_fused_acf_kernelI|"
+                      r"stft_kernelI6float2|stft_kernelIf|istft_kernelI)Li(\d+)E(?:Li(\d+)E)?", ln)
         if m:
             entry = (names[m.group(1)], int(m.group(2))) + ((int(m.group(3)),) if m.group(3) else ())
             continue
@@ -547,8 +557,8 @@ def fft_occupancy(log: str) -> None:
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
 
     rows = ptxas_rows(log)
-    check(len(rows) == 21 + len(RADIX_GATE),
-          f"ptxas reported {len(rows)} K1/K2/K2m/K3 instances, expected {21 + len(RADIX_GATE)}")
+    check(len(rows) == 28 + len(RADIX_GATE),
+          f"ptxas reported {len(rows)} K1/K2/K2m/K3 instances, expected {28 + len(RADIX_GATE)}")
     dev = torch.device("cuda", 0)
     for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
         hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
@@ -562,11 +572,21 @@ def fft_occupancy(log: str) -> None:
                   f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
                   f"{g['smem_bytes']} B shared per block, {per_sm * g['threads'] // 32} warps per SM")
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
-    # K1 at the pitch ACF's shape: the n_fft 4096 instance (above) at hop 512
+    # K1 at the pitch ACF's shape: the n_fft 4096 instance (above) at hop 512,
+    # and the ACF entry's instances (at hop 512 where n_fft is 4096)
     g = k1.launch_geometry(4096, HOP, dev)
     print(f"  {k1.KERNEL.name} n_fft 4096 hop {HOP} (the pitch ACF): the instance above, "
           f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, {g['smem_bytes']} B "
           f"shared per block, {g['blocks_per_sm'] * g['threads'] // 32} warps per SM")
+    for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
+        hop = HOP if n_fft == 4096 else min(1024, max(128, n_fft // 4))
+        g = k1.launch_geometry(n_fft, hop, dev, acf=True)
+        regs, spill, _ = rows[(k1.KERNEL_ACF.name, n_fft.bit_length() - 2)]
+        print(f"  {k1.KERNEL_ACF.name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes "
+              f"spilled, {g['threads']} threads x {g['frames_per_tile']} frames per tile, "
+              f"{g['smem_bytes']} B shared per block, {g['blocks_per_sm'] * g['threads'] // 32} "
+              f"warps per SM")
+        check(spill == 0, f"{k1.KERNEL_ACF.name} spills at n_fft {n_fft}")
     # K3: one instance per (n_fft, hop); its launch for one clip of 64 frames
     spilled = []
     for n_fft, hop in RADIX_GATE:
@@ -1371,11 +1391,31 @@ def slice_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
               f"{e:.3e} (limit 1e-5)")
         check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its twin at the ACF shape")
         errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
-        # the framewise ACF, K1 route (3xTF32, then the centering algebra)
-        # against the plain route (FP32 rfft and GEMM), same clips: the
-        # normalized ACF within 1e-4 (the JAX package's own limit between
-        # its two routes) and the noise gate's masks equal
-        sk, vk = run(k1.KERNEL, P._framewise_acf_fused, yp, C, frame_length=W, hop_length=HOP,
+        # K1's ACF entry, the public path's: the inverse FFT of the powers
+        # in the kernel, against its twin (the dense twin with the same
+        # basis) and against the dense entry; <= 1e-5 of max
+        kwa = dict(n_fft=n_fft, hop_length=HOP, lo=lo, hi=hi)
+        got_a = run(k1.KERNEL_ACF, k1.acf_fused, ypad, win, **kwa)
+        ref_a = k1.acf_plain(ypad, win, **kwa)
+        e_a, e_d = rel_err(got_a, ref_a), rel_err(got_a, got)
+        # and each against float64 on the first 2 clips
+        lags = torch.cat([torch.zeros(1, dtype=torch.long), torch.arange(lo, hi)]).to(dev)
+        fr = ypad[:2].double().unfold(-1, n_fft, HOP) * win.double()
+        r64 = torch.fft.irfft(torch.fft.rfft(fr).abs() ** 2, n=n_fft)[..., lags].transpose(1, 2)
+        print(f"  K1's ACF entry: rel err {e_a:.3e} against its twin (limit 1e-5), {e_d:.3e} "
+              f"against the dense entry; against float64 (2 clips) the entry "
+              f"{rel_err(got_a[:2], r64):.3e}, the twin {rel_err(ref_a[:2], r64):.3e}, the dense "
+              f"entry {rel_err(got[:2], r64):.3e}")
+        del fr, r64
+        check(got_a.shape == ref_a.shape and e_a <= 1e-5,
+              "K1's ACF entry disagrees with its twin at the ACF shape")
+        errs[k1.KERNEL_ACF.name] = max(errs.get(k1.KERNEL_ACF.name, 0.0), abs_err(got_a, ref_a))
+        del got_a, ref_a
+        # the framewise ACF, K1 route (the ACF entry, then the centering
+        # algebra) against the plain route (FP32 rfft and GEMM), same clips:
+        # the normalized ACF within 1e-4 (the JAX package's own limit
+        # between its two routes) and the noise gate's masks equal
+        sk, vk = run(k1.KERNEL_ACF, P._framewise_acf_fused, yp, frame_length=W, hop_length=HOP,
                      lo=lo, hi=hi)
         sp, vp = P._framewise_acf_plain(yp, C, frame_length=W, hop_length=HOP, lo=lo, hi=hi)
         e = abs_err(sk, sp)
@@ -1390,7 +1430,7 @@ def slice_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     # give equal voicing masks and equal f0 where voiced
     worst = 0.0
     for name, clip in degenerate_clips(dev).items():
-        f0_k, v_k = run(k1.KERNEL, ap.pitch_detect_acf, clip, sr=SR)
+        f0_k, v_k = run(k1.KERNEL_ACF, ap.pitch_detect_acf, clip, sr=SR)
         dispatch.KERNELS_ENABLED = False
         try:
             f0_p, v_p = ap.pitch_detect_acf(clip, sr=SR)
@@ -1610,11 +1650,12 @@ def slice_paths(gen: torch.Generator) -> dict:
     check(rec.shape == y16.shape and e2 <= 1e-2 and abs(e_mel - e_mel_p) <= 1e-3 * e_mel_p,
           "mel_to_audio disagrees with the plain route")
 
-    # pitch_detect_acf and periodicity at 64 x 30 s (defaults): K1 once
-    # each; the first clips against the float64 oracle
-    f0, voiced = counted(f"pitch_detect_acf {FEATURES}", {"mel_fused_kernel": 1},
+    # pitch_detect_acf and periodicity at 64 x 30 s (defaults): K1's ACF
+    # entry once each, the dense entry never; the first clips against the
+    # float64 oracle
+    f0, voiced = counted(f"pitch_detect_acf {FEATURES}", {"mel_fused_acf_kernel": 1},
                          lambda: ap.pitch_detect_acf(y, sr=SR))
-    per = counted(f"periodicity {FEATURES}", {"mel_fused_kernel": 1},
+    per = counted(f"periodicity {FEATURES}", {"mel_fused_acf_kernel": 1},
                   lambda: ap.periodicity(y, sr=SR))
     f0_o, v_o, per_o = acf_oracle(y[:N_ORACLE], 50.0, 2000.0)
     f0c, vc = f0[:N_ORACLE].cpu(), voiced[:N_ORACLE].cpu()
@@ -1686,10 +1727,11 @@ def slice_paths(gen: torch.Generator) -> dict:
     return total
 
 
-def slice_times(gen: torch.Generator) -> None:
+def slice_times(gen: torch.Generator) -> dict:
     """Phase 5's times of the slice: CUDA-event medians of the public paths
-    (kernel route against plain route, in turns), and K1's device time at
-    the ACF shape with its bound."""
+    (kernel route against plain route, in turns), and at the ACF shape K1's
+    ACF entry beside the dense entry and the twin, with both bounds.
+    Returns the ACF entry's row of the kernels line (times and bound)."""
     import mlx_audio_primitives_tpu_torch as ap
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.ops import pitch as P
@@ -1730,7 +1772,11 @@ def slice_times(gen: torch.Generator) -> None:
     t = [cuda_ms(lambda: ap.yin(y, 65.0, 2093.0, sr=SR), 1, 3) for _ in range(2)]
     print(f"yin 64 x 30 s (65-2093 Hz, no kernel): {t[0]:.4f} / {t[1]:.4f}")
 
-    # K1 at the ACF shape: 64 x 30 s, n_fft 4096, hop 512, 432 columns
+    # K1 at the ACF shape: 64 x 30 s, n_fft 4096, hop 512, 432 columns. The
+    # ACF entry (the public path's) beside the dense entry with the lag
+    # basis and the twin, in turns; the bounds of both formulations: the
+    # ACF entry's two real FFTs in FP32 and no weight, the dense entry's
+    # FFT and its contraction as three TF32 products
     W, n_fft = 2048, 4096
     yp = torch.nn.functional.pad(y, (W // 2, W // 2))
     _, ypad = P._acf_prep(yp, frame_length=W, hop_length=HOP)
@@ -1738,22 +1784,31 @@ def slice_times(gen: torch.Generator) -> None:
     C = P._acf_lag_basis(n_fft, lo, hi + 1, device=dev)
     win = P._acf_window_table(W, n_fft, device=dev)
     kw1 = dict(n_fft=n_fft, hop_length=HOP, center=False, pad_mode="constant", power=2.0)
-    dev_ms = kernel_device_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), k1.KERNEL.name, 5)
-    twin = [cuda_ms(lambda: k1.melspectrogram_plain(ypad, win, C, **kw1), 1, 5),
-            cuda_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), 1, 5),
-            cuda_ms(lambda: k1.melspectrogram_fused(ypad, win, C, **kw1), 1, 5),
-            cuda_ms(lambda: k1.melspectrogram_plain(ypad, win, C, **kw1), 1, 5)]
+    kwa = dict(n_fft=n_fft, hop_length=HOP, lo=lo, hi=hi + 1)
+    acf = lambda: k1.acf_fused(ypad, win, **kwa)  # noqa: E731
+    dense = lambda: k1.melspectrogram_fused(ypad, win, C, **kw1)  # noqa: E731
+    plain = lambda: k1.acf_plain(ypad, win, **kwa)  # noqa: E731
+    acf_dev = kernel_device_ms(acf, k1.KERNEL_ACF.name, 5)
+    dense_dev = kernel_device_ms(dense, k1.KERNEL.name, 5)
+    p_a, a_a, d_a = cuda_ms(plain, 1, 5), cuda_ms(acf, 1, 5), cuda_ms(dense, 1, 5)
+    d_b, a_b, p_b = cuda_ms(dense, 1, 5), cuda_ms(acf, 1, 5), cuda_ms(plain, 1, 5)
     B, Lp = ypad.shape
     F, n_bins, n_cols = 1 + (Lp - n_fft) // HOP, n_fft // 2 + 1, C.shape[1]
-    nbytes = 4 * (B * Lp + n_fft + n_bins * n_cols + B * n_cols * F)
-    fp32 = B * F * (n_fft + _rfft_flops(n_fft) + 3 * n_bins)
-    tf32 = 3 * B * F * 2 * n_bins * n_cols
-    bound_ms, bound_by = _bound(nbytes, fp32, tf32)
-    print(f"K1 at the ACF shape ({B}, {Lp}), n_fft {n_fft} hop {HOP}, {n_cols} columns, {F} frames: "
-          f"device {dev_ms:.4f} ms (torch.profiler, 5 calls); events kernel {twin[1]:.4f} / "
-          f"{twin[2]:.4f}, plain {twin[0]:.4f} / {twin[3]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
-          f"{tf32 / 1e9:.1f} GFLOP of TF32 products, {fp32 / 1e9:.1f} GFLOP FP32, "
-          f"{nbytes / 1e6:.1f} MB)")
+    io_bytes = 4 * (B * Lp + n_fft + B * n_cols * F)
+    fft_fp32 = B * F * (n_fft + _rfft_flops(n_fft) + 3 * n_bins)  # window, transform, powers
+    dense_ms, dense_by = _bound(io_bytes + 4 * n_bins * n_cols, fft_fp32, 3 * B * F * 2 * n_bins * n_cols)
+    acf_ms, acf_by = _bound(io_bytes, fft_fp32 + B * F * _rfft_flops(n_fft))
+    print(f"K1 at the ACF shape ({B}, {Lp}), n_fft {n_fft} hop {HOP}, {n_cols} lags, {F} frames: "
+          f"ACF entry device {acf_dev:.4f} ms, dense entry device {dense_dev:.4f} ms "
+          f"(torch.profiler, 5 calls); events ACF entry {a_a:.4f} / {a_b:.4f}, dense entry "
+          f"{d_a:.4f} / {d_b:.4f}, plain {p_a:.4f} / {p_b:.4f}; bound of the ACF entry's "
+          f"formulation {acf_ms:.4f} ({acf_by}: {(fft_fp32 + B * F * _rfft_flops(n_fft)) / 1e9:.1f} "
+          f"GFLOP FP32, {io_bytes / 1e6:.1f} MB), of the dense one {dense_ms:.4f} ({dense_by}: "
+          f"{3 * B * F * 2 * n_bins * n_cols / 1e9:.1f} GFLOP of TF32 products)")
+    bound_ms, bound_by = min((acf_ms, acf_by), (dense_ms, dense_by))
+    return {k1.KERNEL_ACF.name: dict(ms=statistics.median([a_a, a_b]),
+                                     plain_ms=statistics.median([p_a, p_b]), library_ms=None,
+                                     bound_ms=bound_ms, bound_by=bound_by)}
 
 
 def rhythm_clips(gen: torch.Generator, shape: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -3937,7 +3992,7 @@ def times(gen: torch.Generator, card: str) -> dict:
               f"bound {bound_ms:.4f} ({bound_by}{extra})")
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-    slice_times(gen)
+    out.update(slice_times(gen))
     rhythm_times(gen)
     effects_times(gen)
     return out
@@ -4138,6 +4193,79 @@ def k1_split_of(root: str) -> None:
              torch.randn(FEATURES, generator=gen, device=dev), win, fb_t, kw)
 
 
+def acf_split_of(root: str) -> None:
+    """``--acf-split ROOT``: K1's ACF entry at the ACF shape (64 x 30 s, n_fft
+    4096, hop 512, 432 lags) for the port package under ``ROOT``: ptxas's
+    registers and spill bytes of its n_fft 4096 instance (when this process
+    built it), its resident blocks an SM and its device time per call."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops import pitch as P
+
+    _build.library()
+    row = ptxas_rows(_build.build_info.get("log", "")).get((k1.KERNEL_ACF.name, 11))
+    dev = torch.device("cuda", 0)
+    W, n_fft = 2048, 4096
+    yp = torch.nn.functional.pad(pitch_clips(torch.Generator(device="cuda").manual_seed(0), FEATURES),
+                                 (W // 2, W // 2))
+    _, ypad = P._acf_prep(yp, frame_length=W, hop_length=HOP)
+    lo, hi = P._lag_bounds(SR, 50.0, 2000.0)
+    win = P._acf_window_table(W, n_fft, device=dev)
+    kwa = dict(n_fft=n_fft, hop_length=HOP, lo=lo, hi=hi + 1)
+    ms = kernel_device_ms(lambda: k1.acf_fused(ypad, win, **kwa), k1.KERNEL_ACF.name, 10)
+    g = k1.launch_geometry(n_fft, HOP, dev, acf=True)
+    regs = "not rebuilt here" if row is None else f"{row[0]} registers, {row[1]} bytes spilled"
+    print(f"ACF entry, device time per call at 64 x 30 s, n_fft {n_fft}: {ms:.4f} ms "
+          f"(torch.profiler, 10 calls); its n_fft {n_fft} instance: {regs}, "
+          f"{g['blocks_per_sm']} blocks an SM")
+
+
+def pitch_split_of(root: str) -> None:
+    """``--pitch-split ROOT``: ``pitch_detect_acf`` at 64 x 30 s (defaults)
+    for the port package under ``ROOT``: the kernels it launches, each one's
+    device time per call, and the CUDA-event times of the kernel and plain
+    routes in turns."""
+    sys.path.insert(0, os.path.abspath(root))
+    environment()
+    import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import _build
+
+    print(f"pitch_detect_acf of {os.path.dirname(ap.__file__)}:")
+    y = pitch_clips(torch.Generator(device="cuda").manual_seed(0), FEATURES)
+    fn = lambda: ap.pitch_detect_acf(y, sr=SR)  # noqa: E731
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    launched = [k.name for k in _build.KERNELS if k.launches]
+    for name in launched:
+        print(f"  device time of {name} (launched once a call): "
+              f"{kernel_device_ms(fn, name, 5):.4f} ms (torch.profiler, 5 calls)")
+    route_times("  pitch_detect_acf 64 x 30 s (defaults)", fn, 5)
+
+
+#: ACF entry variants (``--acf-ablations``), edits of ``csrc/mel_fused.cu`` as
+#: K1's ablations are: the register bound that gives two blocks an SM at
+#: n_fft 4096, and the later passes' fresh thread indices that keep it free
+#: of spills
+ACF_ABLATIONS = {
+    "one block an SM (no 64-register bound)": [(
+        "                                  mapt::plan_bits(LOG_M, 0) == 4\n"
+        "                                      ? 1\n"
+        "                                      : mapt::kMaxThreads / mapt::Geometry<LOG_M>::NT)\n"
+        "mel_fused_acf_kernel(",
+        "                                  1)\nmel_fused_acf_kernel(")],
+    "the thread's indices kept through the whole inverse": [(
+        "      acf_inverse_first_pass<LOG_M, G::GT>(v, buf + fs * FS, tw_g, twp, t, g);\n    }\n    {\n"
+        "      // its later passes, with the thread's indices read afresh: derived\n"
+        "      // once for the whole inverse, they made ptxas spill at 64 registers\n"
+        "      const int me = opaque(tid), fs = me / T, t = me % T, g = G::GT ? me / G::GT : 0;\n"
+        "      float2 v[mapt::kRegPoints];\n",
+        "      acf_inverse_first_pass<LOG_M, G::GT>(v, buf + fs * FS, tw_g, twp, t, g);\n")],
+}
+
+
 #: K1 ablations (``--k1-ablations``): each edits ``csrc/mel_fused.cu`` of a
 #: copy of the package to leave one part of the work out (the results are
 #: wrong; only the time counts), so that the time that part costs shows
@@ -4254,6 +4382,15 @@ def main() -> None:
         return
     if len(sys.argv) == 2 and sys.argv[1] == "--k1-ablations":
         ablations("K1", "mel_fused.cu", K1_ABLATIONS, "--k1-split", "device time per call, scale")
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--acf-split":
+        acf_split_of(sys.argv[2])
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--pitch-split":
+        pitch_split_of(sys.argv[2])
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "--acf-ablations":
+        ablations("ACF", "mel_fused.cu", ACF_ABLATIONS, "--acf-split", "ACF entry, device time")
         return
     if len(sys.argv) == 2 and sys.argv[1] == "--k3-ablations":
         ablations("K3", "istft_fused.cu", K3_ABLATIONS, "--k3-split",

@@ -299,6 +299,16 @@ static __device__ __forceinline__ void rmove(float2 (&v)[kRegPoints], float2* fb
   }
 }
 
+// The points r = 0..R-1 of pass 0's butterfly u, v[O + r], into the frame
+// buffer fb at positions u + r*S0 (a first pass that owns other
+// butterflies than rpass_pos gives a thread: K3's and K1's ACF entry's)
+template <int S0, int R, int O>
+static __device__ __forceinline__ void store_butterfly(const float2 (&v)[kRegPoints], float2* fb,
+                                                       int u) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) fb[rpidx(u + r * S0)] = v[O + r];
+}
+
 // Barrier of one group of GT threads that owns whole frames: named barrier
 // 1 + g (0 is __syncthreads'), or the whole block when GT is 0. The passes
 // of a frame exchange points only among its own threads, so groups run

@@ -127,15 +127,6 @@ __device__ __forceinline__ void load_bins(Bins<LOG_M, C>& x, const float2* __res
   if (G::R0 == 8 && t == 0) x.xm = __ldcg(Sf + G::M * sk);
 }
 
-// The points r = 0..R-1 of pass 0's butterfly u, v[O + r], into the frame
-// buffer fb at positions u + r*S0
-template <int S0, int R, int O>
-__device__ __forceinline__ void store_butterfly(const float2 (&v)[mapt::kRegPoints], float2* fb,
-                                                int u) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) fb[mapt::rpidx(u + r * S0)] = v[O + r];
-}
-
 // Pass 0 of one frame from its bins (load_bins): the Y points (irfft_pack)
 // into registers, the radix-R0 butterflies and their twiddles, the stores
 // into the frame buffer fb. The pack's twiddles W_N^{t + r*S0} are
@@ -171,10 +162,10 @@ __device__ __forceinline__ void inverse_first_pass(float2 (&v)[mapt::kRegPoints]
     }
     mapt::dft_regs<B0, 0>(v);
     mapt::rtwiddle<S0, 0, 1, R0>(v, tw0, t);
-    store_butterfly<S0, R0, 0>(v, fb, t);
+    mapt::store_butterfly<S0, R0, 0>(v, fb, t);
     mapt::dft_regs<B0, R0>(v);
     mapt::rtwiddle<S0, R0, 1, R0>(v, tw0, u1);
-    store_butterfly<S0, R0, R0>(v, fb, u1);
+    mapt::store_butterfly<S0, R0, R0>(v, fb, u1);
   } else {
     if (t == 0) x.a[0].y = x.b[0].y = 0.f;
 #pragma unroll
@@ -182,7 +173,7 @@ __device__ __forceinline__ void inverse_first_pass(float2 (&v)[mapt::kRegPoints]
       mapt::irfft_pack(x.a[r], x.b[r], __ldg(tw_g + t + r * S0), kScale, v[r], dummy);
     mapt::dft_regs<B0, 0>(v);
     mapt::rtwiddle<S0, 0, 1, R0>(v, tw0, t);
-    store_butterfly<S0, R0, 0>(v, fb, t);
+    mapt::store_butterfly<S0, R0, 0>(v, fb, t);
   }
 }
 

@@ -2,9 +2,11 @@
 //
 // Replaces mlx_audio_primitives_tpu/kernels/mel_fused.py::melspectrogram_pallas
 // (pallas_call in _mel_radix_core). W is any dense (n_bins, n_cols) matrix
-// (mel, MFCC's mel, a centroid's [1, f] moments, chroma, a lag basis); mel
-// sparsity is not used. Frames, spectra and power rows never reach device
-// memory, and the output is written as (B, n_cols, F).
+// (mel, MFCC's mel, a centroid's [1, f] moments, chroma); mel sparsity is
+// not used. Frames, spectra and power rows never reach device memory, and
+// the output is written as (B, n_cols, F). The pitch ACF's weight, the lag
+// basis, is an inverse real DFT: its own entry (mel_fused_acf_launch, below)
+// computes that inverse in place of the contraction.
 //
 // What bounds it on this card. At the scale configuration (256 x 4 s clips,
 // n_fft 2048, 128 columns) the contraction is 11.6 GFLOP: on the CUDA cores
@@ -362,51 +364,322 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
   }
 }
 
-// Open the instance of LOG_M to the whole 227 KB once per device; the
-// blocks a launch keeps resident follow from the shared memory it asks for.
+// ---------------------------------------------------------------------------
+// The ACF entry (mel_fused_acf_launch): K1 at the pitch ACF's weight.
+//
+// Replaces the same pallas_call at the geometry of the framewise ACF
+// (mlx_audio_primitives_tpu/ops/pitch.py::_framewise_acf_fused: the boxcar
+// over half the transform as the window, the lag basis as W, power 2). The
+// lag basis (kernels/mel_fused.py::acf_lag_basis) is cos(2 pi k l / N) / N
+// with the interior bins doubled: the inverse real DFT at lag 0 and lags
+// [lo, hi). So what K1 computes there is
+//   out[b, 0, f] = r_f[0],  out[b, 1 + l - lo, f] = r_f[l],
+//   r_f = irfft_N(|rDFT_N(win * frame_f)|^2),
+// and this entry computes it as that inverse, reading no weight.
+//
+// What bounds it on this card. At 64 x 30 s, n_fft 4096, hop 512 and 432
+// lags the two real FFTs a frame, the window and the powers are 21 GFLOP
+// of FP32 (0.32 ms at the FP32 peak) and the bytes 313 MB (0.09 ms), so
+// operations. The dense entry's contraction read the 3.5 MB weight from L2
+// once per 4-frame tile (~73 GB a call at that shape). The design, per
+// tile of FT frames:
+//
+// - K1's forward front end as it is: the segment staged with cp.async,
+//   first_pass, rexchange_passes; the next tile's segment is staged as soon
+//   as every first pass has read this one's, during the rest of the tile;
+// - the power of each bin pair feeds the inverse's input straight away: a
+//   thread reads Z[k] and Z[M-k] of the bins its own butterflies of the
+//   inverse's pass 0 hold (K3's map: u = t and S0 - t where pass 0 has
+//   radix 8, so each bin is read once), splits the real FFT into X[k] and
+//   X[M-k] as the emits do, and packs |X[k]|^2 and |X[M-k]|^2 as real bins
+//   (irfft_pack's algebra) into Y[k] and Y[M-k], three floats a pair in
+//   its registers; after a barrier of the frame's threads (every read of
+//   the spectrum is done) it runs pass 0 on them and stores them over the
+//   spectrum, in the frame's own buffer;
+// - the inverse's later passes, rexchange_passes as in K3;
+// - the lags read where the passes left them: sample 2m and 2m+1 are
+//   (Re, -Im) of point m at rpidx(rdigit_rev(m)) (K3's overlap-add reads
+//   them so); lanes are frames fastest, so a warp stores FT consecutive
+//   frames of each lag.
+// No hi/lo rows, scratch or partial sums: the frame buffers, the twiddle
+// tables and the segment are the whole shared memory (108.6 KB at n_fft
+// 4096, hop 512: two blocks an SM). tests/test_torch_port_acf_plan.py
+// models the maps and the arithmetic in NumPy.
+
+// The inverse's input at the bin pair (k, M-k) from the spectrum of one
+// frame at z: a = Z[k] at za, c = Z[M-k] at zc (Z[0] for k = 0) and
+// w = W_N^k. The real FFT's bins are X[k] = E + w O and X[M-k] =
+// conj(E - w O), as in the emits. Their powers enter irfft_pack as real
+// bins, where its algebra reduces to Y[k] = (s + a, -b) and Y[M-k] =
+// (s - a, -b), with s = (P_k + P_{M-k}) / N, d = (P_k - P_{M-k}) / N,
+// a = d w.y and b = d w.x (1/N exact): three floats hold both through the
+// barrier before pass 0.
+struct YPair {
+  float s, a, b;
+};
+
 template <int LOG_M>
+__device__ __forceinline__ YPair acf_pair(const float2* z, int za, int zc, float2 w) {
+  constexpr float kScale = 0.5f / (1 << LOG_M);
+  const float2 a = z[za], c = z[zc];
+  const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+  const float dr = 0.5f * (a.x - c.x), di = 0.5f * (a.y + c.y);
+  const float2 o = mapt::cmul(w, make_float2(di, -dr));
+  const float xr = er + o.x, xi = ei + o.y;  // X[k]
+  const float yr = er - o.x, yi = o.y - ei;  // X[M-k]
+  const float pk = xr * xr + xi * xi, pmk = yr * yr + yi * yi;
+  const float d = (pk - pmk) * kScale;
+  return {(pk + pmk) * kScale, d * w.y, d * w.x};
+}
+
+__device__ __forceinline__ float2 y_k(YPair p) { return make_float2(p.s + p.a, -p.b); }
+__device__ __forceinline__ float2 y_mk(YPair p) { return make_float2(p.s - p.a, -p.b); }
+
+// The inverse's pass 0 of the frame at fb, whose buffer holds its forward
+// spectrum Z (digit-reversed), from thread t of the frame's threads (group
+// g of GT): the Y of its butterflies' points (acf_pair), a barrier of the
+// frame's threads, the radix-R0 butterflies and their twiddles, the
+// stores. Radix 8: butterflies u0 = t and u1 = S0 - t, whose points
+// k = t + r*S0 and M - k pair up (point r of u0 with point 7 - r of u1),
+// so each pair of bins is read once and held as one YPair; thread 0 owns
+// u0 = 0 and u1 = T, whose points pair up inside each (r with 8 - r, and
+// r with 7 - r), with Y[0] = (s, -b) (a = 0 at w = 1) and Y[M/2] = (s, 0)
+// (d = 0) in one YPair. The twiddles W_N^{t + r*S0} are W_N^t W_16^r
+// (S0 = N/16). Radix 16: butterfly t alone; the partners M - k of its
+// points are thread S0 - t's, so each pair is read by both threads.
+// k = t + r*S0 and its partner split into bits that do not overlap, so
+// each digit reversal is one done at run time plus a constant.
+template <int LOG_M, int GT>
+__device__ __forceinline__ void acf_inverse_first_pass(float2 (&v)[mapt::kRegPoints], float2* fb,
+                                                       const float2* __restrict__ tw_g,
+                                                       const float2* twp, int t, int g) {
+  constexpr int M = 1 << LOG_M, T = M >> mapt::kRegBits;
+  constexpr int B0 = mapt::plan_bits(LOG_M, 0), R0 = 1 << B0, S0 = M / R0;
+  const float2* tw0 = twp + mapt::rtw_offset(LOG_M, 0);
+  if constexpr (R0 == 8) {
+    static_assert(S0 == 2 * T, "two radix-8 butterflies a thread");
+    YPair p[R0];
+    if (t != 0) {
+      // p[r]: k = t + r*S0
+      const int lo1 = mapt::rdigit_rev(LOG_M, t), lo2 = mapt::rdigit_rev(LOG_M, S0 - t);
+      const float2 wt = __ldg(tw_g + t);
+#pragma unroll
+      for (int r = 0; r < R0; ++r)
+        p[r] = acf_pair<LOG_M>(fb, mapt::rpidx(lo1 + mapt::rdigit_rev(LOG_M, r * S0)),
+                               mapt::rpidx(lo2 + mapt::rdigit_rev(LOG_M, (R0 - 1 - r) * S0)),
+                               r ? mapt::cmul(wt, mapt::w16(r)) : wt);
+    } else {
+      // p[r], r < 4: k = T + r*S0; p[4 + r], 0 < r < 4: k = r*S0;
+      // p[4]: Y[0] and Y[M/2]
+      const float2 wT = __ldg(tw_g + T);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[r] = acf_pair<LOG_M>(fb, mapt::rpidx(mapt::rdigit_rev(LOG_M, T + r * S0)),
+                               mapt::rpidx(mapt::rdigit_rev(LOG_M, T + (R0 - 1 - r) * S0)),
+                               r ? mapt::cmul(wT, mapt::w16(r)) : wT);
+#pragma unroll
+      for (int r = 1; r < 4; ++r)
+        p[4 + r] = acf_pair<LOG_M>(fb, mapt::rpidx(mapt::rdigit_rev(LOG_M, r * S0)),
+                                   mapt::rpidx(mapt::rdigit_rev(LOG_M, (R0 - r) * S0)),
+                                   mapt::w16(r));
+      const YPair e0 = acf_pair<LOG_M>(fb, 0, 0, mapt::w16(0));
+      const YPair e4 = acf_pair<LOG_M>(fb, mapt::rpidx(mapt::rdigit_rev(LOG_M, M / 2)),
+                                       mapt::rpidx(mapt::rdigit_rev(LOG_M, M / 2)), mapt::w16(4));
+      p[4] = {e0.s, e4.s, e0.b};
+    }
+    mapt::group_sync<GT>(g);  // every read of the frame's spectrum is done
+    if (t != 0) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        v[r] = y_k(p[r]);
+        v[2 * R0 - 1 - r] = y_mk(p[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        v[R0 + r] = y_k(p[r]);
+        v[2 * R0 - 1 - r] = y_mk(p[r]);
+      }
+#pragma unroll
+      for (int r = 1; r < 4; ++r) {
+        v[r] = y_k(p[4 + r]);
+        v[R0 - r] = y_mk(p[4 + r]);
+      }
+      v[0] = make_float2(p[4].s, -p[4].b);
+      v[R0 / 2] = make_float2(p[4].a, 0.f);
+    }
+    const int u1 = t ? S0 - t : T;
+    mapt::dft_regs<B0, 0>(v);
+    mapt::rtwiddle<S0, 0, 1, R0>(v, tw0, t);
+    mapt::store_butterfly<S0, R0, 0>(v, fb, t);
+    mapt::dft_regs<B0, R0>(v);
+    mapt::rtwiddle<S0, R0, 1, R0>(v, tw0, u1);
+    mapt::store_butterfly<S0, R0, R0>(v, fb, u1);
+  } else {
+    static_assert(R0 == 16 && S0 == T, "one radix-16 butterfly a thread");
+    const int lo1 = mapt::rdigit_rev(LOG_M, t), lo2 = t ? mapt::rdigit_rev(LOG_M, S0 - t) : 0;
+#pragma unroll
+    for (int r = 0; r < R0; ++r)
+      v[r] = y_k(acf_pair<LOG_M>(
+          fb, mapt::rpidx(lo1 + mapt::rdigit_rev(LOG_M, r * S0)),
+          mapt::rpidx(lo2 + (t ? mapt::rdigit_rev(LOG_M, (R0 - 1 - r) * S0)
+                               : mapt::rdigit_rev(LOG_M, ((R0 - r) & (R0 - 1)) * S0))),
+          __ldg(tw_g + t + r * S0)));
+    mapt::group_sync<GT>(g);  // every read of the frame's spectrum is done
+    mapt::dft_regs<B0, 0>(v);
+    mapt::rtwiddle<S0, 0, 1, R0>(v, tw0, t);
+    mapt::store_butterfly<S0, R0, 0>(v, fb, t);
+  }
+}
+
+// Registers are held to 64 a thread (1024 threads an SM) where pass 0 has
+// radix 8, as in K3's instances; radix 16 holds 32 bins at once.
+template <int LOG_M>
+__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT,
+                                  mapt::plan_bits(LOG_M, 0) == 4
+                                      ? 1
+                                      : mapt::kMaxThreads / mapt::Geometry<LOG_M>::NT)
+mel_fused_acf_kernel(const float* __restrict__ y, long long L,
+                     const float* __restrict__ win,
+                     const float2* __restrict__ tw_g,
+                     float* __restrict__ out,
+                     int hop, int F, int lo, int n_out, int pad, int mode, int tiles, int total) {
+  using G = mapt::Geometry<LOG_M>;
+  constexpr int M = G::M, T = G::T, FT = G::FT, NT = G::NT, FS = G::FS;
+  extern __shared__ float4 smem4[];
+  float2* buf = reinterpret_cast<float2*>(smem4);
+  float2* twp = buf + G::TW_OFF;
+  float* seg = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + G::SEG_OFF_BYTES);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  const int tid = threadIdx.x;
+  const int seg_len = (FT - 1) * hop + 2 * M;
+
+  static_assert(mapt::rtw_offset(LOG_M, mapt::plan_passes(LOG_M)) <= M, "twiddle tables fit");
+  mapt::stage_twiddles<LOG_M>(twp, tw_g, tid, NT);
+  int tile = blockIdx.x;
+  int off = mapt::stage_segment(y + static_cast<long long>(tile / tiles) * L, L,
+                                static_cast<long long>(tile % tiles) * FT * hop - pad, seg_len,
+                                mode, seg, tid, NT);
+  mapt::cp_async_wait_all();
+  __syncthreads();
+
+  for (; tile < total; tile += gridDim.x) {
+    {
+      // the forward transform, as the dense entry's
+      const int me = opaque(tid), fs = me / T, t = me % T;
+      float2* fb = buf + fs * FS;
+      float2 v[mapt::kRegPoints];
+      const float* fr = seg + off + fs * hop;
+      if (off & 1)
+        mapt::first_pass<LOG_M, false>(v, fr, win2, fb, twp, t);
+      else
+        mapt::first_pass<LOG_M, true>(v, fr, win2, fb, twp, t);
+      mapt::rexchange_passes<LOG_M, 1, G::GT>(fb, v, twp, t, G::GT ? me / G::GT : 0);
+    }
+    __syncthreads();  // the spectra are complete and the segment is read
+    // copy the next tile's segment during the inverse and the emit
+    const int next = tile + gridDim.x;
+    if (next < total)
+      off = mapt::stage_segment(y + static_cast<long long>(next / tiles) * L, L,
+                                static_cast<long long>(next % tiles) * FT * hop - pad,
+                                seg_len, mode, seg, tid, NT);
+    {
+      // the inverse of the powers, in the frame's own buffer: its pass 0
+      const int me = opaque(tid), fs = me / T, t = me % T, g = G::GT ? me / G::GT : 0;
+      float2 v[mapt::kRegPoints];
+      acf_inverse_first_pass<LOG_M, G::GT>(v, buf + fs * FS, tw_g, twp, t, g);
+    }
+    {
+      // its later passes, with the thread's indices read afresh: derived
+      // once for the whole inverse, they made ptxas spill at 64 registers
+      const int me = opaque(tid), fs = me / T, t = me % T, g = G::GT ? me / G::GT : 0;
+      float2 v[mapt::kRegPoints];
+      mapt::rexchange_passes<LOG_M, 1, G::GT>(buf + fs * FS, v, twp, t, g);
+    }
+    __syncthreads();  // every frame's lags are in place
+    {
+      // column j holds lag 0 (j = 0) or lag lo + j - 1; lanes frames fastest
+      const int b = tile / tiles, f0 = (tile % tiles) * FT;
+      const int me = opaque(tid), fl = me & (FT - 1), n_out_ = opaque(n_out);
+      float* ob = out + static_cast<long long>(b) * n_out_ * F + f0 + fl;
+      if (f0 + fl < F) {
+        for (int j = me >> G::LOG_FT; j < n_out_; j += NT / FT) {
+          const int l = j ? lo + j - 1 : 0;
+          const float2 z = buf[fl * FS + mapt::rpidx(mapt::rdigit_rev(LOG_M, l >> 1))];
+          ob[static_cast<long long>(j) * F] = (l & 1) ? -z.y : z.x;
+        }
+      }
+    }
+    mapt::cp_async_wait_all();
+    __syncthreads();
+  }
+}
+
+// The instance of LOG_M of the dense entry (ACF false) or the ACF entry
+template <int LOG_M, bool ACF>
+const void* kernel_of() {
+  if constexpr (ACF)
+    return reinterpret_cast<const void*>(mel_fused_acf_kernel<LOG_M>);
+  else
+    return reinterpret_cast<const void*>(mel_fused_kernel<LOG_M>);
+}
+
+// Open an instance to the whole 227 KB once per device; the blocks a
+// launch keeps resident follow from the shared memory it asks for.
+template <int LOG_M, bool ACF>
 cudaError_t open_smem(int device) {
   static bool opened[kMaxDevices];
   if (opened[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      mel_fused_kernel<LOG_M>, cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
+      kernel_of<LOG_M, ACF>(), cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
   opened[device] = err == cudaSuccess;
   return err;
 }
 
-// Per device: the grid of the last shared-memory size launched (SMs times
-// resident blocks), so the occupancy query runs once per size, not per call
+// Per device and instance: the grid of the last shared-memory size launched
+// (SMs times resident blocks), so the occupancy query runs once per size,
+// not per call
+template <int LOG_M, bool ACF>
+cudaError_t grid_slots(size_t smem, int device, int* grid) {
+  using G = mapt::Geometry<LOG_M>;
+  static size_t sized[kMaxDevices];
+  static int slots[kMaxDevices];
+  if (sized[device] != smem) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = open_smem<LOG_M, ACF>(device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of<LOG_M, ACF>(),
+                                                          G::NT, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots[device] = sms * per_sm;
+    sized[device] = smem;
+  }
+  *grid = slots[device];
+  return cudaSuccess;
+}
+
 template <int LOG_M>
 int launch_m(const float* y, long long L, const float* win, const float* tw, const float* W,
              float* out, int B, int hop, int F, int n_cols, int pad, int mode, int power,
              int device, cudaStream_t stream) {
   using G = mapt::Geometry<LOG_M>;
-  static size_t sized[kMaxDevices];
-  static int slots[kMaxDevices];
   const size_t smem = G::smem(hop);
   // the power rows' scratch takes the segment buffer of the least hop the
   // radix gate admits (n_fft/hop <= 8, hop >= 128)
   if (smem > mapt::kSmemLimit || 8 * hop < 2 * G::M || hop < 128 || device < 0 ||
       device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (sized[device] != smem) {
-    int per_sm = 0, sms = 0;
-    cudaError_t err = open_smem<LOG_M>(device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_fused_kernel<LOG_M>,
-                                                          G::NT, smem);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    slots[device] = sms * per_sm;
-    sized[device] = smem;
-  }
+  int slots = 0;
+  const cudaError_t err = grid_slots<LOG_M, false>(smem, device, &slots);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (F + G::FT - 1) / G::FT;
   const long long total = static_cast<long long>(B) * tiles;
   if (total <= 0 || n_cols <= 0) return static_cast<int>(cudaSuccess);
   if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(total < slots[device] ? total : slots[device]);
+  const int grid = static_cast<int>(total < slots ? total : slots);
   // m-tiles of 16 columns; k-slices per m-tile to fill the block's warps
   const int n_mt = (n_cols + 15) / 16;
   const int n_ks = G::NT / 32 / n_mt > 1 ? G::NT / 32 / n_mt : 1;
@@ -416,9 +689,32 @@ int launch_m(const float* y, long long L, const float* win, const float* tw, con
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LOG_M>
+int acf_launch_m(const float* y, long long L, const float* win, const float* tw, float* out,
+                 int B, int hop, int F, int lo, int hi, int pad, int mode, int device,
+                 cudaStream_t stream) {
+  using G = mapt::Geometry<LOG_M>;
+  const size_t smem = G::smem(hop);
+  if (smem > mapt::kSmemLimit || hop < 1 || device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (lo < 0 || hi <= lo || hi > 2 * G::M) return static_cast<int>(cudaErrorInvalidValue);
+  int slots = 0;
+  const cudaError_t err = grid_slots<LOG_M, true>(smem, device, &slots);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (F + G::FT - 1) / G::FT;
+  const long long total = static_cast<long long>(B) * tiles;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(total < slots ? total : slots);
+  mel_fused_acf_kernel<LOG_M><<<grid, G::NT, smem, stream>>>(
+      y, L, win, reinterpret_cast<const float2*>(tw), out, hop, F, lo, 1 + hi - lo, pad, mode,
+      tiles, static_cast<int>(total));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // info = {threads per block, frames per tile, dynamic shared memory per
 // block, resident blocks per SM}
-template <int LOG_M>
+template <int LOG_M, bool ACF>
 int geometry_m(int hop, int device, int* info) {
   using G = mapt::Geometry<LOG_M>;
   const size_t smem = G::smem(hop);
@@ -426,12 +722,15 @@ int geometry_m(int hop, int device, int* info) {
   info[1] = G::FT;
   info[2] = static_cast<int>(smem);
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = open_smem<LOG_M>(device);
+  cudaError_t err = open_smem<LOG_M, ACF>(device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], mel_fused_kernel<LOG_M>,
-                                                        G::NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel_of<LOG_M, ACF>(), G::NT,
+                                                        smem);
   return static_cast<int>(err);
 }
+
+// The instances: n_fft = 2^(LOG_M+1), 128 .. 8192
+#define MAPT_K1_LOG_MS(X) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
 
 }  // namespace
 
@@ -444,28 +743,41 @@ extern "C" int mel_fused_launch(const float* y, long long L, const float* win,
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-    case 6: return launch_m<6>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 7: return launch_m<7>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 8: return launch_m<8>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 9: return launch_m<9>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 10: return launch_m<10>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 11: return launch_m<11>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    case 12: return launch_m<12>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
+#define MAPT_CASE(LM) \
+  case LM: return launch_m<LM>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" int mel_fused_geometry(int n_fft, int hop, int device, int* info) {
+// The ACF entry: out (B, 1 + hi - lo, F) = lag 0 and lags [lo, hi) of
+// irfft(|rDFT(win * frame)|^2) of each frame
+extern "C" int mel_fused_acf_launch(const float* y, long long L, const float* win,
+                                    const float* tw, float* out, int B, int n_fft, int hop,
+                                    int F, int lo, int hi, int pad, int mode, int device,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
+#define MAPT_CASE(LM) \
+  case LM: return acf_launch_m<LM>(y, L, win, tw, out, B, hop, F, lo, hi, pad, mode, device, s);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// acf: the ACF entry's instance (else the dense entry's)
+extern "C" int mel_fused_geometry(int n_fft, int hop, int acf, int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-    case 6: return geometry_m<6>(hop, device, info);
-    case 7: return geometry_m<7>(hop, device, info);
-    case 8: return geometry_m<8>(hop, device, info);
-    case 9: return geometry_m<9>(hop, device, info);
-    case 10: return geometry_m<10>(hop, device, info);
-    case 11: return geometry_m<11>(hop, device, info);
-    case 12: return geometry_m<12>(hop, device, info);
+#define MAPT_CASE(LM) \
+  case LM: return acf ? geometry_m<LM, true>(hop, device, info) : geometry_m<LM, false>(hop, device, info);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,15 +33,29 @@ overlap with the contraction inside a block) are what remain
 The TPU kernel's radix decimation, folded filterbank (``fold_filterbank``),
 128-lane group layout, VMEM block picker and DMA double buffering have no
 counterpart: this kernel emits natural bin order, so W is used as given.
+
+The ACF entry (``mel_fused_acf_kernel``, :func:`acf_fused`). The pitch
+ACF's weight, :func:`acf_lag_basis`, is the inverse real DFT at lag 0 and
+lags [lo, hi), so K1 with it at power 2 is ``irfft(|rDFT(win * frame)|^2)``
+read at those lags. This entry computes that inverse in the kernel: the
+forward front end as above, the powers of each bin pair packed straight
+into the inverse's input (``irfft_pack``'s algebra for real bins) and its
+pass 0 in registers, the inverse's later passes, and the lags read where
+the passes leave them.
+It reads no weight: at n_fft 4096 with 432 lags the dense contraction read
+the 3.5 MB basis from L2 once per 4-frame tile. Its bound is the two FFTs'
+FP32 operations.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..ops._frames import windowed_frames
+from ..utils.cache import table_cache
 from ..utils.dispatch import on_cuda, radix_shape_ok
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
@@ -52,20 +66,29 @@ KERNEL = register(Kernel(
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
+#: K1's ACF entry: the same pallas_call at the framewise ACF's geometry
+#: (`mlx_audio_primitives_tpu/ops/pitch.py::_framewise_acf_fused`)
+KERNEL_ACF = register(Kernel(
+    "mel_fused_acf_kernel", "mel_fused_acf_launch",
+    (P, I64, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32),
+    source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
+    replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
+))
 
 #: pad_mode -> the kernels' padding code (fft_common.cuh::padded_sample)
 PAD_CODES = {"constant": 0, "reflect": 1, "edge": 2}
 
 
-def launch_geometry(n_fft: int, hop_length: int, device: torch.device) -> dict:
-    """K1's launch at ``(n_fft, hop_length)`` on a CUDA ``device``: threads
-    per block, frames per tile, dynamic shared memory per block (bytes) and
-    resident blocks per SM."""
+def launch_geometry(n_fft: int, hop_length: int, device: torch.device, *,
+                    acf: bool = False) -> dict:
+    """K1's launch at ``(n_fft, hop_length)`` on a CUDA ``device`` (the ACF
+    entry's with ``acf``): threads per block, frames per tile, dynamic
+    shared memory per block (bytes) and resident blocks per SM."""
     fn = library().mel_fused_geometry
-    fn.argtypes = [I32, I32, I32, P]
+    fn.argtypes = [I32, I32, I32, I32, P]
     fn.restype = I32
     info = (ctypes.c_int * 4)()
-    err = fn(n_fft, hop_length, device.index, ctypes.cast(info, P))
+    err = fn(n_fft, hop_length, int(acf), device.index, ctypes.cast(info, P))
     if err != 0:
         raise RuntimeError(f"mel_fused_geometry failed: CUDA error {err}")
     return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
@@ -154,3 +177,64 @@ def melspectrogram_fused(
     if not on_cuda(y, win, fb_t):
         return melspectrogram_plain(y, win, fb_t, **kw)
     return with_plain_backward(_launch, melspectrogram_plain, y, win, fb_t, **kw)
+
+
+@table_cache("acf_lag_basis", maxsize=8)
+def acf_lag_basis(n_fft: int, lo: int, hi: int) -> np.ndarray:
+    """``(n_fft//2+1, 1 + hi - lo)`` inverse-rDFT columns for lag 0 (the
+    normalizer) and lags [lo, hi): ``r[l] = sum_k c_k P_k cos(2 pi k l/N)``
+    with the hermitian weights ``c`` folded in (host float64)."""
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)
+    lags = np.concatenate([[0], np.arange(lo, hi)]).astype(np.float64)
+    C = np.cos(2.0 * np.pi * np.outer(k, lags) / n_fft) / n_fft
+    C[1:-1] *= 2.0  # interior rfft bins stand for two full-DFT bins
+    return C
+
+
+def acf_plain(ypad: torch.Tensor, win: torch.Tensor, *, n_fft: int, hop_length: int, lo: int,
+              hi: int) -> torch.Tensor:
+    """Plain twin of the ACF entry: K1's plain twin with the lag basis as
+    its weight, at power 2 without a centre pad -> ``(B, 1 + hi - lo, F)``."""
+    return melspectrogram_plain(ypad, win, acf_lag_basis(n_fft, lo, hi, device=ypad.device),
+                                n_fft=n_fft, hop_length=hop_length, center=False,
+                                pad_mode="constant", power=2.0)
+
+
+def _launch_acf(ypad, win, *, n_fft, hop_length, lo, hi):
+    require(ypad, "ypad", torch.float32, 2)
+    require(win, "win", torch.float32, 1)
+    if win.shape[0] != n_fft:
+        raise ValueError(f"mel_fused_acf_kernel needs win ({n_fft},); got {tuple(win.shape)}")
+    B, L = ypad.shape
+    F = 1 + (L - n_fft) // hop_length
+    tw = rfft_twiddles(n_fft, device=ypad.device)
+    out = torch.empty((B, 1 + hi - lo, F), dtype=torch.float32, device=ypad.device)
+    KERNEL_ACF.launch(ypad.device, ypad.data_ptr(), L, win.data_ptr(), tw.data_ptr(),
+                      out.data_ptr(), B, n_fft, hop_length, F, lo, hi, 0, PAD_CODES["constant"])
+    return out
+
+
+def acf_fused(ypad: torch.Tensor, win: torch.Tensor, *, n_fft: int, hop_length: int, lo: int,
+              hi: int) -> torch.Tensor:
+    """Lag 0 and lags [lo, hi) of ``irfft(|rDFT(win * frame)|^2)`` of each
+    frame of ``ypad`` (B, L), uncentred frames, no pad: ``(B, 1 + hi - lo,
+    F)``, what :func:`melspectrogram_fused` gives with the weight
+    :func:`acf_lag_basis` at power 2. Through ``mel_fused_acf_kernel`` on a
+    CUDA tensor, through the plain twin on a CPU tensor.
+
+    Requires the radix shape gate and ``0 <= lo < hi <= n_fft``. The
+    backward differentiates the plain twin."""
+    if not radix_shape_ok(n_fft, hop_length):
+        raise ValueError(
+            f"fused ACF kernel requires pow2 n_fft = C*hop, hop = R2*128, C,R2 <= 8; "
+            f"got n_fft={n_fft}, hop={hop_length}"
+        )
+    if not 0 <= lo < hi <= n_fft:
+        raise ValueError(f"fused ACF kernel needs 0 <= lo < hi <= n_fft; got lo={lo}, hi={hi}, "
+                         f"n_fft={n_fft}")
+    if ypad.shape[1] < n_fft:
+        raise ValueError(f"signal length ({ypad.shape[1]}) must be >= n_fft ({n_fft})")
+    kw = dict(n_fft=n_fft, hop_length=hop_length, lo=lo, hi=hi)
+    if not on_cuda(ypad, win):
+        return acf_plain(ypad, win, **kw)
+    return with_plain_backward(_launch_acf, acf_plain, ypad, win, **kw)

@@ -10,14 +10,15 @@ input tensor; a non-tensor input goes to the default device
   overlap-save form whose chunk spectra are summed before one small
   inverse.
 * The framewise ACF behind ``pitch_detect_acf`` and ``periodicity`` has two
-  routes. The kernel route runs the fused filterbank kernel (K1,
-  `kernels/mel_fused.py`) with a boxcar over half the transform as the
-  window and the restricted inverse-DFT lag basis as the weight: the
-  uncentered ACF at lag 0 and the searched lags, frames never stored; the
-  per-frame mean centering is then restored exactly from hop-row sums and
-  short head/tail cumsums. The plain route frames, centres, takes
-  ``|rfft|^2`` and one FP32 GEMM with the same lag basis. Both gate noise
-  frames exactly as the JAX package's two routes do.
+  routes. The kernel route runs K1's ACF entry (`kernels/mel_fused.py::
+  acf_fused`) with a boxcar over half the transform as the window: the
+  inverse real FFT of each frame's ``|rfft|^2`` read at lag 0 and the
+  searched lags, which is what the JAX package's fused kernel computes with
+  the restricted inverse-DFT lag basis as its weight; frames never stored.
+  The per-frame mean centering is then restored exactly from hop-row sums
+  and short head/tail cumsums. The plain route frames, centres, takes
+  ``|rfft|^2`` and one FP32 GEMM with the lag basis. Both gate noise frames
+  exactly as the JAX package's two routes do.
 * ``yin`` computes the difference function directly (squared differences
   summed per lag), vectorised over chunks of lags: the FFT identity
   cancels catastrophically in float32 on silence->onset frames.
@@ -34,7 +35,8 @@ import torch
 
 from .._config import REAL_DTYPE
 from ..kernels.dft import _next_pow2, rfft_len, rfft_power_len
-from ..kernels.mel_fused import melspectrogram_fused
+from ..kernels.mel_fused import acf_fused
+from ..kernels.mel_fused import acf_lag_basis as _acf_lag_basis
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.validation import validate_positive
@@ -126,18 +128,6 @@ def autocorrelation(
     return r[0] if input_is_1d else r
 
 
-@table_cache("acf_lag_basis", maxsize=8)
-def _acf_lag_basis(n_fft: int, lo: int, hi: int) -> np.ndarray:
-    """``(n_fft//2+1, 1 + hi - lo)`` inverse-rDFT columns for lag 0 (the
-    normalizer) and lags [lo, hi): ``r[l] = sum_k c_k P_k cos(2 pi k l/N)``
-    with the hermitian weights ``c`` folded in (host float64)."""
-    k = np.arange(n_fft // 2 + 1, dtype=np.float64)
-    lags = np.concatenate([[0], np.arange(lo, hi)]).astype(np.float64)
-    C = np.cos(2.0 * np.pi * np.outer(k, lags) / n_fft) / n_fft
-    C[1:-1] *= 2.0  # interior rfft bins stand for two full-DFT bins
-    return C
-
-
 @table_cache("acf_window", maxsize=8)
 def _acf_window_table(W: int, n_fft: int) -> np.ndarray:
     """Boxcar over the frame, zeros over the transform's zero-pad region."""
@@ -163,15 +153,14 @@ def _framewise_acf(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-frame normalized ACF restricted to lags [lo, hi): ``(search,
     valid)``, ``search`` ``(B, F, hi-lo)`` and ``valid`` ``(B, F)``, the
-    frames with energy above the noise floor. K1 on a CUDA tensor where
-    the gate admits, else the plain route."""
+    frames with energy above the noise floor. K1's ACF entry on a CUDA
+    tensor where the gate admits, else the plain route."""
     n_fft = _next_pow2(2 * frame_length - 1)
-    C = _acf_lag_basis(n_fft, lo, hi, device=y.device)
     kw = dict(frame_length=frame_length, hop_length=hop_length, lo=lo, hi=hi)
     if (dispatch.kernel_route(None, y.device)
             and _acf_kernel_route(n_fft, frame_length, hop_length, lo, hi)):
-        return _framewise_acf_fused(y, C, **kw)
-    return _framewise_acf_plain(y, C, **kw)
+        return _framewise_acf_fused(y, **kw)
+    return _framewise_acf_plain(y, _acf_lag_basis(n_fft, lo, hi, device=y.device), **kw)
 
 
 def _framewise_acf_plain(
@@ -214,18 +203,19 @@ def _acf_prep(y: torch.Tensor, *, frame_length: int, hop_length: int):
 
 
 def _framewise_acf_fused(
-    y: torch.Tensor, C: torch.Tensor, *, frame_length: int, hop_length: int, lo: int, hi: int
+    y: torch.Tensor, *, frame_length: int, hop_length: int, lo: int, hi: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel route: K1 with window ``[1]*W + [0]*(n_fft-W)`` and the
-    lag basis as its weight, at power 2 without a centre pad, gives the
-    uncentered linear ACF at lag 0 and lags [lo, hi) of every frame;
-    :func:`_acf_center_correct` then centres it exactly."""
+    """The kernel route: K1's ACF entry with window ``[1]*W + [0]*(n_fft-W)``
+    gives the uncentered linear ACF at lag 0 and lags [lo, hi) of every
+    frame (what K1 gives with the lag basis as its weight at power 2,
+    without a centre pad); :func:`_acf_center_correct` then centres it
+    exactly."""
     W = frame_length
     n_fft = _next_pow2(2 * W - 1)
     win = _acf_window_table(W, n_fft, device=y.device)
     yc, ypad = _acf_prep(y, frame_length=W, hop_length=hop_length)
-    raw = melspectrogram_fused(ypad, win, C, n_fft=n_fft, hop_length=hop_length, center=False,
-                               pad_mode="constant", power=2.0)  # (B, 1 + hi - lo, F)
+    raw = acf_fused(ypad, win, n_fft=n_fft, hop_length=hop_length, lo=lo,
+                    hi=hi)  # (B, 1 + hi - lo, F)
     return _acf_center_correct(yc, ypad, raw, frame_length=W, hop_length=hop_length,
                                lo=lo, hi=hi)
 

@@ -105,21 +105,71 @@ def test_pitch_detect_acf_matches_jax(case, config, jax_route, port_route):
 
 
 def test_kernel_route_runs_k1_with_the_lag_basis(port_route, monkeypatch):
-    """The kernel route calls K1's wrapper once, with the boxcar window
-    over half the transform and the (n_bins, 1 + hi - lo) lag basis at
-    power 2 without a centre pad; the plain route never calls it."""
+    """The kernel route calls K1's ACF entry (``acf_fused``, which computes
+    what K1 gives with the lag basis as its weight) once, with the boxcar
+    window over half the transform and the lag window (lo, hi); the plain
+    route never calls it."""
     calls = []
-    real = tap_pitch.melspectrogram_fused
+    real = tap_pitch.acf_fused
 
-    def spy(y, win, w, **kw):
-        calls.append((int(win.sum()), tuple(win.shape), tuple(w.shape), kw["center"], kw["power"]))
-        return real(y, win, w, **kw)
+    def spy(y, win, **kw):
+        calls.append((int(win.sum()), tuple(win.shape), kw["n_fft"], kw["hop_length"], kw["lo"],
+                      kw["hi"]))
+        return real(y, win, **kw)
 
-    monkeypatch.setattr(tap_pitch, "melspectrogram_fused", spy)
+    monkeypatch.setattr(tap_pitch, "acf_fused", spy)
     tap.pitch_detect_acf(CASES["tones"](), sr=SR, **ACF)
     lo, hi = tap_pitch._lag_bounds(SR, ACF["fmin"], ACF["fmax"])
-    want = [(512, (1024,), (513, 1 + min(hi + 1, 1024) - lo), False, 2.0)]
+    want = [(512, (1024,), 1024, ACF["hop_length"], lo, min(hi + 1, 1024))]
     assert calls == (want if port_route == "kernels" else [])
+
+
+def _acf_shape(config: str) -> tuple[int, int, int, int, int]:
+    """(W, hop, n_fft, lo, hi) of ``pitch_detect_acf`` at a config."""
+    kw = CONFIGS[config]
+    W, hop = kw["frame_length"], kw["hop_length"]
+    n_fft = 2 * W
+    lo, hi = tap_pitch._lag_bounds(SR, kw.get("fmin", 50.0), kw.get("fmax", 2000.0))
+    return W, hop, n_fft, lo, min(hi + 1, n_fft)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("case", list(CASES))
+def test_acf_entry_matches_the_jax_kernel(case, config):
+    """K1's ACF entry on its CPU route (its plain twin) against the JAX
+    package's fused kernel with the lag basis (interpret mode, exact GEMMs)
+    on the same padded signal, within 1e-5 of max (lag 0); then the
+    framewise ACF of the two kernel routes: the normalized ACF within 1e-5
+    and the masks equal."""
+    from mlx_audio_primitives_tpu.kernels.mel_fused import melspectrogram_pallas
+
+    W, hop, n_fft, lo, hi = _acf_shape(config)
+    y = np.pad(CASES[case](), ((0, 0), (W // 2, W // 2)))
+    _, ypad = tap_pitch._acf_prep(torch.from_numpy(y), frame_length=W, hop_length=hop)
+    win = tap_pitch._acf_window_table(W, n_fft, device=torch.device("cpu"))
+    got = tap_pitch.acf_fused(ypad, win, n_fft=n_fft, hop_length=hop, lo=lo, hi=hi)
+    ref = melspectrogram_pallas(ypad.numpy(), win.numpy(), jax_pitch._acf_lag_basis(n_fft, lo, hi),
+                                n_fft=n_fft, hop_length=hop, center=False, pad_mode="constant",
+                                power=2.0, fast_gemm=False)
+    assert got.shape == ref.shape and max_rel(got, ref) <= 1e-5
+    kw = dict(frame_length=W, hop_length=hop, lo=lo, hi=hi)
+    s_ref, v_ref = map(to_np, jax_pitch._framewise_acf_fused(y, jax_pitch._acf_lag_basis(n_fft, lo, hi),
+                                                            **kw))
+    s, v = tap_pitch._framewise_acf_fused(torch.from_numpy(y), **kw)
+    assert np.array_equal(to_np(v), v_ref) and max_abs(s, s_ref) <= 1e-5
+
+
+def test_acf_entry_refuses_what_its_kernel_cannot_take():
+    """The ACF entry's checks, made before it picks a route: the radix
+    gate, ``0 <= lo < hi <= n_fft`` and a signal of one frame at least."""
+    ypad, win = torch.zeros((1, 4096)), torch.ones(1024)
+    kw = dict(n_fft=1024, hop_length=128, lo=1, hi=300)
+    assert tap_pitch.acf_fused(ypad, win, **kw).shape == (1, 300, 25)
+    for bad in (dict(hop_length=100), dict(lo=0, hi=0), dict(hi=1025), dict(lo=-1)):
+        with pytest.raises(ValueError):
+            tap_pitch.acf_fused(ypad, win, **{**kw, **bad})
+    with pytest.raises(ValueError):
+        tap_pitch.acf_fused(ypad[:, :1000], win, **kw)
 
 
 def _degenerate(n: int = 8192) -> dict[str, np.ndarray]:
