@@ -8,8 +8,9 @@ say), for comparing two wrappers on one card; ``--k1-split DIR`` likewise
 prints only phase 5's device times of K1 and K2m, ``--k3-split DIR`` those
 of K3, ``--k345-split DIR`` those of K3, K4 and K5 and the feature path's
 time, ``--istft-ola DIR`` the public ``istft``'s times at hop 441, and
-``--k1-ablations`` and ``--k3-ablations`` those of K1 or K3 with
-parts of their work left out, one at a time; ``--acf-split DIR`` K1's ACF
+``--k1-ablations``, ``--k1-fast-ablations`` and ``--k3-ablations`` those
+of K1's dense or fast entry or K3 with parts of their work left out, one at
+a time; ``--acf-split DIR`` K1's ACF
 entry's device time at the ACF shape with its registers and blocks an SM,
 ``--acf-ablations`` the same for variants of its source, and
 ``--pitch-split DIR`` ``pitch_detect_acf``'s kernel device time and route
@@ -20,7 +21,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles the six kernels from ``csrc/``, one process per
    source, all at once (timed, and each source's process); for each
-   K1/K2/K2m instance, each instance of K1's ACF entry and each K3
+   K1/K2/K2m instance, each instance of K1's fast and ACF entries and each K3
    instance (one per shape of the radix gate), ptxas's registers and spill
    bytes (a spill fails the run; for K3 also a stack frame), its threads,
    frames per tile, shared memory per block and resident warps per SM; for
@@ -31,7 +32,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    leave phase 4g's native path unexercised);
 3. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
-   counter checked (K3 also through its natural-spectrum entries
+   counter checked (K1 at each of its shapes through its dense entry,
+   ``fast_gemm=False``, and its fast entry, bf16x3, each against its own
+   twin, the fast one also within 3e-5 of max of float64; K3 also through
+   its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
    lengths, K1 at column counts around its 16-column tiles; K3 on every
@@ -58,6 +62,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    reset just before and read just after:
    a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
       and scale (256 x 4 s) configurations against a float64 CPU oracle,
+      under ``ANALYSIS_FAST_GEMM``'s default (K1's fast entry, as on every
+      public path) and set to False (its dense entry),
       the 30 s ``stft`` -> ``istft`` round trip, an ``istft`` at hop 441
       (the overlap-add tier), and one gradient;
    b. the spectral-feature path of a genre-tagging front end on 64 clips of
@@ -168,7 +174,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    each kernel alone against its plain twin and, where one PyTorch call
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
-   its shapes (K1's contraction as three TF32 tensor-core products), timed
+   its shapes (K1's contraction as three TF32 or bf16 tensor-core
+   products: both entries' times at scale, 64 x 30 s and 12 columns), timed
    plain, library, kernel, kernel, library, plain; the STFT wrapper's host
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
    clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
@@ -252,20 +259,27 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
+
+#: K1's entry on the public paths: the fast entry (bf16x3), which
+#: ANALYSIS_FAST_GEMM selects by default; phase 4a also runs log-mel with it
+#: set to False, on the dense entry (3xTF32)
+K1_MAIN = "mel_fused_fast_kernel"
+K1_EXACT = "mel_fused_kernel"
 #: the kernels each public path must launch
-LOG_MEL_PATH = ("mel_fused_kernel", "stft_kernel", "istft_kernel", "overlap_add_kernel")
-FEATURE_PATH = ("mel_fused_kernel", "stft_mag_kernel", "select_extremes_kernel")
+LOG_MEL_PATH = (K1_MAIN, K1_EXACT, "stft_kernel", "istft_kernel", "overlap_add_kernel")
+FEATURE_PATH = (K1_MAIN, "stft_mag_kernel", "select_extremes_kernel")
 #: the feature path's launches: K1 for MFCC's mel and the centroid's
 #: moments, K2m for bandwidth, rolloff, flatness and contrast, K5 for the
 #: four contrast bands that take it
-FEATURE_LAUNCHES = {"mel_fused_kernel": 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
+FEATURE_LAUNCHES = {K1_MAIN: 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
 #: the rhythm-and-harmony path's launches per public call (phase 4e): K1
 #: once for onset_strength's mel (so once for beat_track of a signal),
 #: once for chroma_stft's chroma weight and once for the mel PCEN takes;
 #: none for the CQT family, whose n_fft 16384 is outside the radix gate,
 #: or for tempo of an envelope
-RHYTHM_LAUNCHES = {"onset_strength": {"mel_fused_kernel": 1}, "chroma_stft": {"mel_fused_kernel": 1},
-                   "pcen": {"mel_fused_kernel": 1}, "beat_track": {"mel_fused_kernel": 1},
+RHYTHM_LAUNCHES = {"onset_strength": {K1_MAIN: 1}, "chroma_stft": {K1_MAIN: 1},
+                   "pcen": {K1_MAIN: 1}, "beat_track": {K1_MAIN: 1},
                    "cqt": {}, "chroma_cqt": {}, "tempo": {}}
 #: the effects, decomposition and streaming path's launches per public call
 #: (phase 4f; per push for the streams): K2 and K3 once each for the
@@ -276,9 +290,9 @@ RHYTHM_LAUNCHES = {"onset_strength": {"mel_fused_kernel": 1}, "chroma_stft": {"m
 _K2_K3 = {"stft_kernel": 1, "istft_kernel": 1}
 EFFECTS_LAUNCHES = {"harmonic": _K2_K3, "percussive": _K2_K3, "time_stretch": _K2_K3,
                     "pitch_shift": _K2_K3, "reassigned_spectrogram": {"stft_kernel": 3},
-                    "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {"mel_fused_kernel": 1},
-                    "StreamingMFCC": {"mel_fused_kernel": 1}, "StreamingChroma": {"mel_fused_kernel": 1},
-                    "StreamingPCEN": {"mel_fused_kernel": 1}, "StreamingISTFT": {}, "StreamingPitch": {},
+                    "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {K1_MAIN: 1},
+                    "StreamingMFCC": {K1_MAIN: 1}, "StreamingChroma": {K1_MAIN: 1},
+                    "StreamingPCEN": {K1_MAIN: 1}, "StreamingISTFT": {}, "StreamingPitch": {},
                     "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {}, "split": {},
                     "recurrence_matrix": {}, "nn_filter": {}, "decompose": {}}
 #: the streams of phase 4f: 30 pushes of 1 s (43 hops) at batch 64
@@ -296,7 +310,7 @@ WARMUP_OPS = ("stft", "istft", "melspectrogram", "mfcc", "chroma_stft", "pcen")
 #: warmup's launches per layout over the six ops: K2 for stft and for
 #: istft's spectrum, K3 for istft, K1 for melspectrogram, mfcc, chroma_stft
 #: and pcen's mel
-WARMUP_LAUNCHES = {"mel_fused_kernel": 4, "stft_kernel": 2, "istft_kernel": 1}
+WARMUP_LAUNCHES = {K1_MAIN: 4, "stft_kernel": 2, "istft_kernel": 1}
 #: phase 4h, parallel and training at one rank: the keyword spotter of
 #: examples/train_keyword_spotter.py (16 kHz, n_fft 512, hop 128, 40 mels,
 #: convs (16, 32), 4 classes) on 1 s clips, its steps timed at batch 32 and
@@ -326,7 +340,7 @@ CP_TRAIN = (32, 1722 * 128)
 CP_STEPS = 10
 #: the keyword-spotter example at its documented defaults: 60 steps of
 #: batch 32, then one evaluation batch (K1 once each)
-KWS_EXAMPLE_LAUNCHES = {"mel_fused_kernel": 61}
+KWS_EXAMPLE_LAUNCHES = {K1_MAIN: 61}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -527,11 +541,13 @@ def ptxas_rows(log: str) -> dict:
     K2m and K3 instance, keyed by (kernel name, log2 of the complex FFT
     size), and for K3 also by n_fft / hop."""
     names = {"mel_fused_kernelI": "mel_fused_kernel", "mel_fused_acf_kernelI": "mel_fused_acf_kernel",
+             "mel_fused_fast_kernelI": "mel_fused_fast_kernel",
              "stft_kernelI6float2": "stft_kernel", "stft_kernelIf": "stft_mag_kernel",
              "istft_kernelI": "istft_kernel"}
     rows, entry, spill, frame = {}, None, 0, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(mel_fused_kernelI|mel_fused_acf_kernelI|"
+                      r"mel_fused_fast_kernelI|"
                       r"stft_kernelI6float2|stft_kernelIf|istft_kernelI)Li(\d+)E(?:Li(\d+)E)?", ln)
         if m:
             entry = (names[m.group(1)], int(m.group(2))) + ((int(m.group(3)),) if m.group(3) else ())
@@ -557,14 +573,16 @@ def fft_occupancy(log: str) -> None:
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
 
     rows = ptxas_rows(log)
-    check(len(rows) == 28 + len(RADIX_GATE),
-          f"ptxas reported {len(rows)} K1/K2/K2m/K3 instances, expected {28 + len(RADIX_GATE)}")
+    check(len(rows) == 35 + len(RADIX_GATE),
+          f"ptxas reported {len(rows)} K1/K2/K2m/K3 instances, expected {35 + len(RADIX_GATE)}")
     dev = torch.device("cuda", 0)
     for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
         hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
         g2 = k2.launch_geometry(n_fft, hop, dev)
         g1 = k1.launch_geometry(n_fft, hop, dev)
+        g1f = k1.launch_geometry(n_fft, hop, dev, fast=True)
         for name, g, per_sm in ((k1.KERNEL.name, g1, g1["blocks_per_sm"]),
+                                (k1.KERNEL_FAST.name, g1f, g1f["blocks_per_sm"]),
                                 (k2.KERNEL.name, g2, g2["blocks_per_sm"][k2.KERNEL.name]),
                                 (k2.KERNEL_MAG.name, g2, g2["blocks_per_sm"][k2.KERNEL_MAG.name])):
             regs, spill, _ = rows[(name, n_fft.bit_length() - 2)]
@@ -699,25 +717,12 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         check(kernel.launches == before + 1, f"{kernel.name}: launch counter did not rise")
         return out
 
-    # K1: headline at power 2 and 1, scale at power 2; <= 1e-5 of max
-    for shape, power in ((HEADLINE, 2.0), (HEADLINE, 1.0), (SCALE, 2.0)):
+    # K1, both entries: headline at power 2 and 1, scale at power 2, and the
+    # feature path's 64 x 30 s with MFCC's mel weight; <= 1e-5 of max of
+    # their twins, the fast entry <= 3e-5 of max of float64
+    for shape, power in ((HEADLINE, 2.0), (HEADLINE, 1.0), (SCALE, 2.0), (FEATURES, 2.0)):
         y = torch.randn(shape, generator=gen, device=dev)
-        got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, power=power, **kw)
-        ref = k1.melspectrogram_plain(y, win, fb_t, power=power, **kw)
-        e = rel_err(got, ref)
-        print(f"K1 mel_fused {shape} power={power}: rel err {e:.3e} (limit 1e-5)")
-        check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its plain twin")
-        errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
-
-    # K1 at the feature path's 64 x 30 s with MFCC's mel weight; <= 1e-5
-    y = torch.randn(FEATURES, generator=gen, device=dev)
-    got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, **kw)
-    ref = k1.melspectrogram_plain(y, win, fb_t, **kw)
-    e = rel_err(got, ref)
-    print(f"K1 mel_fused {FEATURES} power=2.0: rel err {e:.3e} (limit 1e-5)")
-    check(got.shape == ref.shape and e <= 1e-5, "K1 disagrees with its plain twin")
-    errs[k1.KERNEL.name] = max(errs[k1.KERNEL.name], abs_err(got, ref))
-    del got, ref
+        k1_entries(run, errs, f"{shape} power={power}", y, win, fb_t, power=power, **kw)
 
     # K2: one 30 s clip and the headline batch; <= 1e-5 of max |S|
     for shape in ((1, LONG), HEADLINE):
@@ -820,8 +825,8 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         w = _get_padded_window("hann", n_fft, n_fft, dev)
         fbt = torch.rand((n_fft // 2 + 1, n_cols), generator=gen, device=dev)
         kwx = dict(n_fft=n_fft, hop_length=hop, center=center, pad_mode=pad_mode)
-        got = run(k1.KERNEL, k1.melspectrogram_fused, y, w, fbt, **kwx)
-        e1 = rel_err(got, k1.melspectrogram_plain(y, w, fbt, **kwx))
+        k1_entries(run, errs, f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape} "
+                   f"cols {n_cols}", y, w, fbt, **kwx)
         Sx = run(k2.KERNEL, k2.stft_fused, y, w, **kwx)
         e2 = rel_err(Sx, k2.stft_plain(y, w, **kwx))
         Mx = run(k2.KERNEL_MAG, k2.stft_magnitude_fused, y, w, **kwx)
@@ -833,9 +838,9 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         got = run(k3.KERNEL, k3.istft_fused, Sx, w, env, **kw3)
         keep = slice(n_fft // 2, T - n_fft // 2)
         e3 = abs_err(got[:, keep], k3.istft_plain(Sx, w, env, **kw3)[:, keep])
-        print(f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape} cols {n_cols}: "
-              f"K1 rel {e1:.3e}, K2 rel {e2:.3e}, K2m rel {e2m:.3e}, K3 abs {e3:.3e}")
-        check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5 and e3 <= 1e-5,
+        print(f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape}: "
+              f"K2 rel {e2:.3e}, K2m rel {e2m:.3e}, K3 abs {e3:.3e}")
+        check(e2 <= 1e-5 and e2m <= 1e-5 and e3 <= 1e-5,
               "a kernel disagrees with its plain twin")
 
     # K1, K2 and K2m at the edges of their tiling: the smallest size the
@@ -853,16 +858,15 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         w = _get_padded_window("hann", n_fft, n_fft, dev)
         fbt = torch.rand((n_fft // 2 + 1, n_cols), generator=gen, device=dev)
         kwx = dict(n_fft=n_fft, hop_length=hop, center=center, pad_mode=pad_mode)
-        got = run(k1.KERNEL, k1.melspectrogram_fused, y, w, fbt, **kwx)
-        e1 = rel_err(got, k1.melspectrogram_plain(y, w, fbt, **kwx))
+        k1_entries(run, errs, f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape} "
+                   f"cols {n_cols}", y, w, fbt, **kwx)
         Sx = run(k2.KERNEL, k2.stft_fused, y, w, **kwx)
         e2 = rel_err(Sx, k2.stft_plain(y, w, **kwx))
         Mx = run(k2.KERNEL_MAG, k2.stft_magnitude_fused, y, w, **kwx)
         e2m = rel_err(Mx, k2.stft_magnitude_plain(y, w, **kwx))
         print(f"n_fft {n_fft} hop {hop} {pad_mode} center={center} {shape}, {Sx.shape[-1]} frames: "
-              f"K1 ({n_cols} cols) rel {e1:.3e}, K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
-        check(e1 <= 1e-5 and e2 <= 1e-5 and e2m <= 1e-5,
-              "K1/K2/K2m disagree with their plain twins")
+              f"K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
+        check(e2 <= 1e-5 and e2m <= 1e-5, "K2/K2m disagree with their plain twins")
     return errs
 
 
@@ -1049,6 +1053,46 @@ def mel_oracle(y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(power_oracle(y), fb.T).transpose(1, 2)
 
 
+def k1_oracle(y: torch.Tensor, win: torch.Tensor, fb_t: torch.Tensor, *, n_fft: int,
+              hop_length: int, center: bool, pad_mode: str, power: float = 2.0) -> torch.Tensor:
+    """K1's function in float64 on the inputs' device: ``|rfft(win *
+    frame)|^power @ fb_t`` -> ``(B, n_cols, F)``, the float32 inputs
+    widened."""
+    from mlx_audio_primitives_tpu_torch.ops._frames import windowed_frames
+
+    frames = windowed_frames(y.double(), win.double(), n_fft, hop_length, center, pad_mode)
+    p = torch.fft.rfft(frames).abs() ** power
+    return torch.matmul(p, fb_t.double()).transpose(1, 2)
+
+
+def k1_entries(run, errs: dict, label: str, y: torch.Tensor, win: torch.Tensor,
+               fb_t: torch.Tensor, **kw) -> torch.Tensor:
+    """Phase 3: K1's dense entry (``fast_gemm=False``, 3xTF32) and its fast
+    entry (bf16x3) on the same inputs, each against its own twin, <= 1e-5 of
+    max; the fast entry also within 3e-5 of max of :func:`k1_oracle` (the
+    JAX fast mode's class). ``run`` launches through a wrapper and checks
+    that entry's counter. Returns the dense entry's output."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+
+    out = None
+    for kernel, fast in ((k1.KERNEL, False), (k1.KERNEL_FAST, True)):
+        got = run(kernel, k1.melspectrogram_fused, y, win, fb_t, fast_gemm=fast, **kw)
+        ref = k1.melspectrogram_plain(y, win, fb_t, fast_gemm=fast, **kw)
+        e = rel_err(got, ref)
+        entry = "fast" if fast else "dense"
+        line = f"K1 {entry} entry {label} -> {tuple(got.shape)}: rel err {e:.3e} (limit 1e-5)"
+        ok = got.shape == ref.shape and e <= 1e-5
+        if fast:
+            e64 = rel_err(got, k1_oracle(y, win, fb_t, **kw))
+            line += f", against float64 {e64:.3e} (limit 3e-5)"
+            ok = ok and e64 <= 3e-5
+        print(line)
+        check(ok, f"K1's {entry} entry disagrees ({label})")
+        errs[kernel.name] = max(errs.get(kernel.name, 0.0), abs_err(got, ref))
+        out = got if not fast else out
+    return out
+
+
 def reset_counts() -> None:
     from mlx_audio_primitives_tpu_torch.kernels import _build
 
@@ -1102,6 +1146,7 @@ def main_path(gen: torch.Generator) -> dict:
     """Phase 4a: the log-mel / STFT / ISTFT entry points on CUDA tensors."""
     phase("4a. public log-mel / STFT / ISTFT path on cuda tensors")
     import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch import _config
 
     dev = torch.device("cuda", 0)
     inputs = {name: torch.randn(shape, generator=gen, device=dev)
@@ -1110,12 +1155,19 @@ def main_path(gen: torch.Generator) -> dict:
     y_grad = torch.randn((2, SR), generator=gen, device=dev)
     reset_counts()
 
+    # log-mel under ANALYSIS_FAST_GEMM's default (K1's fast entry) and with
+    # it set to False, as a caller pins the exact mode (the dense entry)
     results = {}
-    for name, y in inputs.items():
-        mel = ap.melspectrogram(y, sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS)
-        db = ap.power_to_db(mel)
-        torch.cuda.synchronize()
-        results[name] = (y, mel, db)
+    for fast in (True, False):
+        _config.ANALYSIS_FAST_GEMM = fast
+        try:
+            for name, y in inputs.items():
+                mel = ap.melspectrogram(y, sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS)
+                db = ap.power_to_db(mel)
+                torch.cuda.synchronize()
+                results[f"{name}, {'fast' if fast else 'exact'} mode"] = (y, mel, db)
+        finally:
+            _config.ANALYSIS_FAST_GEMM = True
     S = ap.stft(y_long, n_fft=N_FFT, hop_length=HOP)
     rec = ap.istft(S, hop_length=HOP, length=LONG)
     S441 = ap.stft(y_long, n_fft=N_FFT, hop_length=OLA_HOP)
@@ -1383,7 +1435,7 @@ def slice_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
         lo, hi = P._lag_bounds(SR, fmin, fmax)
         hi = min(hi + 1, n_fft)
         C = P._acf_lag_basis(n_fft, lo, hi, device=dev)
-        got = run(k1.KERNEL, k1.melspectrogram_fused, ypad, win, C, **kw1)
+        got = run(k1.KERNEL, k1.melspectrogram_fused, ypad, win, C, fast_gemm=False, **kw1)
         ref = k1.melspectrogram_plain(ypad, win, C, **kw1)
         e = rel_err(got, ref)
         print(f"K1 at the ACF shape (fmin {fmin:g}, fmax {fmax:g}): n_fft {n_fft} hop {HOP} "
@@ -1786,7 +1838,7 @@ def slice_times(gen: torch.Generator) -> dict:
     kw1 = dict(n_fft=n_fft, hop_length=HOP, center=False, pad_mode="constant", power=2.0)
     kwa = dict(n_fft=n_fft, hop_length=HOP, lo=lo, hi=hi + 1)
     acf = lambda: k1.acf_fused(ypad, win, **kwa)  # noqa: E731
-    dense = lambda: k1.melspectrogram_fused(ypad, win, C, **kw1)  # noqa: E731
+    dense = lambda: k1.melspectrogram_fused(ypad, win, C, fast_gemm=False, **kw1)  # noqa: E731
     plain = lambda: k1.acf_plain(ypad, win, **kwa)  # noqa: E731
     acf_dev = kernel_device_ms(acf, k1.KERNEL_ACF.name, 5)
     dense_dev = kernel_device_ms(dense, k1.KERNEL.name, 5)
@@ -1852,14 +1904,10 @@ def rhythm_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     for power, tuning in ((2.0, 0.0), (1.0, 0.3)):
         fb_t = chroma_filterbank(SR, N_FFT, tuning=tuning, device=dev).t().contiguous()
-        got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, power=power, **kw)
-        ref = k1.melspectrogram_plain(y, win, fb_t, power=power, **kw)
-        e = rel_err(got, ref)
-        print(f"K1 at the chroma shape {FEATURES} power={power} tuning={tuning}: "
-              f"{tuple(fb_t.shape)} weight -> {tuple(got.shape)}: rel err {e:.3e} (limit 1e-5)")
-        check(got.shape == ref.shape == (FEATURES[0], 12, 1 + LONG // HOP) and e <= 1e-5,
-              "K1 disagrees with its twin at the chroma shape")
-        errs[k1.KERNEL.name] = max(errs.get(k1.KERNEL.name, 0.0), abs_err(got, ref))
+        got = k1_entries(run, errs, f"at the chroma shape {FEATURES} power={power} "
+                         f"tuning={tuning}, {tuple(fb_t.shape)} weight", y, win, fb_t,
+                         power=power, **kw)
+        check(got.shape == (FEATURES[0], 12, 1 + LONG // HOP), "K1's shape at the chroma shape")
 
 
 def onset_oracle(mel64: torch.Tensor) -> torch.Tensor:
@@ -2058,10 +2106,9 @@ def rhythm_times(gen: torch.Generator) -> None:
     """Phase 5's times of the rhythm-and-harmony slice at 64 x 30 s:
     CUDA-event medians of the public paths (kernel route against plain
     route, in turns, where a kernel runs), the CQT's peak memory, the
-    host's DP of ``beat_track`` on one clip, and K1's device time at the
-    chroma shape with its bound."""
+    host's DP of ``beat_track`` on one clip, and K1's two entries' times at
+    the chroma shape with their bounds."""
     import mlx_audio_primitives_tpu_torch as ap
-    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.ops import beat as beat_ops
     from mlx_audio_primitives_tpu_torch.ops.chroma import chroma_filterbank
     from mlx_audio_primitives_tpu_torch.ops.pcen import pcen_smoother
@@ -2111,26 +2158,11 @@ def rhythm_times(gen: torch.Generator) -> None:
     print(f"beat_track's DP on the host, one clip ({score.shape[0]} frames, period {period}): "
           f"median {statistics.median(host):.3f} ms of 5 ({min(host):.3f} - {max(host):.3f})")
 
-    # K1 at the chroma shape: 64 x 30 s, n_fft 2048, hop 512, 12 columns
+    # K1's two entries at the chroma shape: 64 x 30 s, n_fft 2048, hop 512,
+    # 12 columns
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
     fb_t = chroma_filterbank(SR, N_FFT, device=dev).t().contiguous()
-    kw1 = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant", power=2.0)
-    dev_ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1), k1.KERNEL.name, 20)
-    ev = [cuda_ms(lambda: k1.melspectrogram_plain(y, win, fb_t, **kw1)),
-          cuda_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1)),
-          cuda_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw1)),
-          cuda_ms(lambda: k1.melspectrogram_plain(y, win, fb_t, **kw1))]
-    B, L = y.shape
-    F, n_bins, n_cols = 1 + L // HOP, N_FFT // 2 + 1, fb_t.shape[1]
-    nbytes = 4 * (B * L + N_FFT + n_bins * n_cols + B * n_cols * F)
-    fp32 = B * F * (N_FFT + _rfft_flops(N_FFT) + 3 * n_bins)
-    tf32 = 3 * B * F * 2 * n_bins * n_cols
-    bound_ms, bound_by = _bound(nbytes, fp32, tf32)
-    print(f"K1 at the chroma shape ({B}, {L}), n_fft {N_FFT} hop {HOP}, {n_cols} columns, {F} "
-          f"frames: device {dev_ms:.4f} ms (torch.profiler, 20 calls); events kernel {ev[1]:.4f} / "
-          f"{ev[2]:.4f}, plain {ev[0]:.4f} / {ev[3]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
-          f"{nbytes / 1e6:.1f} MB, {fp32 / 1e9:.2f} GFLOP FP32, {tf32 / 1e9:.2f} GFLOP of TF32 "
-          f"products)")
+    k1_times(f"the chroma shape {tuple(y.shape)}", y, win, fb_t, 20)
 
 
 def effects_clips(gen: torch.Generator, shape: tuple[int, int]) -> tuple[torch.Tensor, list]:
@@ -2226,12 +2258,12 @@ def effects_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
         ext = y[:batch, :push].contiguous()
         Sx = run(k2.KERNEL, k2.stft_fused, ext, win, **kwp)
         e2 = rel_err(Sx, k2.stft_plain(ext, win, **kwp))
-        M = run(k1.KERNEL, k1.melspectrogram_fused, ext, win, fb_t, **kwp)
-        e1 = rel_err(M, k1.melspectrogram_plain(ext, win, fb_t, **kwp))
+        M = k1_entries(run, errs, f"on one streaming push ({batch}, {push}), no centre pad",
+                       ext, win, fb_t, **kwp)
         print(f"one streaming push ({batch}, {push}), no centre pad, {Sx.shape[-1]} frames: K2 rel "
-              f"{e2:.3e}, K1 ({N_MELS} mels) rel {e1:.3e} (limit 1e-5)")
-        check(Sx.shape[-1] == M.shape[-1] == STREAM_CHUNK // HOP and e1 <= 1e-5 and e2 <= 1e-5,
-              "K1/K2 disagree with their twins on a streaming push")
+              f"{e2:.3e} (limit 1e-5)")
+        check(Sx.shape[-1] == M.shape[-1] == STREAM_CHUNK // HOP and e2 <= 1e-5,
+              "K2 disagrees with its twin on a streaming push")
 
 
 def median_oracle(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
@@ -2843,12 +2875,7 @@ def utils_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     for shape in ((PIPE_BATCH, LONG), (1, SR)):
         y = torch.randn(shape, generator=gen, device=dev)
-        got = run(k1.KERNEL, k1.melspectrogram_fused, y, win, fb_t, **kw)
-        ref = k1.melspectrogram_plain(y, win, fb_t, **kw)
-        e = rel_err(got, ref)
-        print(f"K1 mel_fused {shape} (utilities path): rel err {e:.3e} (limit 1e-5)")
-        check(e <= 1e-5, "K1 disagrees with its plain twin")
-        errs[k1.KERNEL.name] = max(errs[k1.KERNEL.name], abs_err(got, ref))
+        k1_entries(run, errs, f"{shape} (utilities path)", y, win, fb_t, **kw)
     # y is warmup's 1 s clip
     S = run(k2.KERNEL, k2.stft_fused, y, win, **kw)
     ref = k2.stft_plain(y, win, **kw)
@@ -2938,11 +2965,11 @@ def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
     n_batches = LOADER_FILES // PIPE_BATCH
     t0 = time.perf_counter()
     pre = counted_call(f"batch_iterator -> prefetch_to_device -> log-mel, {n_batches} x "
-                       f"({PIPE_BATCH}, {LONG})", {"mel_fused_kernel": n_batches},
+                       f"({PIPE_BATCH}, {LONG})", {K1_MAIN: n_batches},
                        lambda: prefetched_log_mel(ap, clips), total)
     wall_p = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    syn = counted_call("the same batches copied synchronously", {"mel_fused_kernel": n_batches},
+    syn = counted_call("the same batches copied synchronously", {K1_MAIN: n_batches},
                        lambda: synchronous_log_mel(ap, clips), {k: 0 for k in total})
     wall_s = 1e3 * (time.perf_counter() - t0)
     e_pipe = max(exact_err(a, b) for a, b in zip(pre, syn))
@@ -3026,7 +3053,7 @@ def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
     U.stop_device_trace()
     traces = [os.path.join(r, f) for r, _, fs in os.walk(trace_dir) for f in fs
               if f.endswith(".pt.trace.json")]
-    named = sum("mel_fused_kernel" in Path(p).read_text() for p in traces)
+    named = sum(K1_MAIN in Path(p).read_text() for p in traces)
     print(f"start/stop_device_trace around one pipeline batch: {len(traces)} trace file(s), "
           f"{named} naming K1's kernel symbol (limit 1)")
     check(len(traces) == 1 and named == 1, "the device trace does not name K1")
@@ -3226,7 +3253,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         # the sequence-parallel frontend at the feature path's size
         y = torch.randn(FEATURES, generator=gen, device=dev)
         kw = dict(sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, center=True)
-        lm = counted_call("logmel_time_sharded", {"mel_fused_kernel": 1},
+        lm = counted_call("logmel_time_sharded", {K1_MAIN: 1},
                           lambda: PP.logmel_time_sharded(y, mesh, fft_mode="pallas", **kw), total)
         got = lm.to_local()
         check(tuple(got.shape) == (FEATURES[0], 1 + LONG // HOP, N_MELS), f"shape {got.shape}")
@@ -3292,7 +3319,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         check(max(errs.values()) <= 1e-4, "the kernel route's gradient disagrees")
         step = M.make_convnet_train_step(mesh, fe, lr=KWS_NET["lr"], **net)
         trained, losses, _ = counted_call(
-            f"keyword spotter, {KWS_STEPS} steps", {"mel_fused_kernel": KWS_STEPS},
+            f"keyword spotter, {KWS_STEPS} steps", {K1_MAIN: KWS_STEPS},
             lambda: train(step, params, yk, lk, KWS_STEPS), total)
         print(f"keyword spotter {tuple(yk.shape)} x {KWS_STEPS} steps: losses "
               + ", ".join(f"{v:.4f}" for v in losses))
@@ -3301,7 +3328,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         pcen = M.pipelines.TrainablePCENFrontend(**KWS_FRONTEND)
         pstep = M.make_convnet_train_step(mesh, pcen, lr=KWS_NET["lr"], **net)
         _, plosses, _ = counted_call(
-            f"PCEN keyword spotter, {KWS_STEPS} steps", {"mel_fused_kernel": KWS_STEPS},
+            f"PCEN keyword spotter, {KWS_STEPS} steps", {K1_MAIN: KWS_STEPS},
             lambda: train(pstep, M.init_audio_classifier_params(pcen, seed=0, **net), yk, lk,
                           KWS_STEPS), total)
         print("PCEN frontend: losses " + ", ".join(f"{v:.4f}" for v in plosses))
@@ -3311,7 +3338,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         ys, ls = sp_batch(gen)
         sstep = M.make_sharded_train_step(mesh, lr=SP_LR, fft_mode="pallas")
         _, slosses, _ = counted_call(
-            f"sequence-parallel trainer, {SP_STEPS} steps", {"mel_fused_kernel": SP_STEPS},
+            f"sequence-parallel trainer, {SP_STEPS} steps", {K1_MAIN: SP_STEPS},
             lambda: train(sstep, M.init_classifier_params(N_MELS, 10), ys, ls, SP_STEPS), total)
         print(f"make_sharded_train_step {tuple(ys.shape)} (n_fft {N_FFT}, hop {HOP}, {N_MELS} "
               f"mels, 10 classes, lr {SP_LR}) x {SP_STEPS}: losses "
@@ -3322,7 +3349,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         # tensor and pipeline parallelism at one rank, against the plain models
         tstep = M.make_tp_train_step(PP.make_tp_mesh(1, 1), fe, lr=KWS_NET["lr"], **net)
         _, tlosses, seen = counted_call(
-            "tensor-parallel trainer, 5 steps", {"mel_fused_kernel": 5},
+            "tensor-parallel trainer, 5 steps", {K1_MAIN: 5},
             lambda: train(tstep, params, yk, lk, 5), total)
         # the data-parallel step's loss on the same parameters, step by step
         dense = [float(step(p, yk, lk)[1]) for p in seen]
@@ -3335,7 +3362,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         pps = M.make_pp_train_step(PP.make_pp_mesh(1), fe, n_classes=KWS_NET["n_classes"],
                                    n_blocks=4, width=16, n_microbatches=2, lr=KWS_NET["lr"])
         _, plosses2, seen = counted_call(
-            "pipeline-parallel trainer, 5 steps", {"mel_fused_kernel": 5},
+            "pipeline-parallel trainer, 5 steps", {K1_MAIN: 5},
             lambda: train(pps, deep, yk, lk, 5), total)
         serial = [float(_nll_loss(M.deep_classifier_apply(fe, local(p), yk), lk)) for p in seen]
         e_pp = max(abs(a - b) / abs(b) for a, b in zip(plosses2, serial))
@@ -3526,7 +3553,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
         ep_mesh = PP.make_ep_mesh(1, 1)
         step = M.make_ep_train_step(ep_mesh, fe, n_classes=n_cls, lr=lr, **MOE)
         _, losses, seen = counted_call(
-            f"ep trainer, {MOE_STEPS} steps", {"mel_fused_kernel": MOE_STEPS},
+            f"ep trainer, {MOE_STEPS} steps", {K1_MAIN: MOE_STEPS},
             lambda: train(step, params, yk, lk, MOE_STEPS), total)
 
         def dense_loss(p, frontend=fe, use_pallas=None):
@@ -3558,7 +3585,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
         tp_step = M.make_ep_tp_train_step(PP.make_moe_mesh(1, 1, 1), fe, n_classes=n_cls, lr=lr,
                                           **MOE)
         _, tlosses, seen = counted_call(
-            f"ep x tp trainer, {MOE_TP_STEPS} steps", {"mel_fused_kernel": MOE_TP_STEPS},
+            f"ep x tp trainer, {MOE_TP_STEPS} steps", {K1_MAIN: MOE_TP_STEPS},
             lambda: train(tp_step, params, yk, lk, MOE_TP_STEPS), total)
         ep_losses = [float(step(p, yk, lk)[1]) for p in seen]
         e_tp = max(abs(a - b) / abs(b) for a, b in zip(tlosses, ep_losses))
@@ -3575,7 +3602,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
                                             seed=0, **CP_NET)
         cstep = M.make_cp_train_step(mesh, fft_mode="pallas", **CP, **CP_NET)
         new1, closses, _ = counted_call(
-            f"cp trainer, {CP_STEPS} steps", {"mel_fused_kernel": CP_STEPS},
+            f"cp trainer, {CP_STEPS} steps", {K1_MAIN: CP_STEPS},
             lambda: train(cstep, cparams, yc, lc, CP_STEPS), total)
         print(f"make_cp_train_step (1, 1) {tuple(yc.shape)} 'pallas' ({CP_TRAIN[1] // CP['hop_length']}"
               " tokens): losses " + ", ".join(f"{v:.4f}" for v in closses))
@@ -3667,12 +3694,13 @@ def profile_cp(cstep, cparams: dict, yc: torch.Tensor, lc: torch.Tensor, card: s
     profile_path(lambda: cstep(cparams, yc, lc), 2, order=True)
 
 
-def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0) -> tuple[float, str]:
+def _bound(nbytes: float, ops: float, tf32_ops: float = 0.0,
+           bf16_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the largest of the bytes over
-    the memory rate, the FP32 operations over the FP32 peak and the TF32
-    tensor-core operations over the TF32 peak."""
+    the memory rate, the FP32 operations over the FP32 peak and the TF32 and
+    bf16 tensor-core operations over their peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = max(ops / PEAK_FP32_FLOPS, tf32_ops / PEAK_TF32_FLOPS)
+    t_ops = max(ops / PEAK_FP32_FLOPS, tf32_ops / PEAK_TF32_FLOPS, bf16_ops / PEAK_BF16_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3685,16 +3713,70 @@ def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
              fb_t: torch.Tensor, kw: dict) -> None:
     """K1's device time (torch.profiler) at the scale configuration and at
     64 x 30 s, beside K2m's on the same clips: K2m runs the same FFT front
-    end, so the difference is roughly K1's power rows and contraction."""
+    end, so the difference is roughly K1's power rows and contraction. Both
+    entries where the package has the fast one (dense entry as
+    ``fast_gemm=False``), and a digest of the dense entry's output bits, to
+    hold two trees' dense entries bit for bit."""
+    import hashlib
+
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
 
+    fast = hasattr(k1, "KERNEL_FAST")
+    entries = [(k1.KERNEL.name, dict(fast_gemm=False) if fast else {})]
+    entries += [(k1.KERNEL_FAST.name, dict(fast_gemm=True))] if fast else []
     for label, y, calls in (("scale (256, 88200)", y_scale, 20), ("64 x 30 s", y_feat, 5)):
-        t1 = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **kw), k1.KERNEL.name,
-                              calls)
         t2m = kernel_device_ms(lambda: k2.stft_magnitude_fused(y, win, **kw), "stft_kernel", calls)
-        print(f"device time per call, {label} (torch.profiler, {calls} calls): K1 ({fb_t.shape[1]} "
-              f"cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference {t1 - t2m:.4f} ms")
+        for name, mode in entries:
+            t1 = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **mode, **kw), name,
+                                  calls)
+            print(f"device time per call, {label} (torch.profiler, {calls} calls): {name} "
+                  f"({fb_t.shape[1]} cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference "
+                  f"{t1 - t2m:.4f} ms")
+        bits = k1.melspectrogram_fused(y, win, fb_t, **entries[0][1], **kw).cpu().numpy().tobytes()
+        print(f"{k1.KERNEL.name} output at {label}: sha256 {hashlib.sha256(bits).hexdigest()[:24]}")
+
+
+def k1_times(label: str, y: torch.Tensor, win: torch.Tensor, fb_t: torch.Tensor,
+             calls: int) -> dict:
+    """Phase 5: K1's two entries on ``y`` with the weight ``fb_t`` (N_FFT,
+    HOP, centred, power 2): each one's device time per call (torch.profiler)
+    and CUDA-event medians in turns (dense twin, fast twin, dense entry,
+    fast entry, fast entry, dense entry, fast twin, dense twin), beside its
+    bound: the bytes, or the FP32 front end and the three products of the
+    contraction at the TF32 (dense) or bf16 (fast) tensor-core peak.
+    Returns the kernels-line numbers of each entry."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    B, L = y.shape
+    F, n_bins, n_cols = 1 + L // HOP, N_FFT // 2 + 1, fb_t.shape[1]
+    nbytes = 4 * (B * L + N_FFT + n_bins * n_cols + B * n_cols * F)
+    fp32 = B * F * (N_FFT + _rfft_flops(N_FFT) + 3 * n_bins)  # window, transform, powers
+    products = 3 * B * F * 2 * n_bins * n_cols
+    entries = {k1.KERNEL.name: (False, _bound(nbytes, fp32, tf32_ops=products), "TF32"),
+               k1.KERNEL_FAST.name: (True, _bound(nbytes, fp32, bf16_ops=products), "bf16")}
+
+    def kern(fast):
+        return lambda: k1.melspectrogram_fused(y, win, fb_t, fast_gemm=fast, **kw)
+
+    def twin(fast):
+        return lambda: k1.melspectrogram_plain(y, win, fb_t, fast_gemm=fast, **kw)
+
+    dev = {name: kernel_device_ms(kern(fast), name, calls) for name, (fast, _, _) in entries.items()}
+    order = [twin(False), twin(True), kern(False), kern(True)]
+    ev = [cuda_ms(fn) for fn in order + order[::-1]]
+    out = {}
+    for i, (name, (fast, (bound_ms, bound_by), peak)) in enumerate(entries.items()):
+        k_ms, p_ms = (ev[2 + i], ev[5 - i]), (ev[i], ev[7 - i])
+        print(f"{name} at {label}, {n_cols} columns, {F} frames: device {dev[name]:.4f} ms "
+              f"(torch.profiler, {calls} calls); events kernel {k_ms[0]:.4f} / {k_ms[1]:.4f}, "
+              f"twin {p_ms[0]:.4f} / {p_ms[1]:.4f}; bound {bound_ms:.4f} ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {fp32 / 1e9:.2f} GFLOP FP32, {products / 1e9:.2f} GFLOP of "
+              f"{peak} products)")
+        out[name] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 def k3_split(gen: torch.Generator) -> None:
@@ -3874,20 +3956,12 @@ def times(gen: torch.Generator, card: str) -> dict:
 
     # bytes (each input read once, each output written once) and FP32
     # operations of each kernel's function at its shape
-    B1, L1 = SCALE
-    F1 = 1 + L1 // HOP
     F30 = S.shape[-1]
     Bf, Lf = FEATURES
     R = 1 + Lf // HOP
     F441 = frames.shape[1]
     fft_frame = N_FFT + _rfft_flops(N_FFT)  # window, then the transform
-    # K1: the FFT, window and power rows in FP32, the contraction as three
-    # TF32 tensor-core products (3xTF32); its FP32-only bound (the
-    # contraction on the CUDA cores) is printed beside it
-    k1_bytes = 4 * (B1 * L1 + N_FFT + n_bins * N_MELS + B1 * N_MELS * F1)
-    k1_contraction = B1 * F1 * 2 * n_bins * N_MELS
     work = {
-        k1.KERNEL.name: (k1_bytes, B1 * F1 * (fft_frame + 3 * n_bins), 3 * k1_contraction),
         k2.KERNEL.name: (4 * (LONG + N_FFT) + 8 * n_bins * F30, F30 * fft_frame),
         f"{k2.KERNEL.name}[64 x 30 s]": (4 * (Bf * Lf + N_FFT) + 8 * Bf * n_bins * R,
                                          Bf * R * fft_frame),
@@ -3908,9 +3982,6 @@ def times(gen: torch.Generator, card: str) -> dict:
     }
     istft_lib = lambda: torch.istft(S, N_FFT, HOP, window=win, center=True, length=LONG)  # noqa: E731
     cases = (
-        (k1.KERNEL.name, "scale (256, 88200)",
-         lambda: k1.melspectrogram_fused(y_scale, win, fb_t, **kw),
-         lambda: k1.melspectrogram_plain(y_scale, win, fb_t, **kw), None),
         (k2.KERNEL.name, "30 s clip", lambda: k2.stft_fused(y_long, win, **kw),
          lambda: k2.stft_plain(y_long, win, **kw),
          lambda: torch.stft(y_long, N_FFT, HOP, window=win, center=True, pad_mode="constant",
@@ -3970,10 +4041,15 @@ def times(gen: torch.Generator, card: str) -> dict:
     print(f"K2m device time, 64 x 30 s (torch.profiler, 5 calls): "
           f"{kernel_device_ms(lambda: k2.stft_magnitude_fused(y_feat, win, **kw), 'stft_kernel', 5):.4f} ms")
     k1_split(y_scale, y_feat, win, fb_t, kw)
-    print(f"K1 device time, headline (64, 22050) (torch.profiler, 20 calls): "
-          f"{kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, **kw), k1.KERNEL.name, 20):.4f} ms")
+    for kernel, fast in ((k1.KERNEL, False), (k1.KERNEL_FAST, True)):
+        ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, fast_gemm=fast, **kw),
+                              kernel.name, 20)
+        print(f"{kernel.name} device time, headline (64, 22050) (torch.profiler, 20 calls): "
+              f"{ms:.4f} ms")
     k345_split(gen)
-    out = {}
+    # K1's two entries (the kernels line takes the scale configuration's)
+    out = k1_times("scale (256, 88200)", y_scale, win, fb_t, 20)
+    k1_times("64 x 30 s", y_feat, win, fb_t, 5)
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three
         p_a = cuda_ms(twin)
@@ -3983,13 +4059,9 @@ def times(gen: torch.Generator, card: str) -> dict:
         p_b = cuda_ms(twin)
         lib_ms = statistics.median([l_a, l_b]) if lib is not None else None
         bound_ms, bound_by = _bound(*(work.get(name) or work[name.split("[")[0]]))
-        extra = ""
-        if name == k1.KERNEL.name:
-            fp32_ms, _ = _bound(k1_bytes, work[name][1] + k1_contraction)
-            extra = f" on the TF32 tensor cores; FP32-only bound {fp32_ms:.4f}"
         print(f"{name} at {shape}: kernel {k_a:.4f} / {k_b:.4f}, plain {p_a:.4f} / {p_b:.4f}, "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}, "
-              f"bound {bound_ms:.4f} ({bound_by}{extra})")
+              f"bound {bound_ms:.4f} ({bound_by})")
         out[name] = dict(ms=statistics.median([k_a, k_b]), plain_ms=statistics.median([p_a, p_b]),
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
     out.update(slice_times(gen))
@@ -4267,8 +4339,9 @@ ACF_ABLATIONS = {
 
 
 #: K1 ablations (``--k1-ablations``): each edits ``csrc/mel_fused.cu`` of a
-#: copy of the package to leave one part of the work out (the results are
-#: wrong; only the time counts), so that the time that part costs shows
+#: copy of the package to leave one part of the dense entry's work out (the
+#: results are wrong; only the time counts), so that the time that part
+#: costs shows
 K1_ABLATIONS = {
     "no W loads (A fragments from registers)": [(
         "  a[0] = (k < n_bins && oka) ? __ldg(w0) : 0.f;\n"
@@ -4281,27 +4354,64 @@ K1_ABLATIONS = {
         "  a[2] = (k + 4 < n_bins && oka) ? 3.f + ca : 0.f;\n"
         "  a[3] = (k + 4 < n_bins && okb) ? 4.f + ca : 0.f;")],
     "no power-row loads (B fragments from registers)": [(
-        "          const unsigned bhi[2] = {ok0 ? __float_as_uint(r[k]) : 0u,\n"
-        "                                   ok1 ? __float_as_uint(r[k + 4]) : 0u};\n"
-        "          const unsigned blo[2] = {ok0 ? __float_as_uint(r[M + 1 + k]) : 0u,\n"
-        "                                   ok1 ? __float_as_uint(r[M + 5 + k]) : 0u};",
-        "          (void)r;\n"
-        "          const unsigned bhi[2] = {ok0 ? 1u + k : 0u, ok1 ? 2u + k : 0u};\n"
-        "          const unsigned blo[2] = {ok0 ? 3u + f : 0u, ok1 ? 4u + f : 0u};")],
+        "      const unsigned bhi[2] = {ok0 ? __float_as_uint(r[k]) : 0u,\n"
+        "                               ok1 ? __float_as_uint(r[k + 4]) : 0u};\n"
+        "      const unsigned blo[2] = {ok0 ? __float_as_uint(r[M + 1 + k]) : 0u,\n"
+        "                               ok1 ? __float_as_uint(r[M + 5 + k]) : 0u};",
+        "      (void)r;\n"
+        "      const unsigned bhi[2] = {ok0 ? 1u + k : 0u, ok1 ? 2u + k : 0u};\n"
+        "      const unsigned blo[2] = {ok0 ? 3u + f : 0u, ok1 ? 4u + f : 0u};")],
     "one product (hi*hi) of the three": [(
-        "          mma_tf32(d, alo, bhi);\n          mma_tf32(d, ahi, blo);\n", "")],
+        "      mma_tf32(d, alo, bhi);\n      mma_tf32(d, ahi, blo);\n", "")],
     "cvt.rna.tf32 for the split": [(
         "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
         "  unsigned u;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(u) : \"f\"(x));\n  return u;")],
     "one accumulator (no sum per k-step)": [(
-        "          float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
-        "          mma_tf32(d, alo, bhi);\n          mma_tf32(d, ahi, blo);\n"
-        "          mma_tf32(d, ahi, bhi);\n#pragma unroll\n"
-        "          for (int i = 0; i < 4; ++i) acc[j][i] += d[i];",
-        "          mma_tf32(acc[j], alo, bhi);\n          mma_tf32(acc[j], ahi, blo);\n"
-        "          mma_tf32(acc[j], ahi, bhi);")],
+        "      float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+        "      mma_tf32(d, alo, bhi);\n      mma_tf32(d, ahi, blo);\n"
+        "      mma_tf32(d, ahi, bhi);\n#pragma unroll\n"
+        "      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];",
+        "      mma_tf32(acc[j], alo, bhi);\n      mma_tf32(acc[j], ahi, blo);\n"
+        "      mma_tf32(acc[j], ahi, bhi);")],
     "half the grid (66 of 132 SMs)": [(
         "    slots[device] = sms * per_sm;", "    slots[device] = sms * per_sm / 2;")],
+}
+
+#: the fast entry's ablations (``--k1-fast-ablations``), edits of the same
+#: source as the dense entry's
+K1_FAST_ABLATIONS = {
+    "no W loads (A fragments from registers)": [(
+        "  a[0] = ok && ca < n_cols ? __ldg(w) : z;\n"
+        "  a[1] = ok && ca + 8 < n_cols ? __ldg(w + 2 * K16) : z;",
+        "  (void)w;\n"
+        "  a[0] = ok && ca < n_cols ? make_float4(1.f + kk, 2.f + q, 3.f + ca, 4.f) : z;\n"
+        "  a[1] = ok && ca + 8 < n_cols ? make_float4(4.f + kk, 3.f + q, 2.f + ca, 1.f) : z;")],
+    "no W split (A registers from the loads' bits)": [(
+        "    split_bf16x2(a[0].x, a[0].y, ahi[0], alo[0]);\n"
+        "    split_bf16x2(a[1].x, a[1].y, ahi[1], alo[1]);\n"
+        "    split_bf16x2(a[0].z, a[0].w, ahi[2], alo[2]);\n"
+        "    split_bf16x2(a[1].z, a[1].w, ahi[3], alo[3]);",
+        "    ahi[0] = __float_as_uint(a[0].x) ^ __float_as_uint(a[0].y);\n"
+        "    ahi[1] = __float_as_uint(a[1].x) ^ __float_as_uint(a[1].y);\n"
+        "    ahi[2] = __float_as_uint(a[0].z) ^ __float_as_uint(a[0].w);\n"
+        "    ahi[3] = __float_as_uint(a[1].z) ^ __float_as_uint(a[1].w);\n"
+        "    for (int i = 0; i < 4; ++i) alo[i] = ahi[i] >> 3;")],
+    "no power-row loads (B fragments from registers)": [(
+        "      const uint2 h = r[w / 2], l = r[M / 4 + 1 + w / 2];",
+        "      (void)r;\n"
+        "      const uint2 h = make_uint2(1u + w, 2u + f), l = make_uint2(3u + w, 4u + f);")],
+    "one product (hi*hi) of the three": [(
+        "      mma_bf16(d, alo, bhi);\n      mma_bf16(d, ahi, blo);\n", "")],
+    "power rows without lo (hi only)": [(
+        "    const unsigned short l = __bfloat16_as_ushort(__float2bfloat16_rn(p - __bfloat162float(hi)));",
+        "    const unsigned short l = 0;")],
+    "one accumulator (no sum per k-step)": [(
+        "      float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+        "      mma_bf16(d, alo, bhi);\n      mma_bf16(d, ahi, blo);\n"
+        "      mma_bf16(d, ahi, bhi);\n#pragma unroll\n"
+        "      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];",
+        "      mma_bf16(acc[j], alo, bhi);\n      mma_bf16(acc[j], ahi, blo);\n"
+        "      mma_bf16(acc[j], ahi, bhi);")],
 }
 
 
@@ -4380,8 +4490,12 @@ def main() -> None:
         environment()
         k3_split(torch.Generator(device="cuda").manual_seed(0))
         return
-    if len(sys.argv) == 2 and sys.argv[1] == "--k1-ablations":
-        ablations("K1", "mel_fused.cu", K1_ABLATIONS, "--k1-split", "device time per call, scale")
+    if len(sys.argv) == 2 and sys.argv[1] in ("--k1-ablations", "--k1-fast-ablations"):
+        fast = sys.argv[1] == "--k1-fast-ablations"
+        ablations("K1_fast" if fast else "K1", "mel_fused.cu",
+                  K1_FAST_ABLATIONS if fast else K1_ABLATIONS, "--k1-split",
+                  "device time per call, scale (256, 88200) (torch.profiler, 20 calls): "
+                  + (K1_MAIN if fast else K1_EXACT))
         return
     if len(sys.argv) == 3 and sys.argv[1] == "--acf-split":
         acf_split_of(sys.argv[2])

@@ -19,6 +19,16 @@ WINDOW_CACHE_SIZE: int = 128
 FILTERBANK_CACHE_SIZE: int = 64
 DCT_CACHE_SIZE: int = 32
 
+# K1's filterbank contraction (kernels/mel_fused.py) as 3-pass bf16 splits:
+# each FP32 operand split into hi = bf16(x) and lo = bf16(x - hi), and
+# hi@hi + hi@lo + lo@hi in FP32 on the tensor cores (mma.sync m16n8k16),
+# within ~1e-5 of max of an exact product; False takes the 3xTF32 entry,
+# within ~1e-6. Same default as the JAX package. The STFT, magnitude and
+# ISTFT kernels compute by FP32 FFT and have no GEMM for it to change; the
+# pitch ACF runs K1's ACF entry, which has no contraction. Read at call
+# time, so setting it pins every call site that takes the default.
+ANALYSIS_FAST_GEMM: bool = True
+
 # Working dtypes. Tables are built in float64 on the host and cast to
 # REAL_DTYPE when they are placed on a device.
 REAL_DTYPE = torch.float32

@@ -47,7 +47,32 @@
 //   the next k-step's fragment loaded while this one's products run: shared
 //   memory is full of frame buffers (15 KB free at hop 1024) and its
 //   bandwidth is what the power rows' B fragments use.
+//
+// The fast entry (mel_fused_fast_launch, mel_fused_fast_kernel) is the same
+// kernel with the contraction as 3-pass bf16 splits, the scheme of the JAX
+// kernel's fast_gemm mode (mel_fused.py::_bf16_split, _group_dot): each
+// operand x is split into hi = bf16_rn(x) and lo = bf16_rn(x - hi), and
+// mma.sync m16n8k16 (bf16 in, FP32 accumulate) takes lo*hi + hi*lo + hi*hi,
+// each k-step of 16 bins from a zero accumulator, as above. hi + lo keeps
+// ~16 of x's 24 mantissa bits, so the result is within ~1e-5 of an exact
+// product (the JAX package's class, 2.7e-5), where 3xTF32 is within ~1e-6.
+// One bf16 mma covers 16 bins where a TF32 one covers 8, so its three
+// products issue as many instructions as 1.5 TF32 products, and the power
+// rows hold 2 bytes a part and bin: hi at bf16 [0, M], lo at [M+4, 2M+4],
+// adjacent bins packed in one 32-bit word, which is a B fragment register.
+// The k-step's 16 bins are permuted inside the fragments (load_a16) so that
+// a thread's four are consecutive: its B registers are one 8-byte load, and
+// its A registers one 16-byte load a column from W transposed (the wrapper
+// passes W^T with its bins zero-padded to a multiple of 16). Read as given,
+// W took eight 4-byte loads a k-step, and those loads set the entry's time
+// (0.83 ms at the scale configuration against 0.58, H100 80GB HBM3; PERF.md).
+// W is split in registers as it is loaded: the trainable frontends pass a
+// new W every step, so nothing split is cached. The entry's bound at the
+// scale configuration is the front end's FP32 operations (0.041 ms); the
+// three bf16 products take 0.035 ms at the bf16 peak.
 #include <cstdint>
+
+#include <cuda_bf16.h>
 
 #include "fft_common.cuh"
 
@@ -60,14 +85,21 @@ constexpr int kRounds = 4;  // rounds of power rows per tile (FT of them where F
 // [0, M], lo parts at [M+1, 2M+1]. Rows of 8 consecutive frames start on
 // banks 4 apart, so a B fragment load (8 frames x 4 bins) hits 32 banks;
 // frame buffers too small for the shift (M < 256) keep it at 0.
-template <int LOG_M>
+// FAST: bf16 parts, hi at [0, M] and lo at [M+4, 2M+4] of a row of M+4
+// floats (lo 8-byte aligned); rows start on banks 8 apart, so each half of
+// a warp's 64-bit B load (4 frames x 4 word pairs) hits 32 banks.
+template <int LOG_M, bool FAST = false>
 __device__ __forceinline__ int row_offset(int f) {
   constexpr int M = 1 << LOG_M;
   constexpr int FSW = 2 * mapt::rframe_stride(M);  // floats per frame buffer
-  if constexpr (FSW - 2 * (M + 1) >= 31)
+  if constexpr (FAST) {
+    static_assert(FSW - (M + 4) >= 31 && FSW % 2 == 0, "the shifted rows fit, 8-byte aligned");
+    return f * FSW + ((8 * f - f * FSW) & 31);
+  } else if constexpr (FSW - 2 * (M + 1) >= 31) {
     return f * FSW + ((4 * f - f * FSW) & 31);
-  else
+  } else {
     return f * FSW;
+  }
 }
 
 // v, as a value the compiler cannot hoist out of the tile loop: what is
@@ -107,6 +139,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a * b on the tensor cores (m16n8k16, bf16 in, FP32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bf16 split of x0 (low half) and x1 (high half) as two packed words:
+// hi = bf16_rn(x), lo = bf16_rn(x - hi), rounding to nearest even, as
+// _bf16_split does (x - hi is exact in FP32)
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = reinterpret_cast<const unsigned&>(h);
+  lo = reinterpret_cast<const unsigned&>(l);
+}
+
 // |X[k]|^p and |X[M-k]|^p of the frame z for k = k0 + J*TP <= M/2, where
 // TP (a power of two) threads share the frame and k0 < TP: the positions
 // and the split of stft.cu's emit_pairs (k0 and J*TP share no bit, so the
@@ -140,26 +192,45 @@ __device__ __forceinline__ void power_pairs(const float2* z, const float2* __res
   }
 }
 
-// row[k] = hi, row[M+1+k] = lo of p
-template <int LOG_M>
+// row[k] = hi, row[M+1+k] = lo of p (TF32); FAST: the bf16 halves hi at
+// k and lo at M+4+k, and bin M as a whole word with bin M+1 zero, since the
+// last k-step's B fragment reads it
+template <int LOG_M, bool FAST>
 __device__ __forceinline__ void put_split(float* row, int k, float p) {
-  const unsigned hi = tf32_rna(p);
-  row[k] = __uint_as_float(hi);
-  row[(1 << LOG_M) + 1 + k] = __uint_as_float(tf32_rna(p - __uint_as_float(hi)));
+  constexpr int M = 1 << LOG_M;
+  if constexpr (FAST) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(p);
+    const unsigned short h = __bfloat16_as_ushort(hi);
+    const unsigned short l = __bfloat16_as_ushort(__float2bfloat16_rn(p - __bfloat162float(hi)));
+    if (k == M) {
+      unsigned* r32 = reinterpret_cast<unsigned*>(row);
+      r32[M / 2] = h;
+      r32[M + 2] = l;
+    } else {
+      unsigned short* r16 = reinterpret_cast<unsigned short*>(row);
+      r16[k] = h;
+      r16[M + 4 + k] = l;
+    }
+  } else {
+    const unsigned hi = tf32_rna(p);
+    row[k] = __uint_as_float(hi);
+    row[M + 1 + k] = __uint_as_float(tf32_rna(p - __uint_as_float(hi)));
+  }
 }
 
 // The power row in natural bin order from the thread's scratch slots: bins
 // k and M-k of each pair (bin M/2 once, bins 0 and M from k = 0)
-template <int LOG_M, int TP, int NT, int J = 0>
+template <int LOG_M, bool FAST, int TP, int NT, int J = 0>
 __device__ __forceinline__ void write_pairs(float* row, const float* scratch, int me, int k0) {
   constexpr int M = 1 << LOG_M;
   if constexpr (J * TP <= M / 2) {
     const int k = k0 + J * TP;
     if (k <= M / 2) {
-      put_split<LOG_M>(row, k, scratch[2 * J * NT + me]);
-      if constexpr (J * TP < M / 2) put_split<LOG_M>(row, M - k, scratch[(2 * J + 1) * NT + me]);
+      put_split<LOG_M, FAST>(row, k, scratch[2 * J * NT + me]);
+      if constexpr (J * TP < M / 2)
+        put_split<LOG_M, FAST>(row, M - k, scratch[(2 * J + 1) * NT + me]);
     }
-    write_pairs<LOG_M, TP, NT, J + 1>(row, scratch, me, k0);
+    write_pairs<LOG_M, FAST, TP, NT, J + 1>(row, scratch, me, k0);
   }
 }
 
@@ -168,7 +239,7 @@ __device__ __forceinline__ void write_pairs(float* row, const float* scratch, in
 // every read of the round's spectra ends at a barrier before the first
 // write lands in their buffers. The thread index is read afresh on each
 // side of the barrier, so no address is held through it.
-template <int LOG_M, int FR, int NT>
+template <int LOG_M, bool FAST, int FR, int NT>
 __device__ __forceinline__ void power_round(float2* buf, float* rows, float* scratch,
                                             const float2* __restrict__ tw_g, int f0r, int tid,
                                             bool mag) {
@@ -181,7 +252,7 @@ __device__ __forceinline__ void power_round(float2* buf, float* rows, float* scr
   }
   __syncthreads();
   const int me = opaque(tid), f = f0r + (me & (FR - 1));
-  write_pairs<LOG_M, TP, NT>(rows + row_offset<LOG_M>(f), scratch, me, me / FR);
+  write_pairs<LOG_M, FAST, TP, NT>(rows + row_offset<LOG_M, FAST>(f), scratch, me, me / FR);
 }
 
 // The A fragment (16 columns x 8 bins) of W at columns c0.., k-step kk:
@@ -199,20 +270,131 @@ __device__ __forceinline__ void load_a(float (&a)[4], const float* __restrict__ 
   a[3] = (k + 4 < n_bins && okb) ? __ldg(w1 + 8) : 0.f;
 }
 
-template <int LOG_M>
-__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT)
-mel_fused_kernel(const float* __restrict__ y, long long L,
-                 const float* __restrict__ win,
-                 const float2* __restrict__ tw_g,
-                 const float* __restrict__ W,
-                 float* __restrict__ out,
-                 int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode,
-                 int power, int tiles, int total) {
+// The A fragment of m16n8k16 (16 columns x 16 bins) at columns c0.. and
+// k-step kk < ksteps from Wt, W transposed with its bins zero-padded to
+// K16 = 16 * ksteps: a[0] holds column ca = c0 + g, a[1] column ca + 8,
+// each the four consecutive bins 16 kk + 4q .. +3, one 16-byte load. The
+// bins of a k-step are permuted so: the fragment's columns 2q, 2q+1 (its
+// registers 0 and 1) are bins 4q, 4q+1 and its columns 2q+8, 2q+9
+// (registers 2 and 3) bins 4q+2, 4q+3, and the B fragment takes the same
+// permutation, so the products are the same. Zero past n_cols or ksteps.
+template <int K16>
+__device__ __forceinline__ void load_a16(float4 (&a)[2], const float* __restrict__ Wt, int n_cols,
+                                         int kk, int ca, int q) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool ok = kk < K16 / 16;
+  const float4* w =
+      reinterpret_cast<const float4*>(Wt + static_cast<size_t>(ca) * K16 + 16 * kk + 4 * q);
+  a[0] = ok && ca < n_cols ? __ldg(w) : z;
+  a[1] = ok && ca + 8 < n_cols ? __ldg(w + 2 * K16) : z;  // 8 columns on
+}
+
+// One (m-tile, k-slice) unit's sums, 3xTF32: k-steps ks, ks + n_ks, ... of
+// 8 bins, the A fragment of W at columns ca.. (ca = 16-column m-tile + g),
+// the B fragments from the power rows, NTILE n-tiles of 8 frames
+template <int LOG_M, int FT>
+__device__ __forceinline__ void unit_3xtf32(float (&acc)[(FT + 7) / 8][4],
+                                            const float* rows, const float* __restrict__ W,
+                                            int n_cols, int n_ks, int ks, int ca, int g, int q) {
+  constexpr int M = 1 << LOG_M;
+  constexpr int NTILE = (FT + 7) / 8;         // n-tiles of 8 frames
+  constexpr int KSTEPS = (M + 1 + 7) / 8;     // k-steps of 8 bins over n_bins = M + 1
+  float a[4];
+  load_a(a, W, M + 1, n_cols, ks, ca, q);
+  for (int kk = ks; kk < KSTEPS; kk += n_ks) {
+    float an[4];
+    load_a(an, W, M + 1, n_cols, kk + n_ks, ca, q);  // zeros past the last step
+    unsigned ahi[4], alo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ahi[i] = tf32_rna(a[i]);
+      alo[i] = tf32_rna(a[i] - __uint_as_float(ahi[i]));
+    }
+    const int k = 8 * kk + q;
+#pragma unroll
+    for (int j = 0; j < NTILE; ++j) {
+      const int f = 8 * j + g;
+      const float* r = rows + row_offset<LOG_M>(f < FT ? f : 0);
+      const bool ok0 = (FT >= 8 || f < FT) && k <= M, ok1 = (FT >= 8 || f < FT) && k + 4 <= M;
+      const unsigned bhi[2] = {ok0 ? __float_as_uint(r[k]) : 0u,
+                               ok1 ? __float_as_uint(r[k + 4]) : 0u};
+      const unsigned blo[2] = {ok0 ? __float_as_uint(r[M + 1 + k]) : 0u,
+                               ok1 ? __float_as_uint(r[M + 5 + k]) : 0u};
+      // the k-step's three products start from zero and join the sum
+      // in an FP32 add: the tensor cores' accumulation truncates, which
+      // over hundreds of k-steps into one accumulator biased the sum by
+      // ~1e-5 of it (dense weights at n_fft 4096)
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_tf32(d, alo, bhi);
+      mma_tf32(d, ahi, blo);
+      mma_tf32(d, ahi, bhi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = an[i];
+  }
+}
+
+// The same unit as bf16x3 on m16n8k16, from Wt (load_a16): k-steps of 16
+// bins; B registers 0 and 1 of frame g are bins 16 kk + 4q .. +3, the row
+// words 8 kk + 2q and 8 kk + 2q + 1, one 8-byte load; words past bin M
+// (word M/2) are zero
+template <int LOG_M, int FT>
+__device__ __forceinline__ void unit_bf16x3(float (&acc)[(FT + 7) / 8][4],
+                                            const float* rows, const float* __restrict__ Wt,
+                                            int n_cols, int n_ks, int ks, int ca, int g, int q) {
+  constexpr int M = 1 << LOG_M;
+  constexpr int NTILE = (FT + 7) / 8;
+  constexpr int KSTEPS = (M + 1 + 15) / 16;   // k-steps of 16 bins over n_bins = M + 1
+  float4 a[2];
+  load_a16<16 * KSTEPS>(a, Wt, n_cols, ks, ca, q);
+  for (int kk = ks; kk < KSTEPS; kk += n_ks) {
+    float4 an[2];
+    load_a16<16 * KSTEPS>(an, Wt, n_cols, kk + n_ks, ca, q);  // zeros past the last step
+    unsigned ahi[4], alo[4];
+    split_bf16x2(a[0].x, a[0].y, ahi[0], alo[0]);
+    split_bf16x2(a[1].x, a[1].y, ahi[1], alo[1]);
+    split_bf16x2(a[0].z, a[0].w, ahi[2], alo[2]);
+    split_bf16x2(a[1].z, a[1].w, ahi[3], alo[3]);
+    const int w = 8 * kk + 2 * q;
+#pragma unroll
+    for (int j = 0; j < NTILE; ++j) {
+      const int f = 8 * j + g;
+      const uint2* r =
+          reinterpret_cast<const uint2*>(rows + row_offset<LOG_M, true>(f < FT ? f : 0));
+      const bool ok0 = (FT >= 8 || f < FT) && w <= M / 2;
+      const bool ok1 = (FT >= 8 || f < FT) && w + 1 <= M / 2;
+      const uint2 h = r[w / 2], l = r[M / 4 + 1 + w / 2];
+      const unsigned bhi[2] = {ok0 ? h.x : 0u, ok1 ? h.y : 0u};
+      const unsigned blo[2] = {ok0 ? l.x : 0u, ok1 ? l.y : 0u};
+      // from zero each k-step, as unit_3xtf32
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(d, alo, bhi);
+      mma_bf16(d, ahi, blo);
+      mma_bf16(d, ahi, bhi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
+    }
+    a[0] = an[0];
+    a[1] = an[1];
+  }
+}
+
+// The dense entry's body (FAST: the fast entry's), one __global__ each
+template <int LOG_M, bool FAST>
+__device__ __forceinline__ void
+mel_fused_body(const float* __restrict__ y, long long L,
+               const float* __restrict__ win,
+               const float2* __restrict__ tw_g,
+               const float* __restrict__ W,
+               float* __restrict__ out,
+               int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode,
+               int power, int tiles, int total) {
   using G = mapt::Geometry<LOG_M>;
   constexpr int M = G::M, T = G::T, FT = G::FT, NT = G::NT, FS = G::FS;
   constexpr int NW = NT / 32;                 // warps
   constexpr int NTILE = (FT + 7) / 8;         // n-tiles of 8 frames
-  constexpr int KSTEPS = (M + 1 + 7) / 8;     // k-steps of 8 bins over n_bins = M + 1
   extern __shared__ float4 smem4[];
   float2* buf = reinterpret_cast<float2*>(smem4);
   float* rows = reinterpret_cast<float*>(smem4);
@@ -263,7 +445,7 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
       const bool mag = opaque(power) == 1;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        power_round<LOG_M, FT / R, NT>(buf, rows, seg, tw_g, r * (FT / R), tid, mag);
+        power_round<LOG_M, FAST, FT / R, NT>(buf, rows, seg, tw_g, r * (FT / R), tid, mag);
     }
     __syncthreads();
     // the segment is free: copy the next tile's during the contraction
@@ -288,41 +470,10 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
       for (int j = 0; j < NTILE; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-      float a[4];
-      load_a(a, W, M + 1, n_cols_, ks, ca, q);
-      for (int kk = ks; kk < KSTEPS; kk += n_ks_) {
-        float an[4];
-        load_a(an, W, M + 1, n_cols_, kk + n_ks_, ca, q);  // zeros past the last step
-        unsigned ahi[4], alo[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ahi[i] = tf32_rna(a[i]);
-          alo[i] = tf32_rna(a[i] - __uint_as_float(ahi[i]));
-        }
-        const int k = 8 * kk + q;
-#pragma unroll
-        for (int j = 0; j < NTILE; ++j) {
-          const int f = 8 * j + g;
-          const float* r = rows + row_offset<LOG_M>(f < FT ? f : 0);
-          const bool ok0 = (FT >= 8 || f < FT) && k <= M, ok1 = (FT >= 8 || f < FT) && k + 4 <= M;
-          const unsigned bhi[2] = {ok0 ? __float_as_uint(r[k]) : 0u,
-                                   ok1 ? __float_as_uint(r[k + 4]) : 0u};
-          const unsigned blo[2] = {ok0 ? __float_as_uint(r[M + 1 + k]) : 0u,
-                                   ok1 ? __float_as_uint(r[M + 5 + k]) : 0u};
-          // the k-step's three products start from zero and join the sum
-          // in an FP32 add: the tensor cores' accumulation truncates, which
-          // over hundreds of k-steps into one accumulator biased the sum by
-          // ~1e-5 of it (dense weights at n_fft 4096)
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d, alo, bhi);
-          mma_tf32(d, ahi, blo);
-          mma_tf32(d, ahi, bhi);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = an[i];
-      }
+      if constexpr (FAST)
+        unit_bf16x3<LOG_M, FT>(acc, rows, W, n_cols_, n_ks_, ks, ca, g, q);
+      else
+        unit_3xtf32<LOG_M, FT>(acc, rows, W, n_cols_, n_ks_, ks, ca, g, q);
       if (n_ks_ == 1) {
         // c0, c1: column ca, frames 2q, 2q+1 of n-tile j; c2, c3: column ca + 8
 #pragma unroll
@@ -362,6 +513,24 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
     mapt::cp_async_wait_all();
     __syncthreads();
   }
+}
+
+
+#define MAPT_K1_PARAMS                                                                         \
+  const float *__restrict__ y, long long L, const float *__restrict__ win,                     \
+      const float2 *__restrict__ tw_g, const float *__restrict__ W, float *__restrict__ out,  \
+      int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode, int power, int tiles, \
+      int total
+#define MAPT_K1_ARGS y, L, win, tw_g, W, out, hop, F, n_cols, n_mt, n_ks, pad, mode, power, tiles, total
+
+template <int LOG_M>
+__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT) mel_fused_kernel(MAPT_K1_PARAMS) {
+  mel_fused_body<LOG_M, false>(MAPT_K1_ARGS);
+}
+
+template <int LOG_M>
+__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT) mel_fused_fast_kernel(MAPT_K1_PARAMS) {
+  mel_fused_body<LOG_M, true>(MAPT_K1_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -615,23 +784,27 @@ mel_fused_acf_kernel(const float* __restrict__ y, long long L,
   }
 }
 
-// The instance of LOG_M of the dense entry (ACF false) or the ACF entry
-template <int LOG_M, bool ACF>
+// K1's entries: each has an instance per LOG_M
+enum Entry { kDense = 0, kAcf = 1, kFast = 2 };
+
+template <int LOG_M, int ENTRY>
 const void* kernel_of() {
-  if constexpr (ACF)
+  if constexpr (ENTRY == kAcf)
     return reinterpret_cast<const void*>(mel_fused_acf_kernel<LOG_M>);
+  else if constexpr (ENTRY == kFast)
+    return reinterpret_cast<const void*>(mel_fused_fast_kernel<LOG_M>);
   else
     return reinterpret_cast<const void*>(mel_fused_kernel<LOG_M>);
 }
 
 // Open an instance to the whole 227 KB once per device; the blocks a
 // launch keeps resident follow from the shared memory it asks for.
-template <int LOG_M, bool ACF>
+template <int LOG_M, int ENTRY>
 cudaError_t open_smem(int device) {
   static bool opened[kMaxDevices];
   if (opened[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel_of<LOG_M, ACF>(), cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
+      kernel_of<LOG_M, ENTRY>(), cudaFuncAttributeMaxDynamicSharedMemorySize, mapt::kSmemLimit);
   opened[device] = err == cudaSuccess;
   return err;
 }
@@ -639,16 +812,16 @@ cudaError_t open_smem(int device) {
 // Per device and instance: the grid of the last shared-memory size launched
 // (SMs times resident blocks), so the occupancy query runs once per size,
 // not per call
-template <int LOG_M, bool ACF>
+template <int LOG_M, int ENTRY>
 cudaError_t grid_slots(size_t smem, int device, int* grid) {
   using G = mapt::Geometry<LOG_M>;
   static size_t sized[kMaxDevices];
   static int slots[kMaxDevices];
   if (sized[device] != smem) {
     int per_sm = 0, sms = 0;
-    cudaError_t err = open_smem<LOG_M, ACF>(device);
+    cudaError_t err = open_smem<LOG_M, ENTRY>(device);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of<LOG_M, ACF>(),
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of<LOG_M, ENTRY>(),
                                                           G::NT, smem);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -661,7 +834,7 @@ cudaError_t grid_slots(size_t smem, int device, int* grid) {
   return cudaSuccess;
 }
 
-template <int LOG_M>
+template <int LOG_M, bool FAST>
 int launch_m(const float* y, long long L, const float* win, const float* tw, const float* W,
              float* out, int B, int hop, int F, int n_cols, int pad, int mode, int power,
              int device, cudaStream_t stream) {
@@ -673,7 +846,7 @@ int launch_m(const float* y, long long L, const float* win, const float* tw, con
       device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   int slots = 0;
-  const cudaError_t err = grid_slots<LOG_M, false>(smem, device, &slots);
+  const cudaError_t err = grid_slots<LOG_M, FAST ? kFast : kDense>(smem, device, &slots);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (F + G::FT - 1) / G::FT;
   const long long total = static_cast<long long>(B) * tiles;
@@ -683,7 +856,8 @@ int launch_m(const float* y, long long L, const float* win, const float* tw, con
   // m-tiles of 16 columns; k-slices per m-tile to fill the block's warps
   const int n_mt = (n_cols + 15) / 16;
   const int n_ks = G::NT / 32 / n_mt > 1 ? G::NT / 32 / n_mt : 1;
-  mel_fused_kernel<LOG_M><<<grid, G::NT, smem, stream>>>(
+  auto* kernel = FAST ? mel_fused_fast_kernel<LOG_M> : mel_fused_kernel<LOG_M>;
+  kernel<<<grid, G::NT, smem, stream>>>(
       y, L, win, reinterpret_cast<const float2*>(tw), W, out, hop, F, n_cols, n_mt, n_ks, pad,
       mode, power, tiles, static_cast<int>(total));
   return static_cast<int>(cudaGetLastError());
@@ -699,7 +873,7 @@ int acf_launch_m(const float* y, long long L, const float* win, const float* tw,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (lo < 0 || hi <= lo || hi > 2 * G::M) return static_cast<int>(cudaErrorInvalidValue);
   int slots = 0;
-  const cudaError_t err = grid_slots<LOG_M, true>(smem, device, &slots);
+  const cudaError_t err = grid_slots<LOG_M, kAcf>(smem, device, &slots);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (F + G::FT - 1) / G::FT;
   const long long total = static_cast<long long>(B) * tiles;
@@ -714,7 +888,7 @@ int acf_launch_m(const float* y, long long L, const float* win, const float* tw,
 
 // info = {threads per block, frames per tile, dynamic shared memory per
 // block, resident blocks per SM}
-template <int LOG_M, bool ACF>
+template <int LOG_M, int ENTRY>
 int geometry_m(int hop, int device, int* info) {
   using G = mapt::Geometry<LOG_M>;
   const size_t smem = G::smem(hop);
@@ -722,9 +896,9 @@ int geometry_m(int hop, int device, int* info) {
   info[1] = G::FT;
   info[2] = static_cast<int>(smem);
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = open_smem<LOG_M, ACF>(device);
+  cudaError_t err = open_smem<LOG_M, ENTRY>(device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel_of<LOG_M, ACF>(), G::NT,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel_of<LOG_M, ENTRY>(), G::NT,
                                                         smem);
   return static_cast<int>(err);
 }
@@ -732,23 +906,44 @@ int geometry_m(int hop, int device, int* info) {
 // The instances: n_fft = 2^(LOG_M+1), 128 .. 8192
 #define MAPT_K1_LOG_MS(X) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
 
+template <bool FAST>
+int launch(const float* y, long long L, const float* win, const float* tw, const float* W,
+           float* out, int B, int n_fft, int hop, int F, int n_cols, int pad, int mode, int power,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
+#define MAPT_CASE(LM)                                                                          \
+  case LM:                                                                                     \
+    return launch_m<LM, FAST>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, \
+                              s);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// The dense entry: out (B, n_cols, F) = |rDFT(win * frame)|^power @ W, 3xTF32
 extern "C" int mel_fused_launch(const float* y, long long L, const float* win,
                                 const float* tw, const float* W, float* out,
                                 int B, int n_fft, int hop, int F, int n_cols,
                                 int pad, int mode, int power, int device,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-#define MAPT_CASE(LM) \
-  case LM: return launch_m<LM>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
-    MAPT_K1_LOG_MS(MAPT_CASE)
-#undef MAPT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch<false>(y, L, win, tw, W, out, B, n_fft, hop, F, n_cols, pad, mode, power, device,
+                       stream);
+}
+
+// The fast entry: the same, the contraction as bf16x3
+extern "C" int mel_fused_fast_launch(const float* y, long long L, const float* win,
+                                     const float* tw, const float* W, float* out,
+                                     int B, int n_fft, int hop, int F, int n_cols,
+                                     int pad, int mode, int power, int device,
+                                     void* stream) {
+  return launch<true>(y, L, win, tw, W, out, B, n_fft, hop, F, n_cols, pad, mode, power, device,
+                      stream);
 }
 
 // The ACF entry: out (B, 1 + hi - lo, F) = lag 0 and lags [lo, hi) of
@@ -769,13 +964,16 @@ extern "C" int mel_fused_acf_launch(const float* y, long long L, const float* wi
   }
 }
 
-// acf: the ACF entry's instance (else the dense entry's)
-extern "C" int mel_fused_geometry(int n_fft, int hop, int acf, int device, int* info) {
+// entry: 0 the dense entry's instance, 1 the ACF entry's, 2 the fast entry's
+extern "C" int mel_fused_geometry(int n_fft, int hop, int entry, int device, int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-#define MAPT_CASE(LM) \
-  case LM: return acf ? geometry_m<LM, true>(hop, device, info) : geometry_m<LM, false>(hop, device, info);
+#define MAPT_CASE(LM)                                                   \
+  case LM:                                                              \
+    return entry == kAcf    ? geometry_m<LM, kAcf>(hop, device, info)   \
+           : entry == kFast ? geometry_m<LM, kFast>(hop, device, info)  \
+                            : geometry_m<LM, kDense>(hop, device, info);
     MAPT_K1_LOG_MS(MAPT_CASE)
 #undef MAPT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -188,9 +188,10 @@ def istft_fused_t(
 ) -> torch.Tensor:
     """``(B, n_bins, F) -> (B, padded_length)``, the counterpart of
     ``istft_pallas_t``: ``istft_kernel`` on the natural spectrum through its
-    strides (no copy). The kernel is FP32-exact, so ``fast_gemm`` and
-    ``kara`` (the TPU kernel's GEMM modes) are accepted and change
-    nothing."""
+    strides (no copy). The kernel computes an FP32 inverse FFT with no GEMM,
+    so ``fast_gemm`` and ``kara`` (the TPU kernel's modes for its DFT GEMMs:
+    bf16 splits, the Karatsuba complex base) have nothing to change: they
+    are accepted and unused."""
     del fast_gemm, kara
     return istft_fused(S.transpose(1, 2), win, env, n_fft=n_fft, hop_length=hop_length,
                        padded_length=padded_length)

@@ -30,6 +30,22 @@ with W's columns, that is with this traffic, and it and the front end (no
 overlap with the contraction inside a block) are what remain
 (measurements in ``PERF.md``).
 
+The fast entry (``mel_fused_fast_kernel``, ``fast_gemm=True``, the default
+through ``_config.ANALYSIS_FAST_GEMM``). The same kernel with the
+contraction as the JAX kernel's fast mode computes it: both operands split
+into bfloat16 ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest
+even), and ``lo*hi + hi*lo + hi*hi`` on ``mma.sync`` m16n8k16 in FP32
+accumulators, each 16-bin k-step from zero. The power rows hold bf16 parts
+(two bins a 32-bit word, a B fragment register); W is passed transposed
+with its bins zero-padded to whole 16-bin k-steps (one small copy a call)
+and split in registers as it is loaded; inside a k-step the bins are
+permuted so that a thread's four are consecutive (one load each). It is
+within ~1e-5 of max of an exact product (the JAX package's class, 2.7e-5),
+where the dense entry is within ~1e-6;
+its plain twin is :func:`melspectrogram_plain` with ``fast_gemm=True``, the
+same split in FP32 matmuls (a product of two bf16 values is exact in FP32).
+Under either mode the backward is the exact plain composition's.
+
 The TPU kernel's radix decimation, folded filterbank (``fold_filterbank``),
 128-lane group layout, VMEM block picker and DMA double buffering have no
 counterpart: this kernel emits natural bin order, so W is used as given.
@@ -50,19 +66,30 @@ FP32 operations.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
+from .. import _config
 from ..ops._frames import windowed_frames
 from ..utils.cache import table_cache
 from ..utils.dispatch import on_cuda, radix_shape_ok
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 
+#: the dense and the fast entry's launchers' arguments (the fast one reads W
+#: transposed and padded)
+_CONTRACT_ARGS = (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32)
 KERNEL = register(Kernel(
-    "mel_fused_kernel", "mel_fused_launch",
-    (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32),
+    "mel_fused_kernel", "mel_fused_launch", _CONTRACT_ARGS,
+    source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
+    replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
+))
+#: K1's fast entry: the same pallas_call with its fast_gemm mode (bf16x3)
+KERNEL_FAST = register(Kernel(
+    "mel_fused_fast_kernel", "mel_fused_fast_launch", _CONTRACT_ARGS,
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
@@ -80,15 +107,17 @@ PAD_CODES = {"constant": 0, "reflect": 1, "edge": 2}
 
 
 def launch_geometry(n_fft: int, hop_length: int, device: torch.device, *,
-                    acf: bool = False) -> dict:
+                    acf: bool = False, fast: bool = False) -> dict:
     """K1's launch at ``(n_fft, hop_length)`` on a CUDA ``device`` (the ACF
-    entry's with ``acf``): threads per block, frames per tile, dynamic
-    shared memory per block (bytes) and resident blocks per SM."""
+    entry's with ``acf``, the fast entry's with ``fast``): threads per
+    block, frames per tile, dynamic shared memory per block (bytes) and
+    resident blocks per SM."""
     fn = library().mel_fused_geometry
     fn.argtypes = [I32, I32, I32, I32, P]
     fn.restype = I32
     info = (ctypes.c_int * 4)()
-    err = fn(n_fft, hop_length, int(acf), device.index, ctypes.cast(info, P))
+    entry = 1 if acf else 2 if fast else 0
+    err = fn(n_fft, hop_length, entry, device.index, ctypes.cast(info, P))
     if err != 0:
         raise RuntimeError(f"mel_fused_geometry failed: CUDA error {err}")
     return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
@@ -106,10 +135,13 @@ def melspectrogram_plain(
     pad_mode: str,
     power: float = 2.0,
     basis: torch.Tensor | None = None,
+    fast_gemm: bool = False,
 ) -> torch.Tensor:
     """Plain twin and plain composition: pad, frame, window, rfft (or the
     forward-basis GEMM), ``|X|^power``, ``@ fb_t`` -> ``(B, n_cols, F)``.
-    Any power."""
+    Any power. ``fast_gemm``: the fast entry's twin, the contraction as
+    ``hi@hi + hi@lo + lo@hi`` of the bf16 splits, in the JAX ``_group_dot``
+    order."""
     frames = windowed_frames(y, win, n_fft, hop_length, center, pad_mode)
     spec = rfft_frames(frames, n_fft, basis)
     p = spec.real**2 + spec.imag**2
@@ -117,10 +149,23 @@ def melspectrogram_plain(
         p = torch.sqrt(p)
     elif power != 2.0:
         p = torch.pow(p, power / 2.0)
-    return torch.matmul(p, fb_t).transpose(1, 2)
+    if not fast_gemm:
+        return torch.matmul(p, fb_t).transpose(1, 2)
+    ph, pl = bf16_split(p)
+    wh, wl = bf16_split(fb_t)
+    return (torch.matmul(ph, wh) + torch.matmul(ph, wl) + torch.matmul(pl, wh)).transpose(1, 2)
 
 
-def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power):
+def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``x`` -> ``(hi, lo)``, each a bfloat16 value held in float32:
+    ``hi = bf16(x)``, ``lo = bf16(x - hi)``, rounding to nearest even, so
+    ``hi + lo`` keeps ~16 of x's 24 mantissa bits (the JAX
+    ``_bf16_split``)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_gemm=False):
     require(y, "y", torch.float32, 2)
     require(win, "win", torch.float32, 1)
     require(fb_t, "fb_t", torch.float32, 2)
@@ -134,10 +179,17 @@ def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power):
     pad = n_fft // 2 if center else 0
     F = 1 + (L + 2 * pad - n_fft) // hop_length
     tw = rfft_twiddles(n_fft, device=y.device)
+    if fast_gemm:
+        # the fast entry reads W transposed, its bins zero-padded to whole
+        # 16-bin k-steps: a thread's A fragment is then one 16-byte load a
+        # column
+        w = tnf.pad(fb_t.t(), (0, -n_bins % 16)).contiguous()
+    else:
+        w = fb_t
     out = torch.empty((B, n_cols, F), dtype=torch.float32, device=y.device)
-    KERNEL.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), fb_t.data_ptr(),
-                  out.data_ptr(), B, n_fft, hop_length, F, n_cols, pad,
-                  PAD_CODES[pad_mode], int(power))
+    (KERNEL_FAST if fast_gemm else KERNEL).launch(
+        y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), w.data_ptr(), out.data_ptr(), B,
+        n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode], int(power))
     return out
 
 
@@ -151,6 +203,7 @@ def melspectrogram_fused(
     center: bool,
     pad_mode: str,
     power: float = 2.0,
+    fast_gemm: bool | None = None,
 ) -> torch.Tensor:
     """``(B, L) -> (B, n_cols, F)`` through ``mel_fused_kernel`` on a CUDA
     tensor, through the plain twin on a CPU tensor.
@@ -158,8 +211,11 @@ def melspectrogram_fused(
     Requires the radix shape gate (`utils/dispatch.py::radix_shape_ok`) and
     ``power`` in {1, 2}; any window and any dense ``fb_t`` (the contraction
     walks ``ceil(n_cols / 16)`` column tiles, so shared memory does not grow
-    with the columns and time follows them). The backward differentiates
-    the plain twin."""
+    with the columns and time follows them). ``fast_gemm`` (None:
+    ``_config.ANALYSIS_FAST_GEMM``, read at call time; True by default)
+    takes the fast entry, ``mel_fused_fast_kernel``, and its twin: ~1e-5
+    of max of an exact product; False the dense entry, within ~1e-6. Under
+    both the backward differentiates the exact plain twin."""
     if not radix_shape_ok(n_fft, hop_length):
         raise ValueError(
             f"fused mel kernel requires pow2 n_fft = C*hop, hop = R2*128, "
@@ -172,11 +228,15 @@ def melspectrogram_fused(
         raise ValueError(
             f"signal length ({y.shape[1]}) must be >= n_fft ({n_fft}) when center=False"
         )
+    if fast_gemm is None:
+        fast_gemm = _config.ANALYSIS_FAST_GEMM
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
               power=float(power))
-    if not on_cuda(y, win, fb_t):
+    cuda = on_cuda(y, win, fb_t)
+    if not (cuda or fast_gemm):
         return melspectrogram_plain(y, win, fb_t, **kw)
-    return with_plain_backward(_launch, melspectrogram_plain, y, win, fb_t, **kw)
+    forward = partial(_launch if cuda else melspectrogram_plain, fast_gemm=bool(fast_gemm))
+    return with_plain_backward(forward, melspectrogram_plain, y, win, fb_t, **kw)
 
 
 @table_cache("acf_lag_basis", maxsize=8)

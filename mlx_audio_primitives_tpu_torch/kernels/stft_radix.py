@@ -169,10 +169,10 @@ def stft_magnitude_fused(
 ) -> torch.Tensor:
     """``(B, L) -> float32 (B, n_bins, F)`` magnitudes through
     ``stft_mag_kernel`` on a CUDA tensor, through the plain twin on a CPU
-    tensor; the counterpart of ``stft_magnitude_pallas``. The kernel is
-    FP32-exact, so ``fast_gemm`` (the TPU kernel's bf16-split GEMM mode) is
-    accepted and changes nothing. The backward differentiates the plain
-    twin."""
+    tensor; the counterpart of ``stft_magnitude_pallas``. The kernel
+    computes an FP32 FFT with no GEMM, so ``fast_gemm`` (the TPU kernel's
+    bf16-split mode for its DFT GEMMs) has nothing to change: it is accepted
+    and unused. The backward differentiates the plain twin."""
     del fast_gemm
     _check(y, n_fft, hop_length, center)
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)

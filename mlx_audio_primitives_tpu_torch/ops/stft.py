@@ -208,8 +208,9 @@ def magnitude_spectrogram(
     the complex intermediate: the spectral features' magnitude path.
 
     ``use_pallas`` selects the magnitude kernel (see :mod:`..utils.dispatch`).
-    The port's kernels are FP32-exact, so ``fast_gemm`` (the JAX kernel's
-    bf16-split GEMM mode) is accepted and changes nothing."""
+    The magnitude kernel (K2m) computes an FP32 FFT and has no GEMM, so
+    ``fast_gemm`` (the JAX kernel's bf16-split GEMM mode, which splits its
+    DFT GEMMs) has nothing to change here: it is accepted and unused."""
     del fast_gemm
     if hop_length is None:
         hop_length = n_fft // 4

@@ -4,9 +4,11 @@
 filterbank kernel (K1) with the ``(n_bins, 12)`` chroma weight; on the CPU
 its wrapper runs K1's plain twin (the kernel routes are forced on by
 patching ``kernel_route``). Contract (`NUMERICAL_ACCURACY.md`:
-chromagram fused vs XLA ~2e-6): both port routes, and the ``S`` route
+chromagram fused vs XLA ~2e-6): both port routes, the kernel route with
+K1's exact contraction (``ANALYSIS_FAST_GEMM`` off), and the ``S`` route
 (one FP32 product), within 2e-6 of max of the JAX package's XLA route; the
-JAX package's Pallas route (interpret mode, 3-pass bf16-split products at
+port's default kernel route (the bf16x3 contraction) against the JAX
+package's Pallas route (interpret mode, 3-pass bf16-split products at
 ~2.7e-5) within the mel contract, 1e-4. The CQT/VQT chroma, tonnetz and
 CENS within 2e-6 of max (the CQT row allows 3e-5 abs + 2e-4 rel; the
 chroma fold and per-frame norm add nothing measurable).
@@ -21,6 +23,7 @@ from torch_port_util import max_rel, signals
 
 import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
+from mlx_audio_primitives_tpu_torch import _config as tap_config
 from mlx_audio_primitives_tpu_torch.ops import mel as tap_mel
 from mlx_audio_primitives_tpu_torch.utils import dispatch as tap_dispatch
 
@@ -45,6 +48,8 @@ def port_route(request, monkeypatch):
     if request.param == "kernels":
         monkeypatch.setattr(tap_dispatch, "kernel_route",
                             lambda flag, device: flag is not False)
+        # the exact contraction, whose class the XLA route's 2e-6 is
+        monkeypatch.setattr(tap_config, "ANALYSIS_FAST_GEMM", False)
     return request.param
 
 

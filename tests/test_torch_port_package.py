@@ -65,6 +65,19 @@ def test_importing_the_port_imports_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_config_constants_match_jax():
+    """The numerical and policy constants the port carries equal the JAX
+    package's, ``ANALYSIS_FAST_GEMM`` (True: K1's bf16x3 contraction)
+    among them."""
+    from mlx_audio_primitives_tpu import _config as jax_config
+    from mlx_audio_primitives_tpu_torch import _config as tap_config
+
+    for name in ("WINDOW_SUM_EPSILON", "WINDOW_CACHE_SIZE", "FILTERBANK_CACHE_SIZE",
+                 "DCT_CACHE_SIZE", "ANALYSIS_FAST_GEMM"):
+        assert getattr(tap_config, name) == getattr(jax_config, name), name
+    assert tap_config.ANALYSIS_FAST_GEMM is True
+
+
 def test_no_batch_cap():
     assert not hasattr(_build, "MAX_BATCH")
 

@@ -34,6 +34,7 @@ import torch
 from torch_port_util import max_abs, max_rel, signals, to_np
 
 import mlx_audio_primitives_tpu_torch as tap
+from mlx_audio_primitives_tpu_torch import _config as tap_config
 from mlx_audio_primitives_tpu_torch.utils import dispatch as tap_dispatch
 
 js = importlib.import_module("mlx_audio_primitives_tpu.ops.streaming")
@@ -183,13 +184,32 @@ def test_streaming_logmel_and_mfcc_match_offline_and_jax(chunk_hops, port_route)
 
 
 @pytest.mark.parametrize("tuning", [0.0, 0.3])
-def test_streaming_chroma_matches_offline_and_jax(tuning, port_route):
+def test_streaming_chroma_matches_offline_and_jax(tuning, port_route, monkeypatch):
+    # K1's exact contraction: the JAX stream's XLA route is held at 2e-6
+    # (the default bf16x3 mode: test_streaming_chroma_fast_mode below)
+    monkeypatch.setattr(tap_config, "ANALYSIS_FAST_GEMM", False)
     got = stream(tap.streaming.StreamingChroma(SR, N_FFT, HOP, tuning=tuning, batch=2), TONAL, 4 * HOP)
     off = tap.chroma_stft(y=primed(TONAL), sr=SR, n_fft=N_FFT, hop_length=HOP, center=False,
                           tuning=tuning).transpose(1, 2)
     assert got.shape == (2, 48, 12) and max_abs(got, off) <= 2e-7
     ref = jax_stream(js.StreamingChroma(SR, N_FFT, HOP, tuning=tuning, batch=2), TONAL, 4 * HOP)
     assert max_abs(got, ref) <= 2e-6
+
+
+@pytest.mark.parametrize("tuning", [0.0, 0.3])
+def test_streaming_chroma_fast_mode(tuning, monkeypatch):
+    """On the kernel route under the default mode each push runs K1's
+    bf16x3 twin: the stream still equals the offline chromagram of the same
+    mode to 2e-7, and the JAX stream within the fast class (3e-5 of the
+    per-frame max, 1)."""
+    monkeypatch.setattr(tap_dispatch, "kernel_route", lambda flag, device: flag is not False)
+    assert tap_config.ANALYSIS_FAST_GEMM is True
+    got = stream(tap.streaming.StreamingChroma(SR, N_FFT, HOP, tuning=tuning, batch=2), TONAL, 4 * HOP)
+    off = tap.chroma_stft(y=primed(TONAL), sr=SR, n_fft=N_FFT, hop_length=HOP, center=False,
+                          tuning=tuning).transpose(1, 2)
+    assert got.shape == (2, 48, 12) and max_abs(got, off) <= 2e-7
+    ref = jax_stream(js.StreamingChroma(SR, N_FFT, HOP, tuning=tuning, batch=2), TONAL, 4 * HOP)
+    assert max_abs(got, ref) <= 3e-5
 
 
 @pytest.mark.parametrize("kw", [{}, dict(gain=0.8, bias=10.0, power=0.25, time_constant=0.1)],

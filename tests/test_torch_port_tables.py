@@ -19,7 +19,7 @@ from torch_port_util import launch_counts, max_rel, same_bits, signals
 import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_table
-from mlx_audio_primitives_tpu_torch.kernels.mel_fused import acf_fused
+from mlx_audio_primitives_tpu_torch.kernels.mel_fused import acf_fused, melspectrogram_fused
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
 from mlx_audio_primitives_tpu_torch.ops.mel import filterbank_spectrogram
 from mlx_audio_primitives_tpu_torch.ops.stft import _istft_envelope_table
@@ -205,8 +205,8 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
 
 def test_cpu_calls_launch_nothing():
     before = launch_counts()
-    assert set(before) == {"mel_fused_kernel", "mel_fused_acf_kernel", "stft_kernel",
-                           "stft_mag_kernel", "istft_kernel", "overlap_add_kernel",
+    assert set(before) == {"mel_fused_kernel", "mel_fused_fast_kernel", "mel_fused_acf_kernel",
+                           "stft_kernel", "stft_mag_kernel", "istft_kernel", "overlap_add_kernel",
                            "select_extremes_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
@@ -218,6 +218,9 @@ def test_cpu_calls_launch_nothing():
     tap.spectral_contrast(y, n_fft=512, hop_length=128)
     acf_fused(torch.from_numpy(signals(4, (1, 4096))), torch.ones(1024), n_fft=1024,
               hop_length=128, lo=1, hi=300)
+    for fast in (True, False):
+        melspectrogram_fused(torch.from_numpy(y), torch.ones(512), torch.ones(257, 3), n_fft=512,
+                             hop_length=128, center=True, pad_mode="constant", fast_gemm=fast)
     assert launch_counts() == before
 
 
