@@ -123,7 +123,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       ``profile_section`` against ``cuda_ms``, the tracked transfers'
       bytes, a ``start_device_trace`` trace that names K1, and
       ``profile_memory`` of a 64 x 30 s mel beside
-      ``estimate_operation_memory``;
+      ``estimate_operation_memory``; a ``table_cache(dtype=np.float64)``
+      of the mel filterbank on the card (float64, bit-equal to its host
+      table) and the op's own default cache (float32, the host table
+      rounded once);
    h. ``parallel/`` and the conv trainers of ``models/`` at one rank: a
       world of one over NCCL (a ``FileStore`` in a temporary directory) and
       a ``(1, 1)`` mesh; ``logmel_time_sharded`` at 64 x 30 s with
@@ -2904,8 +2907,9 @@ def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
     ``prefetch_to_device`` -> log-mel (K1 once a batch), bit-equal to the
     same batches copied synchronously and against the float64 mel/dB
     oracle; ``warmup`` of the six ops at (1 s, 30 s) x (1, 64); the
-    profilers. Returns the launches of the counted calls and what phases 5
-    and 6e reuse."""
+    profilers; a float64 and the default float32 table cache of the mel
+    filterbank on the card, each against its host table. Returns the
+    launches of the counted calls and what phases 5 and 6e reuse."""
     phase(f"4g. public utilities path: WAV I/O, load, batching and prefetch, log-mel, warmup, "
           f"profilers; {LOADER_FILES} files of 30 s")
     from scipy.signal import resample_poly
@@ -3057,6 +3061,25 @@ def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
     print(f"start/stop_device_trace around one pipeline batch: {len(traces)} trace file(s), "
           f"{named} naming K1's kernel symbol (limit 1)")
     check(len(traces) == 1 and named == 1, "the device trace does not name K1")
+    # the table caches' dtype on the card: the mel filterbank's host builder
+    # behind a float64 cache is its host table bit for bit; the op's own
+    # cache (the default dtype) is that table rounded once to float32
+    from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
+
+    fb_args = (SR, N_FFT, N_MELS, 0.0, SR / 2.0, False, "slaney")
+    fb_host = _mel_filterbank_table.host(*fb_args)
+    fb64_cache = U.table_cache("chip_smoke_mel_f64", dtype=np.float64)(_mel_filterbank_table.host)
+    fb64 = fb64_cache(*fb_args, device="cuda")
+    fb32 = _mel_filterbank_table(*fb_args, device="cuda")
+    ok64 = (fb64.dtype == torch.float64 and fb64.is_cuda and fb64_cache.dtype is np.float64
+            and np.array_equal(fb64.cpu().numpy(), fb_host))
+    ok32 = (fb32.dtype == torch.float32 and fb32.is_cuda
+            and np.array_equal(fb32.cpu().numpy(), fb_host.astype(np.float32)))
+    print(f"table_cache(dtype=np.float64) of the mel filterbank {tuple(fb64.shape)} on the card: "
+          f"{fb64.dtype} on {fb64.device}, bit-equal to the host table {ok64}; the default cache: "
+          f"{fb32.dtype} on {fb32.device}, bit-equal to the host table rounded to float32 {ok32} "
+          f"(limit both)")
+    check(ok64 and ok32, "a table cache's dtype on the card")
     y64 = torch.from_numpy(clips).cuda()
     out, prof = U.profile_memory(lambda: ap.melspectrogram(y64, sr=SR, n_fft=N_FFT, hop_length=HOP,
                                                            n_mels=N_MELS))

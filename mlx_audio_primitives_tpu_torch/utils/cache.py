@@ -6,8 +6,9 @@ ISTFT envelopes, FFT twiddles):
 
 * tier 1 -- ``functools.lru_cache`` around a pure-NumPy float64 builder, so
   the table math happens once on the host in double precision;
-* tier 2 -- a dict keyed by ``(builder args, device)`` holding the float32
-  tensor on that device, so a hit costs no host-to-device copy.
+* tier 2 -- a dict keyed by ``(builder args, device)`` holding the table
+  cast to the cache's ``dtype`` (float32 by default) as a tensor on that
+  device, so a hit costs no host-to-device copy.
 
 The tensors handed out are shared: callers must not modify them in place.
 As in the JAX package, every cache registers itself, so that
@@ -21,11 +22,10 @@ from __future__ import annotations
 import functools
 import threading
 from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
-
-from .._config import REAL_DTYPE
 
 # Registry of every live TableCache, for clear_all_caches() / cache_stats().
 _CACHE_REGISTRY: list["TableCache"] = []
@@ -40,8 +40,10 @@ class TableCache:
         name: str,
         builder: Callable[..., np.ndarray],
         maxsize: int = 128,
+        dtype: Any = np.float32,
     ):
         self.name = name
+        self.dtype = dtype
         self._host_builder = functools.lru_cache(maxsize=maxsize)(builder)
         self._device_cache: dict[tuple, torch.Tensor] = {}
         self._maxsize = maxsize
@@ -54,8 +56,9 @@ class TableCache:
             _CACHE_REGISTRY.append(self)
 
     def __call__(self, *args, device: torch.device | str | None = None) -> torch.Tensor:
-        """The table for ``args`` as a float32 tensor on ``device`` (CPU
-        when None)."""
+        """The table for ``args`` as a tensor of ``self.dtype`` on ``device``
+        (CPU when None). A dtype that ``torch.from_numpy`` cannot hold
+        raises its TypeError, which names the dtype."""
         dev = torch.device("cpu" if device is None else device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -72,8 +75,8 @@ class TableCache:
         self._note_profiler(hit is not None)
         if hit is not None:
             return hit
-        host = np.asarray(self._host_builder(*args))
-        table = torch.from_numpy(np.ascontiguousarray(host)).to(REAL_DTYPE).to(dev)
+        host = np.asarray(self._host_builder(*args)).astype(self.dtype)
+        table = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
         with self._lock:
             if key in self._device_cache:
                 return self._device_cache[key]  # a concurrent builder won
@@ -107,11 +110,11 @@ class TableCache:
         return {"hits": self.hits, "misses": self.misses, "entries": len(self._device_cache)}
 
 
-def table_cache(name: str, maxsize: int = 128):
+def table_cache(name: str, maxsize: int = 128, dtype: Any = np.float32):
     """Decorator: wrap a float64 NumPy builder into a TableCache."""
 
     def deco(builder: Callable[..., np.ndarray]) -> TableCache:
-        return TableCache(name, builder, maxsize=maxsize)
+        return TableCache(name, builder, maxsize=maxsize, dtype=dtype)
 
     return deco
 

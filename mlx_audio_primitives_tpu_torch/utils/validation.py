@@ -20,10 +20,20 @@ def validate_non_negative(value: float | int, name: str) -> None:
 
 
 def validate_range(
-    value: float | int, name: str, low: float | None = None, high: float | None = None
+    value: float | int,
+    name: str,
+    low: float | None = None,
+    high: float | None = None,
+    inclusive: bool = True,
 ) -> None:
-    """Raise ValueError unless ``low <= value <= high``."""
-    if low is not None and value < low:
-        raise ValueError(f"{name} must be >= {low}, got {value}")
-    if high is not None and value > high:
-        raise ValueError(f"{name} must be <= {high}, got {value}")
+    """Raise ValueError unless ``low <= value <= high`` (or strict if not inclusive)."""
+    if low is not None:
+        if inclusive and value < low:
+            raise ValueError(f"{name} must be >= {low}, got {value}")
+        if not inclusive and value <= low:
+            raise ValueError(f"{name} must be > {low}, got {value}")
+    if high is not None:
+        if inclusive and value > high:
+            raise ValueError(f"{name} must be <= {high}, got {value}")
+        if not inclusive and value >= high:
+            raise ValueError(f"{name} must be < {high}, got {value}")

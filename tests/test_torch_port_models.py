@@ -1,5 +1,6 @@
 """PyTorch port: ``models/`` frontends, presets, the conv classifier, the
-data- and sequence-parallel train steps, checkpoints and ``params_from_jax``,
+deep classifier's serial forward, the data- and sequence-parallel train
+steps, checkpoints and ``params_from_jax``,
 against the JAX package.
 
 Most cases run in this process at one rank: the same seeded NumPy inputs
@@ -198,6 +199,19 @@ def test_init_functions_match_jax():
                 b = b[k.key]
             assert b.dtype == torch.float32 and tuple(b.shape) == a.shape
             np.testing.assert_allclose(to_np(b), np.asarray(a), atol=1e-7)
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_deep_classifier_apply_matches_jax(use_pallas):
+    # the pipeline's serial forward at a small width, the JAX parameters
+    # carried across; 1e-5 of the largest logit, as the pipeline step's
+    params = jm.init_deep_classifier_params(jfront(), N_CLASSES, n_blocks=3, width=8, seed=4)
+    y = signals(8, (3, 4096))
+    got = tm.deep_classifier_apply(tfront(), params_from_jax(host(params)), y,
+                                   use_pallas=use_pallas)
+    ref = np.asarray(jm.deep_classifier_apply(jfront(), params, y, use_pallas=use_pallas))
+    assert tuple(got.shape) == ref.shape == (3, N_CLASSES)
+    assert np.abs(to_np(got) - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

@@ -13,15 +13,18 @@ back. The ``ops`` namespaces bind the same names (functions where the JAX
 package has functions, so ``ops.stft`` is the function in both),
 ``utils.__all__`` is the JAX list, ``utils`` and ``_native`` import no JAX,
 and no port file reaches the JAX package's native build. ``parallel``
-holds the JAX package's 18 names and ``models`` its names but the 16 of the
-expert-parallel and transformer modules; both import without JAX, and each
-public function and class of their modules has its JAX counterpart's
-parameters and defaults.
+holds the JAX package's 18 names and ``models`` its names; both import
+without JAX. Each public function and class of every JAX module outside
+``kernels/`` has its counterpart in the port with every JAX parameter, in
+the same order, of the same kind and with the same default; two allowlists
+name the exceptions (``PORT_ADDITIONS``, ``JAX_ONLY``) and fail once an
+entry no longer matches a difference.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import re
 import subprocess
 import sys
@@ -230,10 +233,36 @@ def test_parallel_and_models_import_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-SLICE_MODULES = ["parallel.mesh", "parallel.sharding", "parallel.time_shard", "models.pipelines",
-                 "models.presets", "models.checkpoint", "models.convnet",
-                 "models.tensor_parallel", "models.pipeline_parallel", "models.expert_parallel",
-                 "models.transformer"]
+def _jax_modules() -> list[str]:
+    """Every module of the JAX package outside ``kernels/``, relative to it."""
+    root = Path(jap.__file__).parent
+    mods = (f.relative_to(root).with_suffix("").parts for f in root.rglob("*.py"))
+    return sorted(".".join(p[:-1] if p[-1] == "__init__" else p) for p in mods
+                  if p[0] != "kernels" and p != ("__init__",))
+
+
+SLICE_MODULES = _jax_modules()
+
+#: parameters the port adds after the JAX ones: each a trailing
+#: ``device=None`` for a function that builds a table or a state on the host
+#: side, where the JAX package puts it on its one default backend
+PORT_ADDITIONS = {
+    "ops.windows.get_window": "a named window is a cached table on the caller's device",
+    "ops.mel.mel_filterbank": "the filterbank is a cached table on the caller's device",
+    "ops.chroma.chroma_filterbank": "the filterbank is a cached table on the caller's device",
+    "ops.filterbanks.bark_filterbank": "the filterbank is a cached table on the caller's device",
+    "ops.filterbanks.linear_filterbank": "the filterbank is a cached table on the caller's device",
+    "ops.mfcc.lifter_coeffs": "the lifter is made on the caller's device",
+    "ops.streaming.streaming_stft_init": "the stream's zero tail is made on the caller's device",
+    "ops.streaming.streaming_istft_init": "the stream's zero tails are made on the caller's device",
+}
+
+#: JAX names the port has no counterpart for
+JAX_ONLY = {
+    "utils.dispatch.is_batch_traced": "detects a jax.vmap trace; the port has no tracer",
+    "utils.dispatch.try_pallas": "catches JAX's forward-mode autodiff error of a custom_vjp",
+    "utils.dispatch.vma_struct": "a pallas_call output type under shard_map; kernel_route routes",
+}
 
 
 def _own_public(module) -> list[str]:
@@ -244,9 +273,21 @@ def _own_public(module) -> list[str]:
 def _shape(fn) -> list[tuple]:
     """Parameter names, kinds and defaults (annotations name each
     package's own types)."""
-    import inspect
-
     return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+def _member(cls: type, m: str):
+    """The function whose signature ``cls.m`` has: ``__init__`` as looked
+    up, a property by its getter, a static or class method by its function;
+    None for a data attribute or a missing name."""
+    if m == "__init__":
+        return cls.__init__
+    v = inspect.getattr_static(cls, m, None)
+    if isinstance(v, property):
+        return v.fget
+    if isinstance(v, (staticmethod, classmethod)):
+        return v.__func__
+    return v if callable(v) else None
 
 
 SLICE_NAMES_BY_MODULE = [
@@ -257,12 +298,31 @@ SLICE_NAMES_BY_MODULE = [
 
 @pytest.mark.parametrize("mod,name", SLICE_NAMES_BY_MODULE)
 def test_slice_signatures_match_jax(mod, name):
+    """Every JAX parameter in the port, in the same order, with the same
+    kind and default; the allowlisted names differ exactly as listed, so an
+    entry that no longer matches a difference fails here."""
     ref = getattr(importlib.import_module(f"mlx_audio_primitives_tpu.{mod}"), name)
-    got = getattr(importlib.import_module(f"mlx_audio_primitives_tpu_torch.{mod}"), name)
+    port_mod = importlib.import_module(f"mlx_audio_primitives_tpu_torch.{mod}")
+    key = f"{mod}.{name}"
+    if key in JAX_ONLY:
+        assert not hasattr(port_mod, name), f"{key} is ported: take it out of JAX_ONLY"
+        return
+    got = getattr(port_mod, name)
     if isinstance(ref, type):
         assert isinstance(got, type)
         methods = ["__init__"] + [m for m in vars(ref) if not m.startswith("_")]
         for m in methods:
-            assert _shape(getattr(got, m)) == _shape(getattr(ref, m)), f"{name}.{m}"
+            if _member(ref, m) is not None:
+                assert _member(got, m) is not None, f"{name}.{m}"
+                assert _shape(_member(got, m)) == _shape(_member(ref, m)), f"{name}.{m}"
+    elif key in PORT_ADDITIONS:
+        assert _shape(got) == _shape(ref) + [
+            ("device", inspect.Parameter.POSITIONAL_OR_KEYWORD, None)], key
     else:
         assert _shape(got) == _shape(ref)
+
+
+def test_signature_allowlists_name_jax_functions():
+    names = set(f"{mod}.{name}" for mod, name in SLICE_NAMES_BY_MODULE)
+    assert set(PORT_ADDITIONS) <= names and set(JAX_ONLY) <= names
+    assert len(SLICE_NAMES_BY_MODULE) >= 277

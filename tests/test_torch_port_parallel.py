@@ -15,7 +15,9 @@ the kernel wrappers (elsewhere it turns into 'fft' in both packages).
 Tolerances are the JAX package's own (`tests/test_parallel.py`): STFT
 2e-4, log-mel 2e-3 dB, ISTFT 1e-4, data-parallel ``melspectrogram`` rtol
 1e-5, and Griffin-Lim 1e-4 of the signal's maximum
-(`tests/test_torch_port_griffinlim.py`).
+(`tests/test_torch_port_griffinlim.py`). ``shard_batch`` gives the same
+global value and batch sharding as the JAX function, and the axis names
+are the JAX strings.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ def _cases() -> list[dict]:
         {"id": "dp-mel-2x2", "job": "data_parallel",
          "args": dict(op="melspectrogram", x="y_dp", mesh=(2, 2), n_fft=1024, hop_length=256,
                       n_mels=32, use_pallas=True)},
+        {"id": "shard-batch-2x2", "job": "shard_batch", "args": dict(x="y_dp", mesh=(2, 2))},
         {"id": "dp-griffinlim-4x1", "job": "data_parallel",
          "args": dict(op="griffinlim", x="S_gl", mesh=(4, 1), n_iter=2, hop_length=256,
                       init="zeros")},
@@ -326,6 +329,26 @@ def test_data_parallel_griffinlim_matches_jax(world):
     ref = np.asarray(fn(world[0]["S_gl"]))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("name", ["DATA_AXIS", "TIME_AXIS", "MODEL_AXIS", "STAGE_AXIS",
+                                  "EXPERT_AXIS"])
+def test_axis_names_are_the_jax_strings(name):
+    assert getattr(tp, name) == getattr(jp, name) and isinstance(getattr(tp, name), str)
+
+
+def test_shard_batch_matches_jax(world):
+    # the global value is the input, its batch axis sharded over 'data'
+    # and replicated over 'time', as the JAX array's
+    ref = jp.shard_batch(INPUTS["y_dp"], jax_mesh("2x2"))
+    assert tuple(ref.sharding.spec)[0] == jp.DATA_AXIS
+    local = {tuple(s.data.shape) for s in ref.addressable_shards}
+    for rank in range(4):
+        got = result(world, "shard-batch-2x2", rank)
+        assert np.array_equal(got["out"], np.asarray(ref))
+        assert np.array_equal(got["out"], INPUTS["y_dp"])
+        assert str(got["placements"]) == "(Shard(dim=0), Replicate())"
+        assert {tuple(got["local_shape"])} == local == {(4, 2048)}
 
 
 def test_data_parallel_rejects_batched_kwarg():

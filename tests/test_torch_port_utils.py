@@ -1,6 +1,6 @@
-"""PyTorch port: the profilers, warmup, the table-cache registry and the
-dispatch names (`utils/profiler.py`, `memory_profiler.py`, `warmup.py`,
-`cache.py`, `dispatch.py`).
+"""PyTorch port: the profilers, warmup, the table caches, the validators
+and the dispatch names (`utils/profiler.py`, `memory_profiler.py`,
+`warmup.py`, `cache.py`, `validation.py`, `dispatch.py`).
 
 Mirrors the JAX package's `tests/test_utils.py` on the CPU: section and
 decorator timers, cache accesses and transfers logged with the tensors'
@@ -8,6 +8,9 @@ bytes, a ``torch.profiler`` trace written in TensorBoard's format, memory
 readings of 0 without CUDA with ``estimate_operation_memory`` equal to the
 JAX dict, ``warmup``'s keys and errors, and each dispatch name's documented
 CUDA meaning (``MLX_AUDIO_TPU_DISABLE_PALLAS`` in a fresh interpreter).
+The validators, ``log_transfer`` and a ``TableCache`` of each ``dtype`` take
+the same inputs in both packages and give the same outcome: the same
+exception and message, the same records, the same table bits.
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ import torch
 from torch_port_util import launch_counts, signals
 
 import mlx_audio_primitives_tpu.utils as jutils
+from mlx_audio_primitives_tpu.utils import cache as jcache
+from mlx_audio_primitives_tpu.utils import validation as jvalidation
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu_torch import utils as U
 from mlx_audio_primitives_tpu_torch.kernels import _build
 from mlx_audio_primitives_tpu_torch.utils import dispatch, memory_profiler
-from mlx_audio_primitives_tpu_torch.utils.cache import table_cache
+from mlx_audio_primitives_tpu_torch.utils import validation
+from mlx_audio_primitives_tpu_torch.utils.cache import TableCache, table_cache
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -74,6 +80,96 @@ class TestTableCache:
         host = _mel_filterbank_table.host(22050, 1024, 32, 0.0, 11025.0, False, "slaney")
         assert host.dtype == np.float64
         np.testing.assert_array_equal(fb.numpy(), host.astype(np.float32))
+
+
+def _table(n: int) -> np.ndarray:
+    """A float64 table whose entries float32 and float16 both round."""
+    return np.sin(np.arange(n) * 0.37) * 1e3 + 1.0 / 3.0
+
+
+class TestTableCacheDtype:
+    def test_float64_is_the_host_table(self):
+        cache = TableCache("test_torch_dtype_f64", _table, dtype=np.float64)
+        got = cache(33)
+        assert cache.dtype is np.float64 and got.dtype == torch.float64
+        assert np.array_equal(got.numpy(), cache.host(33))
+
+    def test_float16_equals_the_jax_cache(self):
+        got = TableCache("test_torch_dtype_f16", _table, dtype=np.float16)(33)
+        ref = np.asarray(jcache.TableCache("test_torch_dtype_f16", _table, dtype=np.float16)(33))
+        assert got.dtype == torch.float16 and ref.dtype == np.float16
+        assert np.array_equal(got.numpy().view(np.uint16), ref.view(np.uint16))
+
+    def test_default_is_float32_as_before(self):
+        cache = TableCache("test_torch_dtype_default", _table)
+        got = cache(33)
+        ref = np.asarray(jcache.TableCache("test_torch_dtype_default", _table)(33))
+        assert cache.dtype is np.float32 and got.dtype == torch.float32
+        assert np.array_equal(got.numpy().view(np.uint32), ref.view(np.uint32))
+        # the cast the cache made before it had a dtype: float64 rounded once
+        before = torch.from_numpy(_table(33)).to(torch.float32)
+        assert torch.equal(got.view(torch.int32), before.view(torch.int32))
+
+    def test_decorator_keeps_dtype_and_counts(self):
+        @table_cache("test_torch_dtype_deco", maxsize=2, dtype=np.float64)
+        def builder(n):
+            return _table(n)
+
+        @jcache.table_cache("test_torch_dtype_deco", maxsize=2, dtype=np.float64)
+        def jbuilder(n):
+            return _table(n)
+
+        assert builder.dtype is jbuilder.dtype is np.float64
+        for n in (5, 5, 7, 5, 9, 7):
+            assert builder(n).dtype == torch.float64
+            jbuilder(n)
+        assert builder.stats == jbuilder.stats == {"hits": 2, "misses": 4, "entries": 2}
+        assert U.cache_stats()["test_torch_dtype_deco"] == builder.stats
+
+    def test_a_dtype_torch_cannot_hold_is_named(self):
+        cache = TableCache("test_torch_dtype_str", _table, dtype=np.str_)
+        with pytest.raises(TypeError, match="str_"):
+            cache(4)
+
+
+def _outcome(fn, *args, **kwargs):
+    """None, or the exception's type and message."""
+    try:
+        fn(*args, **kwargs)
+    except Exception as e:  # compared between the packages
+        return type(e), str(e)
+    return None
+
+
+BOUNDS = {"low": dict(low=0.0), "high": dict(high=1.0), "both": dict(low=0.0, high=1.0)}
+
+
+class TestValidation:
+    @pytest.mark.parametrize("inclusive", [True, False])
+    @pytest.mark.parametrize("bounds", list(BOUNDS))
+    @pytest.mark.parametrize("value", [-0.5, 0.0, 0.5, 1.0, 1.5])
+    def test_validate_range_matches_jax(self, value, bounds, inclusive):
+        kw = dict(BOUNDS[bounds], inclusive=inclusive)
+        got = _outcome(validation.validate_range, value, "q", **kw)
+        assert got == _outcome(jvalidation.validate_range, value, "q", **kw)
+        # the default is inclusive
+        if inclusive:
+            assert got == _outcome(validation.validate_range, value, "q", **BOUNDS[bounds])
+
+    def test_the_jax_tests_strict_call(self):
+        # tests/test_utils.py's call with inclusive=False
+        with pytest.raises(ValueError) as ref:
+            jvalidation.validate_range(0.0, "q", low=0.0, inclusive=False)
+        with pytest.raises(ValueError) as got:
+            U.validate_range(0.0, "q", low=0.0, inclusive=False)
+        assert str(got.value) == str(ref.value) == "q must be > 0.0, got 0.0"
+
+    @pytest.mark.parametrize("name", ["validate_positive", "validate_non_negative"])
+    @pytest.mark.parametrize("value", [-1, 0, 1, -0.5, 0.0, 2.5])
+    def test_sign_validators_match_jax(self, name, value):
+        got = _outcome(getattr(U, name), value, "n_fft")
+        assert got == _outcome(getattr(jvalidation, name), value, "n_fft")
+        assert (got is None) == (value > 0 if name == "validate_positive" else value >= 0)
 
 
 class TestDispatchNames:
@@ -210,6 +306,26 @@ class TestProfiler:
         assert transfers == [{"direction": "h2d", "context": "w", "bytes": 4000},
                              {"direction": "d2h", "context": "r", "bytes": 4000},
                              {"direction": "h2d", "context": "w64", "bytes": 120}]
+
+    def test_log_transfer_records_as_jax(self):
+        calls = [("h2d", "w", 4000), ("d2h", "r", np.int64(12)), ("h2d", "f", 7.9)]
+        jutils.clear_profiling()
+        jutils.enable_profiling()
+        try:
+            for c in calls:
+                U.log_transfer(*c)
+                jutils.log_transfer(*c)
+        finally:
+            jutils.disable_profiling()
+        got = U.get_profiling_data()["transfers"]
+        assert got == jutils.get_profiling_data()["transfers"]
+        assert got[2] == {"direction": "h2d", "context": "f", "bytes": 7}
+        # nothing is recorded while profiling is off, in either package
+        U.disable_profiling()
+        U.log_transfer("h2d", "off", 1)
+        jutils.log_transfer("h2d", "off", 1)
+        assert U.get_profiling_data()["transfers"] == got
+        assert jutils.get_profiling_data()["transfers"] == got
 
     def test_device_trace_writes_a_tensorboard_trace(self, tmp_path):
         U.start_device_trace(str(tmp_path))

@@ -228,6 +228,14 @@ def job_data_parallel(inputs, op, x, mesh, **kw):
     return {"out": _np(out), "local_rows": np.array(out.to_local().shape[0])}
 
 
+def job_shard_batch(inputs, x, mesh):
+    from mlx_audio_primitives_tpu_torch.parallel import shard_batch
+
+    out = shard_batch(inputs[x], _mesh("mesh", mesh))
+    return {"out": _np(out), "placements": np.array(repr(tuple(out.placements))),
+            "local_shape": np.array(out.to_local().shape)}
+
+
 def _frontend(sr, n_fft, hop, n_mels):
     from mlx_audio_primitives_tpu_torch.models import TrainableLogMelFrontend
 
