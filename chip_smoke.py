@@ -24,7 +24,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    K1/K2/K2m instance, each instance of K1's fast and ACF entries and each K3
    instance (one per shape of the radix gate), ptxas's registers and spill
    bytes (a spill fails the run; for K3 also a stack frame), its threads,
-   frames per tile, shared memory per block and resident warps per SM; for
+   frames per tile, shared memory per block and resident blocks and warps
+   per SM; for
    each K5 instance (k slots), its
    registers, stack frame and spill bytes (either fails the run); then the
    host table library and WAV codec from ``csrc/*.cpp`` with one g++ call
@@ -34,7 +35,12 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    paths' shapes (K1 also at the feature path's 64 x 30 s), with its launch
    counter checked (K1 at each of its shapes through its dense entry,
    ``fast_gemm=False``, and its fast entry, bf16x3, each against its own
-   twin, the fast one also within 3e-5 of max of float64; K3 also through
+   twin, the fast one also within 3e-5 of max of float64, on the cached
+   tables' transpose views, whose band plans the fast entry reads; the fast
+   entry also on clips with inf and NaN samples (NaN in every column of
+   each frame they reach, as the twin), on a cached table with an all-zero
+   m-tile and on a W given per call, whose plan the launch packs, and the
+   128-mel plan's 73 of 520 blocks; K3 also through
    its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
@@ -178,7 +184,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
    its shapes (K1's contraction as three TF32 or bf16 tensor-core
-   products: both entries' times at scale, 64 x 30 s and 12 columns), timed
+   products of the dense weight: both entries' times at scale, 64 x 30 s
+   and 12 columns, and the blocks the fast entry's plan contracts), timed
    plain, library, kernel, kernel, library, plain; the STFT wrapper's host
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
    clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
@@ -591,7 +598,8 @@ def fft_occupancy(log: str) -> None:
             regs, spill, _ = rows[(name, n_fft.bit_length() - 2)]
             print(f"  {name} n_fft {n_fft} hop {hop}: {regs} registers, {spill} bytes spilled, "
                   f"{g['threads']} threads x {g['frames_per_tile']} frames per tile, "
-                  f"{g['smem_bytes']} B shared per block, {per_sm * g['threads'] // 32} warps per SM")
+                  f"{g['smem_bytes']} B shared per block, {per_sm} blocks and "
+                  f"{per_sm * g['threads'] // 32} warps per SM")
             check(spill == 0, f"{name} spills at n_fft {n_fft}")
     # K1 at the pitch ACF's shape: the n_fft 4096 instance (above) at hop 512,
     # and the ACF entry's instances (at hop 512 where n_fft is 4096)
@@ -709,7 +717,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
 
     dev = torch.device("cuda", 0)
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
-    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     errs: dict[str, float] = {}
 
@@ -726,6 +734,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     for shape, power in ((HEADLINE, 2.0), (HEADLINE, 1.0), (SCALE, 2.0), (FEATURES, 2.0)):
         y = torch.randn(shape, generator=gen, device=dev)
         k1_entries(run, errs, f"{shape} power={power}", y, win, fb_t, power=power, **kw)
+    k1_fast_cases(gen, run, errs)
 
     # K2: one 30 s clip and the headline batch; <= 1e-5 of max |S|
     for shape in ((1, LONG), HEADLINE):
@@ -1056,6 +1065,17 @@ def mel_oracle(y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(power_oracle(y), fb.T).transpose(1, 2)
 
 
+def k1_weight(fb: torch.Tensor) -> torch.Tensor:
+    """K1's ``(n_bins, n_cols)`` weight from a cached ``(n_cols, n_bins)``
+    table as the public paths pass it: the table's transpose view, whose
+    fast-entry plan is cached beside the table (the package under test has
+    ``fast_plan``); a contiguous copy for a package without (an earlier
+    commit, in ``--k1-split``), whose entries read W contiguous."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+
+    return fb.t() if hasattr(k1, "fast_plan") else fb.t().contiguous()
+
+
 def k1_oracle(y: torch.Tensor, win: torch.Tensor, fb_t: torch.Tensor, *, n_fft: int,
               hop_length: int, center: bool, pad_mode: str, power: float = 2.0) -> torch.Tensor:
     """K1's function in float64 on the inputs' device: ``|rfft(win *
@@ -1094,6 +1114,75 @@ def k1_entries(run, errs: dict, label: str, y: torch.Tensor, win: torch.Tensor,
         errs[kernel.name] = max(errs.get(kernel.name, 0.0), abs_err(got, ref))
         out = got if not fast else out
     return out
+
+
+#: a cached table with an all-zero m-tile: the 40-band mel filterbank at
+#: n_fft 2048 with 16 empty columns after its first 16
+ZERO_TILE_TABLE = None
+
+
+def zero_tile_table(dev: torch.device) -> torch.Tensor:
+    global ZERO_TILE_TABLE
+    from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
+    from mlx_audio_primitives_tpu_torch.utils.cache import TableCache
+
+    if ZERO_TILE_TABLE is None:
+        def build():
+            fb = _mel_filterbank_table.host(SR, N_FFT, 40, 0.0, SR / 2.0, False, "slaney")
+            return np.concatenate([fb[:16], np.zeros((16, fb.shape[1])), fb[16:]])
+        ZERO_TILE_TABLE = TableCache("chip_smoke_zero_tile", build)
+    return ZERO_TILE_TABLE(device=dev)
+
+
+def k1_fast_cases(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3: K1's fast entry on the cases its band plan adds, each
+    against its twin (<= 1e-5 of max) and float64 (3e-5): frames that hold
+    an inf and a NaN sample (NaN in every column of every such frame, as
+    the twin gives: the tile takes every k-step), a cached table with an
+    all-zero m-tile (one k-step for it), and a W given per call (the
+    trainable frontends'), whose full-range plan the launch packs; and the
+    blocks each plan contracts."""
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
+    from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
+
+    dev = gen.device
+    win = _get_padded_window("hann", N_FFT, N_FFT, dev)
+    kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
+    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t()
+    y = torch.randn(HEADLINE, generator=gen, device=dev)
+    y[3, 5000] = float("inf")
+    y[40, 9000] = float("nan")
+    got = run(k1.KERNEL_FAST, k1.melspectrogram_fused, y, win, fb_t, fast_gemm=True, **kw)
+    ref = k1.melspectrogram_plain(y, win, fb_t, fast_gemm=True, **kw)
+    bad = ~torch.isfinite(ref).all(1)  # (B, F): the frames the two samples reach
+    nan_ok = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+    every_col = bool(torch.isnan(got).all(1)[bad].all())
+    fin = torch.isfinite(ref)
+    e = rel_err(got[fin], ref[fin])
+    print(f"K1 fast entry, frames with inf and NaN samples {tuple(got.shape)}: {int(bad.sum())} "
+          f"frames NaN in every column: {every_col}, NaN where the twin's: {nan_ok}; the finite "
+          f"values rel err {e:.3e} (limit 1e-5)")
+    check(nan_ok and every_col and int(bad.sum()) > 0 and e <= 1e-5,
+          "K1's fast entry on non-finite frames disagrees with its twin")
+    y = torch.randn(HEADLINE, generator=gen, device=dev)
+    for label, w in (("a cached table with an all-zero m-tile", zero_tile_table(dev).t()),
+                     ("a W given per call (trainable)",
+                      (fb_t * (1.0 + 0.1 * torch.rand(fb_t.shape, generator=gen, device=dev)))
+                      .contiguous())):
+        got = run(k1.KERNEL_FAST, k1.melspectrogram_fused, y, win, w, fast_gemm=True, **kw)
+        ref = k1.melspectrogram_plain(y, win, w, fast_gemm=True, **kw)
+        e, e64 = rel_err(got, ref), rel_err(got, k1_oracle(y, win, w, **kw))
+        used, every = k1.contracted_blocks(w)
+        print(f"K1 fast entry, {label} {tuple(w.shape)}: {used} of {every} blocks; rel err {e:.3e} "
+              f"(limit 1e-5), against float64 {e64:.3e} (limit 3e-5)")
+        check(got.shape == ref.shape and e <= 1e-5 and e64 <= 3e-5,
+              f"K1's fast entry disagrees on {label}")
+        errs[k1.KERNEL_FAST.name] = max(errs[k1.KERNEL_FAST.name], abs_err(got, ref))
+    used, every = k1.contracted_blocks(fb_t)
+    print(f"K1 fast entry plans: the 128-mel table contracts {used} of {every} blocks, a dense W "
+          f"{every} of {every}")
+    check((used, every) == (73, 520), "the 128-mel table's plan is not 73 of 520 blocks")
 
 
 def reset_counts() -> None:
@@ -1906,7 +1995,7 @@ def rhythm_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     for power, tuning in ((2.0, 0.0), (1.0, 0.3)):
-        fb_t = chroma_filterbank(SR, N_FFT, tuning=tuning, device=dev).t().contiguous()
+        fb_t = k1_weight(chroma_filterbank(SR, N_FFT, tuning=tuning, device=dev))
         got = k1_entries(run, errs, f"at the chroma shape {FEATURES} power={power} "
                          f"tuning={tuning}, {tuple(fb_t.shape)} weight", y, win, fb_t,
                          power=power, **kw)
@@ -2164,7 +2253,7 @@ def rhythm_times(gen: torch.Generator) -> None:
     # K1's two entries at the chroma shape: 64 x 30 s, n_fft 2048, hop 512,
     # 12 columns
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
-    fb_t = chroma_filterbank(SR, N_FFT, device=dev).t().contiguous()
+    fb_t = k1_weight(chroma_filterbank(SR, N_FFT, device=dev))
     k1_times(f"the chroma shape {tuple(y.shape)}", y, win, fb_t, 20)
 
 
@@ -2254,7 +2343,7 @@ def effects_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     errs[k3.KERNEL.name] = max(errs.get(k3.KERNEL.name, 0.0), abs_err(got[:, keep], ref[:, keep]))
     del Sv, S, got, ref
 
-    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
     kwp = dict(n_fft=N_FFT, hop_length=HOP, center=False, pad_mode="constant")
     push = N_FFT - HOP + STREAM_CHUNK
     for batch in (FEATURES[0], 1):
@@ -2874,7 +2963,7 @@ def utils_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
 
     dev = gen.device
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
-    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     for shape in ((PIPE_BATCH, LONG), (1, SR)):
         y = torch.randn(shape, generator=gen, device=dev)
@@ -3733,13 +3822,15 @@ def _rfft_flops(n: int) -> float:
 
 
 def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
-             fb_t: torch.Tensor, kw: dict) -> None:
-    """K1's device time (torch.profiler) at the scale configuration and at
-    64 x 30 s, beside K2m's on the same clips: K2m runs the same FFT front
-    end, so the difference is roughly K1's power rows and contraction. Both
-    entries where the package has the fast one (dense entry as
-    ``fast_gemm=False``), and a digest of the dense entry's output bits, to
-    hold two trees' dense entries bit for bit."""
+             fb_t: torch.Tensor, kw: dict, fb_c: torch.Tensor | None = None) -> None:
+    """K1's device time (torch.profiler) and CUDA-event median at the scale
+    configuration and at 64 x 30 s, beside K2m's device time on the same
+    clips: K2m runs the same FFT front end, so the difference is roughly
+    K1's power rows and contraction; with ``fb_c`` also at 64 x 30 s with
+    that weight (the 12-column chroma table). Both entries where the package
+    has the fast one (dense entry as ``fast_gemm=False``), and a digest of
+    the dense entry's output bits, to hold two trees' dense entries bit for
+    bit."""
     import hashlib
 
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
@@ -3748,16 +3839,27 @@ def k1_split(y_scale: torch.Tensor, y_feat: torch.Tensor, win: torch.Tensor,
     fast = hasattr(k1, "KERNEL_FAST")
     entries = [(k1.KERNEL.name, dict(fast_gemm=False) if fast else {})]
     entries += [(k1.KERNEL_FAST.name, dict(fast_gemm=True))] if fast else []
-    for label, y, calls in (("scale (256, 88200)", y_scale, 20), ("64 x 30 s", y_feat, 5)):
+    cases = [("scale (256, 88200)", y_scale, fb_t, 20), ("64 x 30 s", y_feat, fb_t, 5)]
+    cases += [("64 x 30 s", y_feat, fb_c, 5)] if fb_c is not None else []
+    for label, y, w, calls in cases:
         t2m = kernel_device_ms(lambda: k2.stft_magnitude_fused(y, win, **kw), "stft_kernel", calls)
         for name, mode in entries:
-            t1 = kernel_device_ms(lambda: k1.melspectrogram_fused(y, win, fb_t, **mode, **kw), name,
-                                  calls)
+            def call():
+                return k1.melspectrogram_fused(y, win, w, **mode, **kw)
+            t1 = kernel_device_ms(call, name, calls)
+            ev = cuda_ms(call)
             print(f"device time per call, {label} (torch.profiler, {calls} calls): {name} "
-                  f"({fb_t.shape[1]} cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference "
-                  f"{t1 - t2m:.4f} ms")
-        bits = k1.melspectrogram_fused(y, win, fb_t, **entries[0][1], **kw).cpu().numpy().tobytes()
-        print(f"{k1.KERNEL.name} output at {label}: sha256 {hashlib.sha256(bits).hexdigest()[:24]}")
+                  f"({w.shape[1]} cols) {t1:.4f} ms, K2m {t2m:.4f} ms, difference "
+                  f"{t1 - t2m:.4f} ms; CUDA events {ev:.4f} ms")
+        if w is fb_t:
+            bits = k1.melspectrogram_fused(y, win, w, **entries[0][1], **kw).cpu().numpy().tobytes()
+            print(f"{k1.KERNEL.name} output at {label}: sha256 "
+                  f"{hashlib.sha256(bits).hexdigest()[:24]}")
+    if hasattr(k1, "contracted_blocks"):
+        for name, w in (("the 128-mel table", fb_t), ("the chroma table", fb_c)):
+            if w is not None:
+                used, every = k1.contracted_blocks(w)
+                print(f"{k1.KERNEL_FAST.name} contracts {used} of {every} blocks of {name}")
 
 
 def k1_times(label: str, y: torch.Tensor, win: torch.Tensor, fb_t: torch.Tensor,
@@ -3799,6 +3901,9 @@ def k1_times(label: str, y: torch.Tensor, win: torch.Tensor, fb_t: torch.Tensor,
               f"{peak} products)")
         out[name] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    used, every = k1.contracted_blocks(fb_t)
+    print(f"{k1.KERNEL_FAST.name} at {label} contracts {used} of {every} (m-tile, k-step) blocks "
+          f"(the bound counts the dense product's)")
     return out
 
 
@@ -3957,7 +4062,7 @@ def times(gen: torch.Generator, card: str) -> dict:
 
     # each kernel alone against its plain twin and its library call, at the
     # main paths' shapes, with its bound at that shape
-    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
     n_bins = N_FFT // 2 + 1
     St = S.transpose(1, 2)
     T = LONG + N_FFT
@@ -4275,24 +4380,29 @@ def k1_split_of(root: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     environment()
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops.chroma import chroma_filterbank
     from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
     from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     win = _get_padded_window("hann", N_FFT, N_FFT, dev)
-    fb_t = mel_filterbank(SR, N_FFT, N_MELS, device=dev).t().contiguous()
+    fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
+    fb_c = k1_weight(chroma_filterbank(SR, N_FFT, device=dev))
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     print(f"K1 of {os.path.dirname(k1.__file__)}:")
     k1_split(torch.randn(SCALE, generator=gen, device=dev),
-             torch.randn(FEATURES, generator=gen, device=dev), win, fb_t, kw)
+             torch.randn(FEATURES, generator=gen, device=dev), win, fb_t, kw, fb_c)
 
 
 def acf_split_of(root: str) -> None:
     """``--acf-split ROOT``: K1's ACF entry at the ACF shape (64 x 30 s, n_fft
     4096, hop 512, 432 lags) for the port package under ``ROOT``: ptxas's
     registers and spill bytes of its n_fft 4096 instance (when this process
-    built it), its resident blocks an SM and its device time per call."""
+    built it), its resident blocks an SM, its device time per call and a
+    digest of its output bits."""
+    import hashlib
+
     sys.path.insert(0, os.path.abspath(root))
     environment()
     from mlx_audio_primitives_tpu_torch.kernels import _build
@@ -4315,6 +4425,9 @@ def acf_split_of(root: str) -> None:
     print(f"ACF entry, device time per call at 64 x 30 s, n_fft {n_fft}: {ms:.4f} ms "
           f"(torch.profiler, 10 calls); its n_fft {n_fft} instance: {regs}, "
           f"{g['blocks_per_sm']} blocks an SM")
+    bits = k1.acf_fused(ypad, win, **kwa).cpu().numpy().tobytes()
+    print(f"ACF entry output at 64 x 30 s: sha256 {hashlib.sha256(bits).hexdigest()[:24]} (two "
+          f"trees' entries bit for bit)")
 
 
 def pitch_split_of(root: str) -> None:
@@ -4401,40 +4514,24 @@ K1_ABLATIONS = {
 }
 
 #: the fast entry's ablations (``--k1-fast-ablations``), edits of the same
-#: source as the dense entry's
+#: source as the dense entry's: the band off (every tile takes every k-step,
+#: as for a dense W, the 128-mel table included), two 512-thread blocks an
+#: SM (8 frames a tile at n_fft 2048), the contraction left out (the
+#: front end, the power rows and the stores alone), and the power rows'
+#: vote on values that are not finite left out
 K1_FAST_ABLATIONS = {
-    "no W loads (A fragments from registers)": [(
-        "  a[0] = ok && ca < n_cols ? __ldg(w) : z;\n"
-        "  a[1] = ok && ca + 8 < n_cols ? __ldg(w + 2 * K16) : z;",
-        "  (void)w;\n"
-        "  a[0] = ok && ca < n_cols ? make_float4(1.f + kk, 2.f + q, 3.f + ca, 4.f) : z;\n"
-        "  a[1] = ok && ca + 8 < n_cols ? make_float4(4.f + kk, 3.f + q, 2.f + ca, 1.f) : z;")],
-    "no W split (A registers from the loads' bits)": [(
-        "    split_bf16x2(a[0].x, a[0].y, ahi[0], alo[0]);\n"
-        "    split_bf16x2(a[1].x, a[1].y, ahi[1], alo[1]);\n"
-        "    split_bf16x2(a[0].z, a[0].w, ahi[2], alo[2]);\n"
-        "    split_bf16x2(a[1].z, a[1].w, ahi[3], alo[3]);",
-        "    ahi[0] = __float_as_uint(a[0].x) ^ __float_as_uint(a[0].y);\n"
-        "    ahi[1] = __float_as_uint(a[1].x) ^ __float_as_uint(a[1].y);\n"
-        "    ahi[2] = __float_as_uint(a[0].z) ^ __float_as_uint(a[0].w);\n"
-        "    ahi[3] = __float_as_uint(a[1].z) ^ __float_as_uint(a[1].w);\n"
-        "    for (int i = 0; i < 4; ++i) alo[i] = ahi[i] >> 3;")],
-    "no power-row loads (B fragments from registers)": [(
-        "      const uint2 h = r[w / 2], l = r[M / 4 + 1 + w / 2];",
-        "      (void)r;\n"
-        "      const uint2 h = make_uint2(1u + w, 2u + f), l = make_uint2(3u + w, 4u + f);")],
-    "one product (hi*hi) of the three": [(
-        "      mma_bf16(d, alo, bhi);\n      mma_bf16(d, ahi, blo);\n", "")],
-    "power rows without lo (hi only)": [(
-        "    const unsigned short l = __bfloat16_as_ushort(__float2bfloat16_rn(p - __bfloat162float(hi)));",
-        "    const unsigned short l = 0;")],
-    "one accumulator (no sum per k-step)": [(
-        "      float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
-        "      mma_bf16(d, alo, bhi);\n      mma_bf16(d, ahi, blo);\n"
-        "      mma_bf16(d, ahi, bhi);\n#pragma unroll\n"
-        "      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];",
-        "      mma_bf16(acc[j], alo, bhi);\n      mma_bf16(acc[j], ahi, blo);\n"
-        "      mma_bf16(acc[j], ahi, bhi);")],
+    "band off (every k-step of every m-tile)": [(
+        "      const bool full = *flag_at(opaque(hop)) != 0;",
+        "      const bool full = *flag_at(opaque(hop)) != 0 || n_mt_ > 0;"), (
+        "      const bool full = *flag != 0;\n      const int tot = n_mt_ * KSTEPS;",
+        "      const bool full = *flag != 0 || n_mt_ > 0;\n      const int tot = n_mt_ * KSTEPS;")],
+    "two blocks an SM (512 threads, 8 frames a tile)": [(
+        "using FastGeometry = mapt::Geometry<LOG_M>;",
+        "using FastGeometry = mapt::Geometry<LOG_M, LOG_M == 10 ? 512 : mapt::max_threads(LOG_M)>;")],
+    "no contraction (front end, power rows, stores)": [(
+        "        band_unit<LOG_M, FT>(acc, rows,", "        if (b < 0) band_unit<LOG_M, FT>(acc, rows,")],
+    "no vote on values that are not finite (every tile banded)": [(
+        "    if (__any_sync(0xffffffffu, bad) && (me & 31) == 0) *flag = 1;", "    (void)bad;")],
 }
 
 

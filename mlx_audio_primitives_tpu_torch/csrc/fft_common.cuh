@@ -411,13 +411,19 @@ static __device__ __forceinline__ int stage_segment(const float* __restrict__ yb
 constexpr int kSmemLimit = 227 * 1024;
 constexpr int kMaxThreads = 1024;
 
-template <int LOG_M>
+// At most 1024 threads a block (64 registers each for one block per SM);
+// from n_fft 4096 on, 512 (the magnitude emit needs more than 64 registers)
+static __host__ __device__ constexpr int max_threads(int log_m) {
+  return log_m >= 11 ? kMaxThreads / 2 : kMaxThreads;
+}
+
+// MAX_NT_: a kernel's own cap on its threads (K1's fast entry takes 512, so
+// that two blocks share an SM)
+template <int LOG_M, int MAX_NT_ = max_threads(LOG_M)>
 struct Geometry {
   static constexpr int M = 1 << LOG_M;
   static constexpr int T = M >> kRegBits;  // threads per frame
-  // at most 1024 threads (64 registers each for one block per SM); from
-  // n_fft 4096 on, 512 (the magnitude emit needs more than 64 registers)
-  static constexpr int MAX_NT = LOG_M >= 11 ? kMaxThreads / 2 : kMaxThreads;
+  static constexpr int MAX_NT = MAX_NT_;
   static constexpr int FT = (MAX_NT / T) < 16 ? (MAX_NT / T) : 16;  // frames per tile
   static constexpr int LOG_FT = FT == 16 ? 4 : FT == 8 ? 3 : FT == 4 ? 2 : FT == 2 ? 1 : 0;
   static constexpr int NT = FT * T;  // threads per block
@@ -431,7 +437,7 @@ struct Geometry {
   // is even, so the segment after it starts 16-byte aligned)
   static constexpr int TW_OFF = FT * FS;
   static constexpr int SEG_OFF_BYTES = 8 * ((TW_OFF + M + 1) & ~1);
-  static size_t smem(int hop) {
+  static __host__ __device__ size_t smem(int hop) {
     const int seg_cap = ((FT - 1) * hop + 2 * M + 3 + 3) & ~3;
     return SEG_OFF_BYTES + sizeof(float) * static_cast<size_t>(seg_cap);
   }

@@ -1,9 +1,10 @@
 // K1: fused filterbank spectrogram, |rFFT(window * frame)|^p @ W.
 //
 // Replaces mlx_audio_primitives_tpu/kernels/mel_fused.py::melspectrogram_pallas
-// (pallas_call in _mel_radix_core). W is any dense (n_bins, n_cols) matrix
-// (mel, MFCC's mel, a centroid's [1, f] moments, chroma); mel sparsity is
-// not used. Frames, spectra and power rows never reach device memory, and
+// (pallas_call in _mel_radix_core). W is any (n_bins, n_cols) matrix (mel,
+// MFCC's mel, a centroid's [1, f] moments, chroma); the dense entry treats
+// it as dense, the fast entry contracts only its nonzero band (below).
+// Frames, spectra and power rows never reach device memory, and
 // the output is written as (B, n_cols, F). The pitch ACF's weight, the lag
 // basis, is an inverse real DFT: its own entry (mel_fused_acf_launch, below)
 // computes that inverse in place of the contraction.
@@ -48,29 +49,24 @@
 //   memory is full of frame buffers (15 KB free at hop 1024) and its
 //   bandwidth is what the power rows' B fragments use.
 //
-// The fast entry (mel_fused_fast_launch, mel_fused_fast_kernel) is the same
-// kernel with the contraction as 3-pass bf16 splits, the scheme of the JAX
-// kernel's fast_gemm mode (mel_fused.py::_bf16_split, _group_dot): each
-// operand x is split into hi = bf16_rn(x) and lo = bf16_rn(x - hi), and
-// mma.sync m16n8k16 (bf16 in, FP32 accumulate) takes lo*hi + hi*lo + hi*hi,
-// each k-step of 16 bins from a zero accumulator, as above. hi + lo keeps
-// ~16 of x's 24 mantissa bits, so the result is within ~1e-5 of an exact
-// product (the JAX package's class, 2.7e-5), where 3xTF32 is within ~1e-6.
-// One bf16 mma covers 16 bins where a TF32 one covers 8, so its three
-// products issue as many instructions as 1.5 TF32 products, and the power
-// rows hold 2 bytes a part and bin: hi at bf16 [0, M], lo at [M+4, 2M+4],
-// adjacent bins packed in one 32-bit word, which is a B fragment register.
-// The k-step's 16 bins are permuted inside the fragments (load_a16) so that
-// a thread's four are consecutive: its B registers are one 8-byte load, and
-// its A registers one 16-byte load a column from W transposed (the wrapper
-// passes W^T with its bins zero-padded to a multiple of 16). Read as given,
-// W took eight 4-byte loads a k-step, and those loads set the entry's time
-// (0.83 ms at the scale configuration against 0.58, H100 80GB HBM3; PERF.md).
-// W is split in registers as it is loaded: the trainable frontends pass a
-// new W every step, so nothing split is cached. The entry's bound at the
-// scale configuration is the front end's FP32 operations (0.041 ms); the
-// three bf16 products take 0.035 ms at the bf16 peak.
+// The fast entry (mel_fused_fast_launch, mel_fused_fast_kernel; its own
+// section below) computes the contraction as 3-pass bf16 splits, the scheme
+// of the JAX kernel's fast_gemm mode (mel_fused.py::_bf16_split,
+// _group_dot): each operand x is split into hi = bf16_rn(x) and lo =
+// bf16_rn(x - hi), and mma.sync m16n8k16 (bf16 in, FP32 accumulate) takes
+// lo*hi + hi*lo + hi*hi, each k-step of 16 bins from a zero accumulator.
+// hi + lo keeps ~16 of x's 24 mantissa bits, so the result is within ~1e-5
+// of an exact product (the JAX package's class, 2.7e-5), where 3xTF32 is
+// within ~1e-6. It reads W from a plan made once per cached table (W^T
+// already split and laid out as the A fragments read it, and each 16-column
+// m-tile's range of k-steps outside which its columns are zero), contracts
+// only those blocks (73 of 520 at the 128-mel table: a mel filter is a
+// triangle a few bins wide), the warps taking equal shares of them. A W
+// given per call (a trainable filterbank) is packed into a full-range plan on the
+// device by a small kernel first; no call copies or transposes a cached
+// table.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 
@@ -194,9 +190,10 @@ __device__ __forceinline__ void power_pairs(const float2* z, const float2* __res
 
 // row[k] = hi, row[M+1+k] = lo of p (TF32); FAST: the bf16 halves hi at
 // k and lo at M+4+k, and bin M as a whole word with bin M+1 zero, since the
-// last k-step's B fragment reads it
+// last k-step's B fragment reads it, and whether hi is not finite (inf or
+// NaN: p is, or rounds up past the largest bf16)
 template <int LOG_M, bool FAST>
-__device__ __forceinline__ void put_split(float* row, int k, float p) {
+__device__ __forceinline__ bool put_split(float* row, int k, float p) {
   constexpr int M = 1 << LOG_M;
   if constexpr (FAST) {
     const __nv_bfloat16 hi = __float2bfloat16_rn(p);
@@ -211,26 +208,33 @@ __device__ __forceinline__ void put_split(float* row, int k, float p) {
       r16[k] = h;
       r16[M + 4 + k] = l;
     }
+    return (h & 0x7F80u) == 0x7F80u;
   } else {
     const unsigned hi = tf32_rna(p);
     row[k] = __uint_as_float(hi);
     row[M + 1 + k] = __uint_as_float(tf32_rna(p - __uint_as_float(hi)));
+    return false;
   }
 }
 
 // The power row in natural bin order from the thread's scratch slots: bins
-// k and M-k of each pair (bin M/2 once, bins 0 and M from k = 0)
+// k and M-k of each pair (bin M/2 once, bins 0 and M from k = 0); whether a
+// value it wrote is not finite (FAST)
 template <int LOG_M, bool FAST, int TP, int NT, int J = 0>
-__device__ __forceinline__ void write_pairs(float* row, const float* scratch, int me, int k0) {
+__device__ __forceinline__ bool write_pairs(float* row, const float* scratch, int me, int k0) {
   constexpr int M = 1 << LOG_M;
   if constexpr (J * TP <= M / 2) {
     const int k = k0 + J * TP;
+    bool bad = false;
     if (k <= M / 2) {
-      put_split<LOG_M, FAST>(row, k, scratch[2 * J * NT + me]);
+      bad = put_split<LOG_M, FAST>(row, k, scratch[2 * J * NT + me]);
       if constexpr (J * TP < M / 2)
-        put_split<LOG_M, FAST>(row, M - k, scratch[(2 * J + 1) * NT + me]);
+        bad |= put_split<LOG_M, FAST>(row, M - k, scratch[(2 * J + 1) * NT + me]);
     }
-    write_pairs<LOG_M, FAST, TP, NT, J + 1>(row, scratch, me, k0);
+    const bool rest = write_pairs<LOG_M, FAST, TP, NT, J + 1>(row, scratch, me, k0);
+    return bad || rest;
+  } else {
+    return false;
   }
 }
 
@@ -238,11 +242,12 @@ __device__ __forceinline__ void write_pairs(float* row, const float* scratch, in
 // NT/FR threads per frame, frames fastest across lanes (as K2's emit);
 // every read of the round's spectra ends at a barrier before the first
 // write lands in their buffers. The thread index is read afresh on each
-// side of the barrier, so no address is held through it.
+// side of the barrier, so no address is held through it. FAST: a warp
+// that wrote a value that is not finite sets the tile's flag.
 template <int LOG_M, bool FAST, int FR, int NT>
 __device__ __forceinline__ void power_round(float2* buf, float* rows, float* scratch,
                                             const float2* __restrict__ tw_g, int f0r, int tid,
-                                            bool mag) {
+                                            bool mag, int* flag = nullptr) {
   constexpr int FS = mapt::rframe_stride(1 << LOG_M), TP = NT / FR;
   {
     const int me = opaque(tid), f = f0r + (me & (FR - 1)), k0 = me / FR;
@@ -252,7 +257,14 @@ __device__ __forceinline__ void power_round(float2* buf, float* rows, float* scr
   }
   __syncthreads();
   const int me = opaque(tid), f = f0r + (me & (FR - 1));
-  write_pairs<LOG_M, FAST, TP, NT>(rows + row_offset<LOG_M, FAST>(f), scratch, me, me / FR);
+  const bool bad =
+      write_pairs<LOG_M, FAST, TP, NT>(rows + row_offset<LOG_M, FAST>(f), scratch, me, me / FR);
+  if constexpr (FAST) {
+    if (__any_sync(0xffffffffu, bad) && (me & 31) == 0) *flag = 1;
+  } else {
+    (void)bad;
+    (void)flag;
+  }
 }
 
 // The A fragment (16 columns x 8 bins) of W at columns c0.., k-step kk:
@@ -268,25 +280,6 @@ __device__ __forceinline__ void load_a(float (&a)[4], const float* __restrict__ 
   a[1] = (k < n_bins && okb) ? __ldg(w0 + 8) : 0.f;
   a[2] = (k + 4 < n_bins && oka) ? __ldg(w1) : 0.f;
   a[3] = (k + 4 < n_bins && okb) ? __ldg(w1 + 8) : 0.f;
-}
-
-// The A fragment of m16n8k16 (16 columns x 16 bins) at columns c0.. and
-// k-step kk < ksteps from Wt, W transposed with its bins zero-padded to
-// K16 = 16 * ksteps: a[0] holds column ca = c0 + g, a[1] column ca + 8,
-// each the four consecutive bins 16 kk + 4q .. +3, one 16-byte load. The
-// bins of a k-step are permuted so: the fragment's columns 2q, 2q+1 (its
-// registers 0 and 1) are bins 4q, 4q+1 and its columns 2q+8, 2q+9
-// (registers 2 and 3) bins 4q+2, 4q+3, and the B fragment takes the same
-// permutation, so the products are the same. Zero past n_cols or ksteps.
-template <int K16>
-__device__ __forceinline__ void load_a16(float4 (&a)[2], const float* __restrict__ Wt, int n_cols,
-                                         int kk, int ca, int q) {
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  const bool ok = kk < K16 / 16;
-  const float4* w =
-      reinterpret_cast<const float4*>(Wt + static_cast<size_t>(ca) * K16 + 16 * kk + 4 * q);
-  a[0] = ok && ca < n_cols ? __ldg(w) : z;
-  a[1] = ok && ca + 8 < n_cols ? __ldg(w + 2 * K16) : z;  // 8 columns on
 }
 
 // One (m-tile, k-slice) unit's sums, 3xTF32: k-steps ks, ks + n_ks, ... of
@@ -336,61 +329,16 @@ __device__ __forceinline__ void unit_3xtf32(float (&acc)[(FT + 7) / 8][4],
   }
 }
 
-// The same unit as bf16x3 on m16n8k16, from Wt (load_a16): k-steps of 16
-// bins; B registers 0 and 1 of frame g are bins 16 kk + 4q .. +3, the row
-// words 8 kk + 2q and 8 kk + 2q + 1, one 8-byte load; words past bin M
-// (word M/2) are zero
-template <int LOG_M, int FT>
-__device__ __forceinline__ void unit_bf16x3(float (&acc)[(FT + 7) / 8][4],
-                                            const float* rows, const float* __restrict__ Wt,
-                                            int n_cols, int n_ks, int ks, int ca, int g, int q) {
-  constexpr int M = 1 << LOG_M;
-  constexpr int NTILE = (FT + 7) / 8;
-  constexpr int KSTEPS = (M + 1 + 15) / 16;   // k-steps of 16 bins over n_bins = M + 1
-  float4 a[2];
-  load_a16<16 * KSTEPS>(a, Wt, n_cols, ks, ca, q);
-  for (int kk = ks; kk < KSTEPS; kk += n_ks) {
-    float4 an[2];
-    load_a16<16 * KSTEPS>(an, Wt, n_cols, kk + n_ks, ca, q);  // zeros past the last step
-    unsigned ahi[4], alo[4];
-    split_bf16x2(a[0].x, a[0].y, ahi[0], alo[0]);
-    split_bf16x2(a[1].x, a[1].y, ahi[1], alo[1]);
-    split_bf16x2(a[0].z, a[0].w, ahi[2], alo[2]);
-    split_bf16x2(a[1].z, a[1].w, ahi[3], alo[3]);
-    const int w = 8 * kk + 2 * q;
-#pragma unroll
-    for (int j = 0; j < NTILE; ++j) {
-      const int f = 8 * j + g;
-      const uint2* r =
-          reinterpret_cast<const uint2*>(rows + row_offset<LOG_M, true>(f < FT ? f : 0));
-      const bool ok0 = (FT >= 8 || f < FT) && w <= M / 2;
-      const bool ok1 = (FT >= 8 || f < FT) && w + 1 <= M / 2;
-      const uint2 h = r[w / 2], l = r[M / 4 + 1 + w / 2];
-      const unsigned bhi[2] = {ok0 ? h.x : 0u, ok1 ? h.y : 0u};
-      const unsigned blo[2] = {ok0 ? l.x : 0u, ok1 ? l.y : 0u};
-      // from zero each k-step, as unit_3xtf32
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, alo, bhi);
-      mma_bf16(d, ahi, blo);
-      mma_bf16(d, ahi, bhi);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
-    }
-    a[0] = an[0];
-    a[1] = an[1];
-  }
-}
-
-// The dense entry's body (FAST: the fast entry's), one __global__ each
-template <int LOG_M, bool FAST>
-__device__ __forceinline__ void
-mel_fused_body(const float* __restrict__ y, long long L,
-               const float* __restrict__ win,
-               const float2* __restrict__ tw_g,
-               const float* __restrict__ W,
-               float* __restrict__ out,
-               int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode,
-               int power, int tiles, int total) {
+// The dense entry
+template <int LOG_M>
+__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT)
+mel_fused_kernel(const float* __restrict__ y, long long L,
+                 const float* __restrict__ win,
+                 const float2* __restrict__ tw_g,
+                 const float* __restrict__ W,
+                 float* __restrict__ out,
+                 int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode,
+                 int power, int tiles, int total) {
   using G = mapt::Geometry<LOG_M>;
   constexpr int M = G::M, T = G::T, FT = G::FT, NT = G::NT, FS = G::FS;
   constexpr int NW = NT / 32;                 // warps
@@ -445,7 +393,7 @@ mel_fused_body(const float* __restrict__ y, long long L,
       const bool mag = opaque(power) == 1;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        power_round<LOG_M, FAST, FT / R, NT>(buf, rows, seg, tw_g, r * (FT / R), tid, mag);
+        power_round<LOG_M, false, FT / R, NT>(buf, rows, seg, tw_g, r * (FT / R), tid, mag);
     }
     __syncthreads();
     // the segment is free: copy the next tile's during the contraction
@@ -470,10 +418,7 @@ mel_fused_body(const float* __restrict__ y, long long L,
       for (int j = 0; j < NTILE; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-      if constexpr (FAST)
-        unit_bf16x3<LOG_M, FT>(acc, rows, W, n_cols_, n_ks_, ks, ca, g, q);
-      else
-        unit_3xtf32<LOG_M, FT>(acc, rows, W, n_cols_, n_ks_, ks, ca, g, q);
+      unit_3xtf32<LOG_M, FT>(acc, rows, W, n_cols_, n_ks_, ks, ca, g, q);
       if (n_ks_ == 1) {
         // c0, c1: column ca, frames 2q, 2q+1 of n-tile j; c2, c3: column ca + 8
 #pragma unroll
@@ -515,23 +460,368 @@ mel_fused_body(const float* __restrict__ y, long long L,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fast entry (mel_fused_fast_launch): the contraction as the JAX
+// kernel's fast_gemm mode computes it, over the weight's nonzero band.
+//
+// The plan (kernels/mel_fused.py::band_plan_host for a cached table, built
+// once per table and device; mel_fused_fast_pack_kernel for a W given per
+// call), int32 words:
+//   [0] kPlanMagic, [1] n_cols, [2] n_mt, [3] ksteps, [4] blocks, [5..7] 0;
+//   [kPlanHeader + mt], mt <= n_mt: the blocks of the m-tiles before mt;
+//   [kPlanHeader + n_mt + 1 + mt], mt < n_mt: the m-tile's first k-step;
+//   from plan_w_offset(n_mt) (16-byte aligned): W^T split into bf16
+//   hi = bf16_rn(x) and lo = bf16_rn(x - hi), zero-padded to 16 n_mt columns
+//   and ksteps k-steps of 16 bins, 16 words a (column, k-step), column by
+//   column: for q = 0..3 the words hi(4q, 4q+1), hi(4q+2, 4q+3),
+//   lo(4q, 4q+1), lo(4q+2, 4q+3), the even bin in the low half.
+// A block is an (m-tile, k-step) pair; m-tile mt's columns are exactly zero
+// outside its blocks (at least one; every k-step for a dense W). Thread q's
+// 16-byte load at (column, k-step) is its A registers of that column: the
+// k-step's bins permuted so that a thread's four are consecutive (fragment
+// columns 2q, 2q+1 are bins 4q, 4q+1 and columns 2q+8, 2q+9 bins 4q+2,
+// 4q+3; the B registers take the same permutation), hi and lo already split.
+//
+// Per tile of FT frames (the dense entry's tile: 16 frames and 1,024
+// threads at n_fft 2048; two 512-thread blocks of 8 frames an SM measured
+// slower, PERF.md):
+// - the dense entry's front end and power rows, as bf16 hi/lo rows (two bins
+//   a 32-bit word); a warp that writes a value that is not finite sets the
+//   tile's flag;
+// - the tile's blocks in m-tile order, in equal shares to the warps (a low
+//   mel m-tile spans 2-3 k-steps and a high one about 20). A warp walks its
+//   share as segments, one an m-tile; each k-step's lo*hi + hi*lo + hi*hi
+//   on mma.sync m16n8k16 from zero, added in FP32. A segment that is a
+//   whole m-tile is stored at once. An m-tile that warps wf < ... < wl
+//   share: wl's part (its first segment) goes at once to slot wl in the
+//   frame buffers' tails, past the rows, which the contraction does not
+//   read; the others' (each the last segment of its warp, so a warp holds
+//   at most one part in registers) go to slot w at the buffers' starts,
+//   over the rows, after the contraction; then one thread a sum adds the
+//   slots wf .. wl-1 in warp order and wl's part;
+// - with the flag set, every m-tile takes all of its k-steps: a power that
+//   is not finite meets the weight's zeros there (inf * 0 = NaN in every
+//   column, as in the dense product). Skipping a block of exact zeros
+//   changes no finite sum.
+// At the scale configuration's 128-mel table the blocks are 73 of 520.
+constexpr int kPlanMagic = 0x4B31BA4D;
+constexpr int kPlanHeader = 8;
+// After the segment: the tile's flag, then the m-tiles' reduction lists
+// (shared_tail_words: n_mt + 1 words past the flag's 4)
+constexpr int kFlagBytes = 16;
 
-#define MAPT_K1_PARAMS                                                                         \
-  const float *__restrict__ y, long long L, const float *__restrict__ win,                     \
-      const float2 *__restrict__ tw_g, const float *__restrict__ W, float *__restrict__ out,  \
-      int hop, int F, int n_cols, int n_mt, int n_ks, int pad, int mode, int power, int tiles, \
-      int total
-#define MAPT_K1_ARGS y, L, win, tw_g, W, out, hop, F, n_cols, n_mt, n_ks, pad, mode, power, tiles, total
+__host__ __device__ constexpr int shared_tail_bytes(int n_mt) {
+  return kFlagBytes + ((4 * (n_mt + 1) + 15) & ~15);
+}
 
+__host__ __device__ constexpr int plan_w_offset(int n_mt) {
+  return (kPlanHeader + 2 * n_mt + 1 + 3) & ~3;
+}
+
+// The fast entry's tile: the dense entry's (mapt::Geometry<LOG_M, 512>
+// would make two blocks of 8 frames share an SM at n_fft 2048; slower)
 template <int LOG_M>
-__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT) mel_fused_kernel(MAPT_K1_PARAMS) {
-  mel_fused_body<LOG_M, false>(MAPT_K1_ARGS);
+using FastGeometry = mapt::Geometry<LOG_M>;
+
+// Registers are held to 64 a thread where a 512-thread block leaves room
+// for a second on the SM (n_fft 1024, as the dense entry's); from n_fft
+// 4096 on the frame buffers leave room for one block.
+constexpr int fast_min_blocks(int log_m, int nt) { return nt == 512 && log_m <= 10 ? 2 : 1; }
+
+// The warps that hold the first and the last block of m-tile mt, blocks
+// [c0, c1) of tot shared out as warp w's [w tot / NW, (w + 1) tot / NW),
+// as wf | wl << 16
+template <int NW>
+__device__ __forceinline__ int share_ends(int c0, int c1, int tot) {
+  return ((c0 + 1) * NW - 1) / tot | ((c1 * NW - 1) / tot) << 16;
+}
+
+// The warps with a share of tot blocks, as bit w
+template <int NW>
+__device__ __forceinline__ unsigned share_mask(int tot) {
+  unsigned mask = 0;
+  for (int w = 0; w < NW; ++w) mask |= (w * tot / NW < (w + 1) * tot / NW ? 1u : 0u) << w;
+  return mask;
+}
+
+// Block offset and first k-step of m-tile mt: the plan's, or every k-step's
+// (full)
+__device__ __forceinline__ int band_cum(const int* __restrict__ plan, int mt, bool full,
+                                        int ksteps) {
+  return full ? mt * ksteps : __ldg(plan + kPlanHeader + mt);
+}
+__device__ __forceinline__ int band_k0(const int* __restrict__ plan, int n_mt, int mt,
+                                       bool full) {
+  return full ? 0 : __ldg(plan + kPlanHeader + n_mt + 1 + mt);
+}
+
+// The sums of k-steps [kb, ke) of the m-tile whose column ca = c0 + g the
+// thread serves: its A registers from wq, the plan's words at (ca, k-step
+// 0) for thread q (column ca + 8 lies 8 columns on), zero for a column past
+// n_cols (ok0, ok1 false: the padding is not loaded, so a 12-column weight's
+// words stay in L1 from tile to tile; loading the next k-step's ahead made
+// ptxas spill at 64 registers); the B registers are
+// the row words 8 kk + 2q and + 1 (bins 16 kk + 4q .. +3), one 8-byte load
+// of the hi row and one of the lo row; words past bin M (word M/2) are zero
+template <int LOG_M, int FT>
+__device__ __forceinline__ void band_unit(float (&acc)[(FT + 7) / 8][4], const float* rows,
+                                          const uint4* __restrict__ wq, int kb, int ke, int g,
+                                          int q, bool ok0, bool ok1) {
+  constexpr int M = 1 << LOG_M;
+  constexpr int NTILE = (FT + 7) / 8;
+  constexpr int KSTEPS = M / 16 + 1;        // k-steps of 16 bins over n_bins = M + 1
+  constexpr int NEXT_COL = 8 * KSTEPS * 4;  // uint4s from column ca to ca + 8
+  const uint4* w = wq + 4 * kb;
+  for (int kk = kb; kk < ke; ++kk, w += 4) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    const uint4 a0 = ok0 ? __ldg(w) : z, a1 = ok1 ? __ldg(w + NEXT_COL) : z;
+    const unsigned ahi[4] = {a0.x, a1.x, a0.y, a1.y};
+    const unsigned alo[4] = {a0.z, a1.z, a0.w, a1.w};
+    const int wd = 8 * kk + 2 * q;
+#pragma unroll
+    for (int j = 0; j < NTILE; ++j) {
+      const int f = 8 * j + g;
+      const uint2* r =
+          reinterpret_cast<const uint2*>(rows + row_offset<LOG_M, true>(f < FT ? f : 0));
+      const bool ok0 = (FT >= 8 || f < FT) && wd <= M / 2;
+      const bool ok1 = (FT >= 8 || f < FT) && wd + 1 <= M / 2;
+      const uint2 h = r[wd / 2], l = r[M / 4 + 1 + wd / 2];
+      const unsigned bhi[2] = {ok0 ? h.x : 0u, ok1 ? h.y : 0u};
+      const unsigned blo[2] = {ok0 ? l.x : 0u, ok1 ? l.y : 0u};
+      // from zero each k-step, as unit_3xtf32
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(d, alo, bhi);
+      mma_bf16(d, ahi, blo);
+      mma_bf16(d, ahi, bhi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
+    }
+  }
+}
+
+// acc -> out: c0, c1 column ca, frames 2q, 2q+1 of n-tile j; c2, c3 column
+// ca + 8
+template <int FT>
+__device__ __forceinline__ void store_sums(float* __restrict__ out,
+                                           const float (&acc)[(FT + 7) / 8][4], int b, int f0,
+                                           int F, int n_cols, int ca, int q) {
+#pragma unroll
+  for (int j = 0; j < (FT + 7) / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int fl = 8 * j + 2 * q + (i & 1), col = ca + 8 * (i >> 1);
+      if (fl < FT && f0 + fl < F && col < n_cols)
+        out[(static_cast<long long>(b) * n_cols + col) * F + f0 + fl] = acc[j][i];
+    }
+}
+
+// Word of frame fl, column cl of slot s of the warps' parts, column cl in
+// frame buffer cl mod FT: the parts stored at once (TAIL) past the words
+// the rows' B loads reach, which the contraction does not read; those held
+// to the end of the contraction at the buffer's start, over the rows
+template <int LOG_M, int FT, int NW, int FP, bool TAIL>
+__device__ __forceinline__ int part_word(int s, int cl, int fl) {
+  constexpr int M = 1 << LOG_M, FSW = 2 * mapt::rframe_stride(M);
+  constexpr int TAIL0 = M + 40;  // past the M + 10 words a row's B loads reach, and its shift
+  constexpr int SLOTS = (16 + FT - 1) / FT * NW * FP;  // words of a buffer's slots
+  static_assert(SLOTS <= TAIL0 && TAIL0 + SLOTS <= FSW, "the parts fit in the frame buffers");
+  return (cl % FT) * FSW + (TAIL ? TAIL0 : 0) + ((cl / FT) * NW + s) * FP + fl;
+}
+
+// acc -> slot s of the tail parts (TAIL) or of the held parts
+template <int LOG_M, int FT, int NW, int FP, bool TAIL>
+__device__ __forceinline__ void put_part(float* part, const float (&acc)[(FT + 7) / 8][4], int s,
+                                         int g, int q) {
+#pragma unroll
+  for (int j = 0; j < (FT + 7) / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cl = g + 8 * (i >> 1), fl = 8 * j + 2 * q + (i & 1);
+      part[part_word<LOG_M, FT, NW, FP, TAIL>(s, cl, fl)] = acc[j][i];
+    }
 }
 
 template <int LOG_M>
-__global__ void __launch_bounds__(mapt::Geometry<LOG_M>::NT) mel_fused_fast_kernel(MAPT_K1_PARAMS) {
-  mel_fused_body<LOG_M, true>(MAPT_K1_ARGS);
+__global__ void __launch_bounds__(FastGeometry<LOG_M>::NT,
+                                  fast_min_blocks(LOG_M, FastGeometry<LOG_M>::NT))
+mel_fused_fast_kernel(const float* __restrict__ y, long long L,
+                      const float* __restrict__ win,
+                      const float2* __restrict__ tw_g,
+                      const int* __restrict__ plan,
+                      float* __restrict__ out,
+                      int hop, int F, int n_cols, int n_mt, int blocks, int pad, int mode,
+                      int power, int tiles, int total) {
+  using G = FastGeometry<LOG_M>;
+  constexpr int M = G::M, T = G::T, FT = G::FT, NT = G::NT, FS = G::FS;
+  constexpr int NW = NT / 32;          // warps
+  constexpr int NTILE = (FT + 7) / 8;  // n-tiles of 8 frames
+  constexpr int FP = 8 * NTILE;        // frames of a partial sum's column
+  constexpr int KSTEPS = M / 16 + 1;
+  extern __shared__ float4 smem4[];
+  float2* buf = reinterpret_cast<float2*>(smem4);
+  float* rows = reinterpret_cast<float*>(smem4);
+  float2* twp = buf + G::TW_OFF;
+  float* seg = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + G::SEG_OFF_BYTES);
+  // past the segment: the tile's flag, then the band's shares, which every
+  // tile without the flag takes: for each m-tile its warps' ends
+  // (share_ends), then the warps with a share. Their address is taken
+  // afresh where they are used (from opaque(hop)): kept through the tile
+  // loop, it and W's address held registers that the FFT needs.
+  auto flag_at = [&](int h) {
+    return reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + G::smem(h));
+  };
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  const int tid = threadIdx.x;
+  const int seg_len = (FT - 1) * hop + 2 * M;
+
+  static_assert(mapt::rtw_offset(LOG_M, mapt::plan_passes(LOG_M)) <= M, "twiddle tables fit");
+  static_assert(NW <= 32, "a warp's share is a bit of a word");
+  mapt::stage_twiddles<LOG_M>(twp, tw_g, tid, NT);
+  for (int mt = tid; mt <= n_mt; mt += NT)
+    flag_at(hop)[4 + mt] = mt < n_mt ? share_ends<NW>(__ldg(plan + kPlanHeader + mt),
+                                          __ldg(plan + kPlanHeader + mt + 1), blocks)
+                         : static_cast<int>(share_mask<NW>(blocks));
+  int tile = blockIdx.x;
+  int off = mapt::stage_segment(y + static_cast<long long>(tile / tiles) * L, L,
+                                static_cast<long long>(tile % tiles) * FT * hop - pad, seg_len,
+                                mode, seg, tid, NT);
+  mapt::cp_async_wait_all();
+  __syncthreads();
+
+  for (; tile < total; tile += gridDim.x) {
+    if (tid == 0) *flag_at(opaque(hop)) = 0;  // the last tile's reads ended at its last barrier
+    {
+      // the forward transform, as the dense entry's
+      const int me = opaque(tid), fs = me / T, t = me % T;
+      float2* fb = buf + fs * FS;
+      float2 v[mapt::kRegPoints];
+      const float* fr = seg + off + fs * hop;
+      if (off & 1)
+        mapt::first_pass<LOG_M, false>(v, fr, win2, fb, twp, t);
+      else
+        mapt::first_pass<LOG_M, true>(v, fr, win2, fb, twp, t);
+      mapt::rexchange_passes<LOG_M, 1, G::GT>(fb, v, twp, t, G::GT ? me / G::GT : 0);
+    }
+    __syncthreads();
+    // the power rows, as the dense entry's, in bf16 halves
+    {
+      constexpr int R = kRounds < FT ? kRounds : FT;
+      constexpr int TP = NT / (FT / R);
+      constexpr int SLOTS = 2 * (M / 2 / TP) + 1;
+      constexpr int HOP_MIN = M / 4 > 128 ? M / 4 : 128;
+      static_assert(SLOTS * NT <= (FT - 1) * HOP_MIN + 2 * M, "scratch fits in the segment");
+      const bool mag = opaque(power) == 1;
+      int* flag = flag_at(opaque(hop));
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        power_round<LOG_M, true, FT / R, NT>(buf, rows, seg, tw_g, r * (FT / R), tid, mag, flag);
+    }
+    __syncthreads();
+    // the segment is free: copy the next tile's during the contraction
+    const int next = tile + gridDim.x;
+    if (next < total)
+      off = mapt::stage_segment(y + static_cast<long long>(next / tiles) * L, L,
+                                static_cast<long long>(next % tiles) * FT * hop - pad,
+                                seg_len, mode, seg, tid, NT);
+
+    // the contraction: warp w takes blocks [w tot / NW, (w + 1) tot / NW)
+    const int b = tile / tiles;
+    const int f0 = (tile % tiles) * FT;
+    {
+      const int me = opaque(tid), warp = me >> 5, g = (me & 31) >> 2, q = me & 3;
+      const int n_mt_ = opaque(n_mt), n_cols_ = opaque(n_cols);
+      const bool full = *flag_at(opaque(hop)) != 0;
+      const int tot = full ? n_mt_ * KSTEPS : opaque(blocks);
+      const uint4* wplan = reinterpret_cast<const uint4*>(plan + plan_w_offset(n_mt_));
+      const int b0 = warp * tot / NW, b1 = (warp + 1) * tot / NW;
+      float acc[NTILE][4];
+      bool held = false;
+      int mt = 0;
+      if (b0 < b1)
+        while (band_cum(plan, mt + 1, full, KSTEPS) <= b0) ++mt;
+      for (int bb = b0; bb < b1; ++mt) {
+        const int c0 = band_cum(plan, mt, full, KSTEPS), c1 = band_cum(plan, mt + 1, full, KSTEPS);
+        const int e = c1 < b1 ? c1 : b1, k0 = band_k0(plan, n_mt_, mt, full);
+        const int ca = 16 * mt + g;
+#pragma unroll
+        for (int j = 0; j < NTILE; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+        band_unit<LOG_M, FT>(acc, rows, wplan + static_cast<size_t>(ca) * KSTEPS * 4 + q,
+                             k0 + bb - c0, k0 + e - c0, g, q, ca < n_cols_, ca + 8 < n_cols_);
+        // the whole m-tile is stored; the part of the warp that holds an
+        // m-tile's last block goes to its tail slot; a part of an m-tile
+        // that goes on past b1 (the warp's last segment) is held
+        held = e < c1;
+        if (bb == c0 && !held)
+          store_sums<FT>(out, acc, b, f0, F, n_cols_, ca, q);
+        else if (!held)
+          put_part<LOG_M, FT, NW, FP, true>(rows, acc, warp, g, q);
+        bb = e;
+      }
+      __syncthreads();  // every warp's reads of the rows are done
+      if (held) put_part<LOG_M, FT, NW, FP, false>(rows, acc, warp, g, q);
+    }
+    __syncthreads();
+    {
+      // the m-tiles that more than one warp took: their parts, in warp
+      // order, frames fastest across lanes
+      const int me = opaque(tid), n_mt_ = opaque(n_mt), n_cols_ = opaque(n_cols);
+      const int* flag = flag_at(opaque(hop));
+      const int* ends = flag + 4;
+      const bool full = *flag != 0;
+      const int tot = n_mt_ * KSTEPS;  // the full shares, where the flag is set
+      const unsigned mask = full ? share_mask<NW>(tot) : static_cast<unsigned>(ends[n_mt_]);
+      for (int o = me; o < n_mt_ * 16 * FP; o += NT) {
+        const int fl = o % FP, cl = (o / FP) % 16, mt = o / (16 * FP), col = 16 * mt + cl;
+        if (fl >= FT || f0 + fl >= F || col >= n_cols_) continue;
+        const int e = full ? share_ends<NW>(mt * KSTEPS, (mt + 1) * KSTEPS, tot) : ends[mt];
+        const int wf = e & 0xFFFF, wl = e >> 16;
+        if (wf == wl) continue;  // stored whole by one warp
+        float s = rows[part_word<LOG_M, FT, NW, FP, false>(wf, cl, fl)];
+        for (int w = wf + 1; w < wl; ++w)
+          if (mask >> w & 1) s += rows[part_word<LOG_M, FT, NW, FP, false>(w, cl, fl)];
+        out[(static_cast<long long>(b) * n_cols_ + col) * F + f0 + fl] =
+            s + rows[part_word<LOG_M, FT, NW, FP, true>(wl, cl, fl)];
+      }
+    }
+    mapt::cp_async_wait_all();
+    __syncthreads();
+  }
 }
+
+// A full-range plan from a W given per call, (n_bins, n_cols) at strides
+// (s_bin, s_col) floats: its header and ranges, and W^T split as above, one
+// thread a (column, k-step, q); zero past n_bins or n_cols
+__global__ void mel_fused_fast_pack_kernel(const float* __restrict__ W, long long s_bin,
+                                           long long s_col, int n_bins, int n_cols, int n_mt,
+                                           int ksteps, int* __restrict__ plan) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int off = plan_w_offset(n_mt);
+  if (i < off) {
+    const int mt = i - kPlanHeader;
+    plan[i] = i == 0 ? kPlanMagic
+              : i == 1 ? n_cols
+              : i == 2 ? n_mt
+              : i == 3 ? ksteps
+              : i == 4 ? n_mt * ksteps
+              : mt >= 0 && mt <= n_mt ? mt * ksteps
+                                      : 0;
+  }
+  if (i >= 64 * n_mt * ksteps) return;
+  const int q = i & 3, kk = (i >> 2) % ksteps, c = (i >> 2) / ksteps;
+  float x[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int k = 16 * kk + 4 * q + r;
+    x[r] = k < n_bins && c < n_cols ? W[k * s_bin + c * s_col] : 0.f;
+  }
+  unsigned h0, l0, h1, l1;
+  split_bf16x2(x[0], x[1], h0, l0);
+  split_bf16x2(x[2], x[3], h1, l1);
+  reinterpret_cast<uint4*>(plan + off)[i] = make_uint4(h0, h1, l0, l1);
+}
+
 
 // ---------------------------------------------------------------------------
 // The ACF entry (mel_fused_acf_launch): K1 at the pitch ACF's weight.
@@ -787,6 +1077,9 @@ mel_fused_acf_kernel(const float* __restrict__ y, long long L,
 // K1's entries: each has an instance per LOG_M
 enum Entry { kDense = 0, kAcf = 1, kFast = 2 };
 
+// The instances: n_fft = 2^(LOG_M+1), 128 .. 8192
+#define MAPT_K1_LOG_MS(X) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
+
 template <int LOG_M, int ENTRY>
 const void* kernel_of() {
   if constexpr (ENTRY == kAcf)
@@ -795,6 +1088,16 @@ const void* kernel_of() {
     return reinterpret_cast<const void*>(mel_fused_fast_kernel<LOG_M>);
   else
     return reinterpret_cast<const void*>(mel_fused_kernel<LOG_M>);
+}
+
+// An entry's tile geometry, and the shared memory of its blocks at a hop
+template <int LOG_M, int ENTRY>
+using GeometryOf =
+    std::conditional_t<ENTRY == kFast, FastGeometry<LOG_M>, mapt::Geometry<LOG_M>>;
+
+template <int LOG_M, int ENTRY>
+size_t smem_of(int hop, int n_mt = 8) {
+  return GeometryOf<LOG_M, ENTRY>::smem(hop) + (ENTRY == kFast ? shared_tail_bytes(n_mt) : 0);
 }
 
 // Open an instance to the whole 227 KB once per device; the blocks a
@@ -814,7 +1117,7 @@ cudaError_t open_smem(int device) {
 // not per call
 template <int LOG_M, int ENTRY>
 cudaError_t grid_slots(size_t smem, int device, int* grid) {
-  using G = mapt::Geometry<LOG_M>;
+  using G = GeometryOf<LOG_M, ENTRY>;
   static size_t sized[kMaxDevices];
   static int slots[kMaxDevices];
   if (sized[device] != smem) {
@@ -834,32 +1137,71 @@ cudaError_t grid_slots(size_t smem, int device, int* grid) {
   return cudaSuccess;
 }
 
-template <int LOG_M, bool FAST>
-int launch_m(const float* y, long long L, const float* win, const float* tw, const float* W,
-             float* out, int B, int hop, int F, int n_cols, int pad, int mode, int power,
-             int device, cudaStream_t stream) {
-  using G = mapt::Geometry<LOG_M>;
-  const size_t smem = G::smem(hop);
+// The grid of a K1 launch (the dense or the fast entry): SMs times resident
+// blocks, at most one block a tile; 0 where there is nothing to do
+template <int LOG_M, int ENTRY>
+int contract_grid(size_t smem, int B, int F, int n_cols, int hop, int device, int* tiles,
+                  int* total, int* grid) {
+  using G = GeometryOf<LOG_M, ENTRY>;
+  *grid = 0;
   // the power rows' scratch takes the segment buffer of the least hop the
   // radix gate admits (n_fft/hop <= 8, hop >= 128)
   if (smem > mapt::kSmemLimit || 8 * hop < 2 * G::M || hop < 128 || device < 0 ||
       device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   int slots = 0;
-  const cudaError_t err = grid_slots<LOG_M, FAST ? kFast : kDense>(smem, device, &slots);
+  const cudaError_t err = grid_slots<LOG_M, ENTRY>(smem, device, &slots);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (F + G::FT - 1) / G::FT;
-  const long long total = static_cast<long long>(B) * tiles;
-  if (total <= 0 || n_cols <= 0) return static_cast<int>(cudaSuccess);
-  if (total > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>(total < slots ? total : slots);
+  *tiles = (F + G::FT - 1) / G::FT;
+  const long long all = static_cast<long long>(B) * *tiles;
+  if (all <= 0 || n_cols <= 0) return static_cast<int>(cudaSuccess);
+  if (all > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  *total = static_cast<int>(all);
+  *grid = static_cast<int>(all < slots ? all : slots);
+  return static_cast<int>(cudaSuccess);
+}
+
+template <int LOG_M>
+int launch_m(const float* y, long long L, const float* win, const float* tw, const float* W,
+             float* out, int B, int hop, int F, int n_cols, int pad, int mode, int power,
+             int device, cudaStream_t stream) {
+  using G = mapt::Geometry<LOG_M>;
+  const size_t smem = smem_of<LOG_M, kDense>(hop);
+  int tiles = 0, total = 0, grid = 0;
+  const int err = contract_grid<LOG_M, kDense>(smem, B, F, n_cols, hop, device, &tiles, &total,
+                                               &grid);
+  if (err != 0 || grid == 0) return err;
   // m-tiles of 16 columns; k-slices per m-tile to fill the block's warps
   const int n_mt = (n_cols + 15) / 16;
   const int n_ks = G::NT / 32 / n_mt > 1 ? G::NT / 32 / n_mt : 1;
-  auto* kernel = FAST ? mel_fused_fast_kernel<LOG_M> : mel_fused_kernel<LOG_M>;
-  kernel<<<grid, G::NT, smem, stream>>>(
+  mel_fused_kernel<LOG_M><<<grid, G::NT, smem, stream>>>(
       y, L, win, reinterpret_cast<const float2*>(tw), W, out, hop, F, n_cols, n_mt, n_ks, pad,
-      mode, power, tiles, static_cast<int>(total));
+      mode, power, tiles, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fast entry from a plan of `blocks` blocks; pack: first pack a
+// full-range plan from W (n_bins, n_cols) at strides (s_bin, s_col) into it
+template <int LOG_M>
+int fast_launch_m(const float* y, long long L, const float* win, const float* tw,
+                  const float* W, long long s_bin, long long s_col, int* plan, int pack,
+                  float* out, int B, int hop, int F, int n_cols, int blocks, int pad, int mode,
+                  int power, int device, cudaStream_t stream) {
+  using G = FastGeometry<LOG_M>;
+  constexpr int KSTEPS = G::M / 16 + 1;
+  const int n_mt = (n_cols + 15) / 16;
+  const size_t smem = smem_of<LOG_M, kFast>(hop, n_mt);
+  if (blocks < n_mt || blocks > n_mt * KSTEPS) return static_cast<int>(cudaErrorInvalidValue);
+  int tiles = 0, total = 0, grid = 0;
+  const int err = contract_grid<LOG_M, kFast>(smem, B, F, n_cols, hop, device, &tiles, &total,
+                                              &grid);
+  if (err != 0 || grid == 0) return err;
+  if (pack)
+    mel_fused_fast_pack_kernel<<<(64 * n_mt * KSTEPS + 255) / 256, 256, 0, stream>>>(
+        W, s_bin, s_col, G::M + 1, n_cols, n_mt, KSTEPS, plan);
+  mel_fused_fast_kernel<LOG_M><<<grid, G::NT, smem, stream>>>(
+      y, L, win, reinterpret_cast<const float2*>(tw), plan, out, hop, F, n_cols, n_mt, blocks,
+      pad, mode, power, tiles, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -868,7 +1210,7 @@ int acf_launch_m(const float* y, long long L, const float* win, const float* tw,
                  int B, int hop, int F, int lo, int hi, int pad, int mode, int device,
                  cudaStream_t stream) {
   using G = mapt::Geometry<LOG_M>;
-  const size_t smem = G::smem(hop);
+  const size_t smem = smem_of<LOG_M, kAcf>(hop);
   if (smem > mapt::kSmemLimit || hop < 1 || device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (lo < 0 || hi <= lo || hi > 2 * G::M) return static_cast<int>(cudaErrorInvalidValue);
@@ -890,8 +1232,8 @@ int acf_launch_m(const float* y, long long L, const float* win, const float* tw,
 // block, resident blocks per SM}
 template <int LOG_M, int ENTRY>
 int geometry_m(int hop, int device, int* info) {
-  using G = mapt::Geometry<LOG_M>;
-  const size_t smem = G::smem(hop);
+  using G = GeometryOf<LOG_M, ENTRY>;
+  const size_t smem = smem_of<LOG_M, ENTRY>(hop);
   info[0] = G::NT;
   info[1] = G::FT;
   info[2] = static_cast<int>(smem);
@@ -903,27 +1245,6 @@ int geometry_m(int hop, int device, int* info) {
   return static_cast<int>(err);
 }
 
-// The instances: n_fft = 2^(LOG_M+1), 128 .. 8192
-#define MAPT_K1_LOG_MS(X) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
-
-template <bool FAST>
-int launch(const float* y, long long L, const float* win, const float* tw, const float* W,
-           float* out, int B, int n_fft, int hop, int F, int n_cols, int pad, int mode, int power,
-           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-#define MAPT_CASE(LM)                                                                          \
-  case LM:                                                                                     \
-    return launch_m<LM, FAST>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, \
-                              s);
-    MAPT_K1_LOG_MS(MAPT_CASE)
-#undef MAPT_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 // The dense entry: out (B, n_cols, F) = |rDFT(win * frame)|^power @ W, 3xTF32
@@ -932,18 +1253,39 @@ extern "C" int mel_fused_launch(const float* y, long long L, const float* win,
                                 int B, int n_fft, int hop, int F, int n_cols,
                                 int pad, int mode, int power, int device,
                                 void* stream) {
-  return launch<false>(y, L, win, tw, W, out, B, n_fft, hop, F, n_cols, pad, mode, power, device,
-                       stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
+#define MAPT_CASE(LM)                                                                           \
+  case LM:                                                                                      \
+    return launch_m<LM>(y, L, win, tw, W, out, B, hop, F, n_cols, pad, mode, power, device, s);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// The fast entry: the same, the contraction as bf16x3
+// The fast entry: the same, the contraction as bf16x3 over the blocks of
+// the plan (pack: a full-range plan packed from W first, for a W given per
+// call)
 extern "C" int mel_fused_fast_launch(const float* y, long long L, const float* win,
-                                     const float* tw, const float* W, float* out,
-                                     int B, int n_fft, int hop, int F, int n_cols,
-                                     int pad, int mode, int power, int device,
-                                     void* stream) {
-  return launch<true>(y, L, win, tw, W, out, B, n_fft, hop, F, n_cols, pad, mode, power, device,
-                      stream);
+                                     const float* tw, const float* W, long long s_bin,
+                                     long long s_col, int* plan, int pack, float* out,
+                                     int B, int n_fft, int hop, int F, int n_cols, int blocks,
+                                     int pad, int mode, int power, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
+#define MAPT_CASE(LM)                                                                    \
+  case LM:                                                                               \
+    return fast_launch_m<LM>(y, L, win, tw, W, s_bin, s_col, plan, pack, out, B, hop, F, \
+                             n_cols, blocks, pad, mode, power, device, s);
+    MAPT_K1_LOG_MS(MAPT_CASE)
+#undef MAPT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The ACF entry: out (B, 1 + hi - lo, F) = lag 0 and lags [lo, hi) of

@@ -31,20 +31,27 @@ overlap with the contraction inside a block) are what remain
 (measurements in ``PERF.md``).
 
 The fast entry (``mel_fused_fast_kernel``, ``fast_gemm=True``, the default
-through ``_config.ANALYSIS_FAST_GEMM``). The same kernel with the
-contraction as the JAX kernel's fast mode computes it: both operands split
-into bfloat16 ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest
-even), and ``lo*hi + hi*lo + hi*hi`` on ``mma.sync`` m16n8k16 in FP32
-accumulators, each 16-bin k-step from zero. The power rows hold bf16 parts
-(two bins a 32-bit word, a B fragment register); W is passed transposed
-with its bins zero-padded to whole 16-bin k-steps (one small copy a call)
-and split in registers as it is loaded; inside a k-step the bins are
-permuted so that a thread's four are consecutive (one load each). It is
-within ~1e-5 of max of an exact product (the JAX package's class, 2.7e-5),
-where the dense entry is within ~1e-6;
-its plain twin is :func:`melspectrogram_plain` with ``fast_gemm=True``, the
-same split in FP32 matmuls (a product of two bf16 values is exact in FP32).
-Under either mode the backward is the exact plain composition's.
+through ``_config.ANALYSIS_FAST_GEMM``). The contraction as the JAX kernel's
+fast mode computes it: both operands split into bfloat16 ``hi = bf16(x)``
+and ``lo = bf16(x - hi)`` (round to nearest even), and ``lo*hi + hi*lo +
+hi*hi`` on ``mma.sync`` m16n8k16 in FP32 accumulators, each 16-bin k-step
+from zero; within ~1e-5 of max of an exact product (the JAX package's
+class, 2.7e-5), where the dense entry is within ~1e-6. It reads W from a
+plan (:func:`band_plan_host`): W^T already split, in the order the A
+fragments load it, and for each 16-column m-tile the range of k-steps
+outside which its columns are zero. A cached table's plan is built once on
+the host and kept per device beside the table (:func:`fast_plan`; the ops
+pass the table's transpose view, so no call copies or transposes it), and
+the kernel contracts only those blocks (73 of 520 at the 128-mel table),
+the warps taking equal shares of them; a tile whose powers hold a value
+that is not finite takes every k-step, so that ``inf * 0`` gives NaN in
+every column, as in the dense product. For a W given per call (a
+trainable filterbank, a caller's own weight) the launcher first packs a
+full-range plan from W on the device. The tile is the dense entry's (two
+512-thread blocks an SM at n_fft 2048 measured slower). Its plain twin is
+:func:`melspectrogram_plain` with ``fast_gemm=True``, the same split in
+FP32 matmuls (a product of two bf16 values is exact in FP32). Under either
+mode the backward is the exact plain composition's.
 
 The TPU kernel's radix decimation, folded filterbank (``fold_filterbank``),
 128-lane group layout, VMEM block picker and DMA double buffering have no
@@ -70,26 +77,26 @@ from functools import partial
 
 import numpy as np
 import torch
-import torch.nn.functional as tnf
 
 from .. import _config
 from ..ops._frames import windowed_frames
-from ..utils.cache import table_cache
+from ..utils.cache import TableCache, table_cache, table_origin
 from ..utils.dispatch import on_cuda, radix_shape_ok
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 
-#: the dense and the fast entry's launchers' arguments (the fast one reads W
-#: transposed and padded)
-_CONTRACT_ARGS = (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32)
 KERNEL = register(Kernel(
-    "mel_fused_kernel", "mel_fused_launch", _CONTRACT_ARGS,
+    "mel_fused_kernel", "mel_fused_launch",
+    (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
-#: K1's fast entry: the same pallas_call with its fast_gemm mode (bf16x3)
+#: K1's fast entry: the same pallas_call with its fast_gemm mode (bf16x3),
+#: reading its weight from a plan (:func:`band_plan_host`); for a weight
+#: given per call the launcher first packs one from W at its strides
 KERNEL_FAST = register(Kernel(
-    "mel_fused_fast_kernel", "mel_fused_fast_launch", _CONTRACT_ARGS,
+    "mel_fused_fast_kernel", "mel_fused_fast_launch",
+    (P, I64, P, P, P, I64, I64, P, I32, P, I32, I32, I32, I32, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
@@ -141,7 +148,9 @@ def melspectrogram_plain(
     forward-basis GEMM), ``|X|^power``, ``@ fb_t`` -> ``(B, n_cols, F)``.
     Any power. ``fast_gemm``: the fast entry's twin, the contraction as
     ``hi@hi + hi@lo + lo@hi`` of the bf16 splits, in the JAX ``_group_dot``
-    order."""
+    order. ``fb_t`` may be a view (a cached table's transpose); the product
+    takes it contiguous."""
+    fb_t = fb_t.contiguous()
     frames = windowed_frames(y, win, n_fft, hop_length, center, pad_mode)
     spec = rfft_frames(frames, n_fft, basis)
     p = spec.real**2 + spec.imag**2
@@ -165,10 +174,125 @@ def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+#: the fast entry's plan (`csrc/mel_fused.cu`, "The plan"): header words,
+#: then the m-tiles' block offsets and first k-steps, then W^T split
+PLAN_MAGIC = 0x4B31BA4D
+PLAN_HEADER = 8
+
+
+def plan_w_offset(n_mt: int) -> int:
+    """Word offset of the split W^T in a plan of ``n_mt`` m-tiles (16-byte
+    aligned)."""
+    return (PLAN_HEADER + 2 * n_mt + 1 + 3) & ~3
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bits, rounding to nearest even, as
+    ``__float2bfloat16_rn`` and ``torch.bfloat16`` round."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def band_plan_host(w_t: np.ndarray, band: bool = True) -> np.ndarray:
+    """The fast entry's plan for the float32 weight ``w_t`` = W^T, ``(n_cols,
+    n_bins)``, as int32 words (``csrc/mel_fused.cu``, "The plan"): for each
+    m-tile of 16 columns the range of 16-bin k-steps outside which its
+    columns are exactly zero (at least one k-step; all of them without
+    ``band``, as the launch packs for a W given per call), the blocks before
+    each m-tile, and W^T split into bf16 ``hi = bf16(x)``, ``lo = bf16(x -
+    hi)``, padded with zeros to whole m-tiles and k-steps, 16 words a
+    (column, k-step): for q = 0..3 the words hi(4q, 4q+1), hi(4q+2, 4q+3),
+    lo(4q, 4q+1), lo(4q+2, 4q+3), each even bin in the low half."""
+    w_t = np.asarray(w_t, np.float32)
+    n_cols, n_bins = w_t.shape
+    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
+    wp = np.zeros((16 * n_mt, 16 * ksteps), np.float32)
+    wp[:n_cols, :n_bins] = w_t
+    k0 = np.zeros(n_mt, np.int64)
+    k1 = np.full(n_mt, ksteps, np.int64)
+    if band:
+        live = (wp != 0).reshape(n_mt, 16, ksteps, 16).any(axis=(1, 3))
+        for mt, row in enumerate(live):
+            ks = np.flatnonzero(row)
+            k0[mt], k1[mt] = (ks[0], ks[-1] + 1) if ks.size else (0, 1)
+    cum = np.concatenate([[0], np.cumsum(k1 - k0)])
+    hi = bf16_bits(wp)
+    lo = bf16_bits(wp - (hi.astype(np.uint32) << 16).view(np.float32))
+    # (column, k-step, q, pair, half): a word's low half is its even bin
+    words = [(b.reshape(16 * n_mt, ksteps, 4, 2, 2).astype(np.uint32) << np.array([0, 16],
+              np.uint32)).sum(-1, dtype=np.uint32) for b in (hi, lo)]
+    off = plan_w_offset(n_mt)
+    plan = np.zeros(off + 16 * n_mt * ksteps * 16, np.uint32)
+    plan[:5] = (PLAN_MAGIC, n_cols, n_mt, ksteps, cum[-1])
+    plan[PLAN_HEADER:PLAN_HEADER + n_mt + 1] = cum
+    plan[PLAN_HEADER + n_mt + 1:PLAN_HEADER + 2 * n_mt + 1] = k0
+    plan[off:] = np.concatenate(words, axis=-1).reshape(-1)
+    return plan.view(np.int32)
+
+
+def _table_key(fb_t: torch.Tensor) -> tuple | None:
+    """``(cache, args, transposed)`` where ``fb_t`` is a table a
+    :class:`TableCache` handed out (``transposed``: that table's transpose,
+    as ``table.t()`` views it), else None."""
+    origin = table_origin(fb_t)
+    if origin is not None:
+        return (*origin, False)
+    base = fb_t._base
+    origin = None if base is None else table_origin(base)
+    if origin is None or base.data_ptr() != fb_t.data_ptr() or base.dtype != fb_t.dtype:
+        return None
+    if fb_t.shape == base.shape and fb_t.stride() == base.stride():
+        return (*origin, False)
+    if fb_t.shape == base.shape[::-1] and fb_t.stride() == base.stride()[::-1]:
+        return (*origin, True)
+    return None
+
+
+def _table_w(cache: TableCache, args: tuple, transposed: bool) -> np.ndarray:
+    """The float32 W = fb_t of a cached table, as the device tensor holds it."""
+    table = np.asarray(cache.host(*args)).astype(cache.dtype).astype(np.float32)
+    return table.T if transposed else table
+
+
+@table_cache("k1_band_plan", maxsize=_config.FILTERBANK_CACHE_SIZE, dtype=np.int32)
+def _band_plan(cache: TableCache, args: tuple, transposed: bool) -> np.ndarray:
+    """The fast entry's plan of a cached table, built on the host once per
+    table and kept per device beside it."""
+    return band_plan_host(_table_w(cache, args, transposed).T)
+
+
+@table_cache("k1_dense_weight", maxsize=_config.FILTERBANK_CACHE_SIZE)
+def _dense_weight(cache: TableCache, args: tuple, transposed: bool) -> np.ndarray:
+    """The dense entry's W = fb_t of a cached table, ``(n_bins, n_cols)``
+    contiguous, made once per table and device."""
+    return np.ascontiguousarray(_table_w(cache, args, transposed))
+
+
+def fast_plan(fb_t: torch.Tensor) -> tuple[torch.Tensor, np.ndarray] | None:
+    """The fast entry's plan of ``fb_t`` on its device and the plan's host
+    words, where ``fb_t`` is a cached table or its transpose; None for a W
+    given per call, whose plan the launch packs on the device."""
+    key = _table_key(fb_t)
+    if key is None:
+        return None
+    return _band_plan(*key, device=fb_t.device), _band_plan.host(*key)
+
+
+def contracted_blocks(fb_t: torch.Tensor) -> tuple[int, int]:
+    """The (m-tile, k-step) blocks the fast entry contracts for ``fb_t`` and
+    all of them, ``ceil(n_cols / 16) * ceil(n_bins / 16)``."""
+    n_bins, n_cols = fb_t.shape
+    every = -(-n_cols // 16) * -(-n_bins // 16)
+    plan = fast_plan(fb_t)
+    return (every if plan is None else int(plan[1][4])), every
+
+
 def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_gemm=False):
     require(y, "y", torch.float32, 2)
     require(win, "win", torch.float32, 1)
-    require(fb_t, "fb_t", torch.float32, 2)
+    if fb_t.device != y.device or fb_t.dtype != torch.float32 or fb_t.dim() != 2:
+        raise ValueError(f"fb_t must be a 2-D float32 tensor on {y.device}; got "
+                         f"{fb_t.dtype} {tuple(fb_t.shape)} on {fb_t.device}")
     B, L = y.shape
     n_bins, n_cols = fb_t.shape
     if win.shape[0] != n_fft or n_bins != n_fft // 2 + 1:
@@ -179,17 +303,33 @@ def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_ge
     pad = n_fft // 2 if center else 0
     F = 1 + (L + 2 * pad - n_fft) // hop_length
     tw = rfft_twiddles(n_fft, device=y.device)
-    if fast_gemm:
-        # the fast entry reads W transposed, its bins zero-padded to whole
-        # 16-bin k-steps: a thread's A fragment is then one 16-byte load a
-        # column
-        w = tnf.pad(fb_t.t(), (0, -n_bins % 16)).contiguous()
-    else:
-        w = fb_t
     out = torch.empty((B, n_cols, F), dtype=torch.float32, device=y.device)
-    (KERNEL_FAST if fast_gemm else KERNEL).launch(
-        y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), w.data_ptr(), out.data_ptr(), B,
-        n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode], int(power))
+    shape = (B, n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode], int(power))
+    if not fast_gemm:
+        key = _table_key(fb_t)
+        w = fb_t if key is None else _dense_weight(*key, device=y.device)
+        require(w, "fb_t", torch.float32, 2)
+        KERNEL.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), w.data_ptr(),
+                      out.data_ptr(), *shape)
+        return out
+    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
+    planned = fast_plan(fb_t)
+    if planned is None:
+        # a W given per call (a trainable filterbank, a caller's own
+        # weight): the launcher packs a full-range plan from it first
+        plan = torch.empty(plan_w_offset(n_mt) + 256 * n_mt * ksteps, dtype=torch.int32,
+                           device=y.device)
+        blocks, pack = n_mt * ksteps, 1
+    else:
+        plan, host = planned
+        if tuple(host[:4]) != (PLAN_MAGIC, n_cols, n_mt, ksteps) or plan.numel() != host.size:
+            raise ValueError(f"the fast entry's plan does not fit W {tuple(fb_t.shape)}: "
+                             f"header {tuple(host[:5])}")
+        blocks, pack = int(host[4]), 0
+    s_bin, s_col = fb_t.stride()
+    KERNEL_FAST.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(),
+                       fb_t.data_ptr(), s_bin, s_col, plan.data_ptr(), pack, out.data_ptr(),
+                       *shape[:5], blocks, *shape[5:])
     return out
 
 

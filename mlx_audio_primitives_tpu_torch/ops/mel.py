@@ -188,7 +188,8 @@ def filterbank_spectrogram(
         _resolve_fft_mode(fft_mode, n_fft)
     y = dispatch.to_tensor(y, REAL_DTYPE).contiguous()
     win = torch.as_tensor(win, dtype=REAL_DTYPE, device=y.device).contiguous()
-    fb_t = torch.as_tensor(fb, dtype=REAL_DTYPE, device=y.device).t().contiguous()
+    # a view, not a copy: K1 finds a cached table's plan through it
+    fb_t = torch.as_tensor(fb, dtype=REAL_DTYPE, device=y.device).t()
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
               power=float(power))
 

@@ -380,7 +380,7 @@ def logmel_time_sharded(
     dev = y_local.device
     win = _get_padded_window(window, win_length, n_fft, dev)
     mode = _resolve_sharded_mode(fft_mode, _kernels_ok(n_fft, hop_length))
-    fb_t = mel_filterbank(sr, n_fft, n_mels=n_mels, device=dev).t().contiguous()
+    fb_t = mel_filterbank(sr, n_fft, n_mels=n_mels, device=dev).t()  # the cached table's view
 
     ext = torch.cat([y_local, _right_halo(y_local, halo, mesh)], dim=1)
     if mode == "pallas":
@@ -392,5 +392,5 @@ def logmel_time_sharded(
     else:
         basis = forward_basis(n_fft, device=dev) if mode == "matmul" else None
         spec = rfft_frames(frame_signal_batched(ext, n_fft, hop_length) * win, n_fft, basis)
-        mel = torch.matmul(spec.real**2 + spec.imag**2, fb_t)
+        mel = torch.matmul(spec.real**2 + spec.imag**2, fb_t.contiguous())
     return _frames_out(power_to_db(mel, top_db=None), mesh, F)

@@ -11,6 +11,9 @@ ISTFT envelopes, FFT twiddles):
   device, so a hit costs no host-to-device copy.
 
 The tensors handed out are shared: callers must not modify them in place.
+Each one remembers the cache and the arguments it came from
+(:func:`table_origin`), so that a kernel wrapper can keep what it derives
+from a table (K1's contraction plan) beside the table.
 As in the JAX package, every cache registers itself, so that
 :func:`clear_all_caches` empties them all (cold-cache benchmarks) and
 :func:`cache_stats` reports their hits, misses and entries, and every hit
@@ -77,6 +80,7 @@ class TableCache:
             return hit
         host = np.asarray(self._host_builder(*args)).astype(self.dtype)
         table = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+        table._table_origin = (self, args)
         with self._lock:
             if key in self._device_cache:
                 return self._device_cache[key]  # a concurrent builder won
@@ -108,6 +112,12 @@ class TableCache:
     @property
     def stats(self) -> dict[str, int]:
         return {"hits": self.hits, "misses": self.misses, "entries": len(self._device_cache)}
+
+
+def table_origin(t: torch.Tensor) -> tuple[TableCache, tuple] | None:
+    """``(cache, args)`` where ``t`` is the very tensor a :class:`TableCache`
+    handed out for ``args``, else None (a copy or a view of it is not)."""
+    return getattr(t, "_table_origin", None)
 
 
 def table_cache(name: str, maxsize: int = 128, dtype: Any = np.float32):

@@ -6,11 +6,12 @@ conftest left out (it imports JAX)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_mel_fast_cuda.py
 
-Limits, of max: the fast entry (bf16x3) within 1e-5 of its twin (the same
-splits; they differ where the kernel's and the twin's float32 powers round
-``lo`` to different bf16 neighbours, 2^-17 of a bin's power at most) and
-within 3e-5 of float64, the JAX fast mode's class; the dense entry (3xTF32)
-within 1e-5 of its twin, as before the fast entry existed.
+Limits, of max: the fast entry (bf16x3, over its plan's band) within 1e-5
+of its twin (the same splits; they differ where the kernel's and the twin's
+float32 powers round ``lo`` to different bf16 neighbours, 2^-17 of a bin's
+power at most) and within 3e-5 of float64, the JAX fast mode's class; the
+dense entry (3xTF32) within 1e-5 of its twin, as before the fast entry
+existed.
 """
 
 from __future__ import annotations
@@ -63,6 +64,52 @@ def test_entries_match_their_twins(card, n_fft, hop, n_cols, power, center):
         assert got.shape == ref.shape == exact.shape
         assert rel(got, ref) <= 1e-5
         assert rel(got, exact) <= limit_64
+
+
+def test_fast_entry_on_a_cached_table_and_frames_that_are_not_finite(card):
+    """The 128-mel table through its transpose view (its cached band plan,
+    73 of 520 blocks) on clips with an inf and a NaN sample: NaN in every
+    column of each frame they reach, as in the twin, the finite values
+    within 1e-5 of max of it."""
+    y = torch.randn((4, 22050), device=card)
+    y[1, 5000] = float("inf")
+    y[2, 9000] = float("nan")
+    win = torch.hann_window(2048, device=card)
+    fb_t = mel_filterbank(22050, 2048, 128, device=card).t()
+    assert k1.contracted_blocks(fb_t) == (73, 520)
+    kw = dict(n_fft=2048, hop_length=512, center=True, pad_mode="constant")
+    got = k1.melspectrogram_fused(y, win, fb_t, fast_gemm=True, **kw)
+    ref = k1.melspectrogram_plain(y, win, fb_t, fast_gemm=True, **kw)
+    bad = ~torch.isfinite(ref).all(1)
+    assert bad.any() and torch.isnan(got).all(1)[bad].all()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(ref)
+    assert rel(got[fin], ref[fin]) <= 1e-5
+
+
+@pytest.mark.parametrize("per_call", [False, True])
+def test_fast_entry_with_an_all_zero_m_tile(card, per_call):
+    """A cached table whose second m-tile is all zero (one k-step in its
+    plan), and the same W given per call (a full-range plan packed by the
+    launch): both within 1e-5 of the twin, the empty columns zero."""
+    import numpy as np
+
+    from mlx_audio_primitives_tpu_torch.utils.cache import TableCache
+
+    def build():
+        fb = mel_filterbank(22050, 2048, 40, device="cpu").double().numpy()
+        return np.concatenate([fb[:16], np.zeros((16, fb.shape[1])), fb[16:]])
+
+    table = TableCache("cuda_test_zero_tile", build)(device=card)
+    fb_t = table.t().contiguous() if per_call else table.t()
+    used, every = k1.contracted_blocks(fb_t)
+    assert every == 260 and (used == every) == per_call
+    y = torch.randn((3, 44100), device=card)
+    win = torch.hann_window(2048, device=card)
+    kw = dict(n_fft=2048, hop_length=512, center=True, pad_mode="reflect")
+    got = k1.melspectrogram_fused(y, win, fb_t, fast_gemm=True, **kw)
+    ref = k1.melspectrogram_plain(y, win, fb_t, fast_gemm=True, **kw)
+    assert rel(got, ref) <= 1e-5 and not got[:, 16:32].any()
 
 
 def test_none_follows_the_config(card, monkeypatch):
