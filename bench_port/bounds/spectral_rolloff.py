@@ -1,0 +1,5 @@
+from . import _spectral
+
+
+def cost(cfg: dict, lengths: list[int]) -> tuple[float, float]:
+    return _spectral.cost(cfg, lengths, per_bin=2, power=1.0)
