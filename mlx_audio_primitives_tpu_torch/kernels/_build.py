@@ -10,9 +10,10 @@ concurrent processes from building twice.
 
 Each kernel is described by a :class:`Kernel`: its C launcher, the argument
 types, its source, the TPU kernel it replaces, and ``launches``, the count
-of launches made through it. A launcher runs its kernel on the stream it is
-given, allocates nothing and returns ``cudaGetLastError()``;
-:meth:`Kernel.launch` raises on anything but 0. Nothing here falls back: a
+of launches made through it; while the port records, each launch is the
+span ``launch.<name>`` (`utils/profiler.py`). A launcher runs its kernel on
+the stream it is given, allocates nothing and returns
+``cudaGetLastError()``; :meth:`Kernel.launch` raises on anything but 0. Nothing here falls back: a
 missing compiler, a failed build or a failed launch raises.
 """
 
@@ -31,6 +32,8 @@ from collections.abc import Callable
 from pathlib import Path
 
 import torch
+
+from ..utils import profiler
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -170,9 +173,17 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._fn = None
+        self._span = f"launch.{name}"
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream; count the launch."""
+        if profiler.recording():
+            with profiler.span(self._span):
+                self._launch(device, *args)
+        else:
+            self._launch(device, *args)
+
+    def _launch(self, device: torch.device, *args) -> None:
         if self._fn is None:
             fn = getattr(library(), self.launcher)
             fn.argtypes = list(self.argtypes)

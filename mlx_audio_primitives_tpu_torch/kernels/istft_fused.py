@@ -49,6 +49,7 @@ import torch
 
 from .._config import COMPLEX_DTYPE
 from ..utils.dispatch import on_cuda, radix_shape_ok
+from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import irfft_frames, rfft_twiddles
 from .overlap_add import overlap_add_plain
@@ -149,6 +150,7 @@ def _launch(S, win, env, *, n_fft, hop_length, padded_length):
     return out
 
 
+@traced("kernels.istft_fused")
 def istft_fused(
     S: torch.Tensor,
     win: torch.Tensor,

@@ -82,6 +82,7 @@ from .. import _config
 from ..ops._frames import windowed_frames
 from ..utils.cache import TableCache, table_cache, table_origin
 from ..utils.dispatch import on_cuda, radix_shape_ok
+from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 
@@ -333,6 +334,7 @@ def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_ge
     return out
 
 
+@traced("kernels.melspectrogram_fused")
 def melspectrogram_fused(
     y: torch.Tensor,
     win: torch.Tensor,
@@ -414,6 +416,7 @@ def _launch_acf(ypad, win, *, n_fft, hop_length, lo, hi):
     return out
 
 
+@traced("kernels.acf_fused")
 def acf_fused(ypad: torch.Tensor, win: torch.Tensor, *, n_fft: int, hop_length: int, lo: int,
               hi: int) -> torch.Tensor:
     """Lag 0 and lags [lo, hi) of ``irfft(|rDFT(win * frame)|^2)`` of each

@@ -22,6 +22,7 @@ import torch
 
 from ..ops._frames import cdiv, overlap_add
 from ..utils.dispatch import on_cuda
+from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, register, require, with_plain_backward
 
 # Bound on C = ceil(n_fft/hop), the JAX kernel's gate (there it bounds the
@@ -63,6 +64,7 @@ def _launch(fw: torch.Tensor, env: torch.Tensor, *, hop_length: int,
     return out
 
 
+@traced("kernels.overlap_add_fused")
 def overlap_add_fused(
     fw: torch.Tensor,  # (B, F, n_fft) windowed frames
     env: torch.Tensor,  # (>= output_length,) clamped squared-window envelope

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.dispatch import on_cuda
+from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, register
 
 #: Largest k the kernel takes; past it the sort path runs (as in JAX, where
@@ -142,6 +143,7 @@ class _QuantileExtremeMeans(torch.autograd.Function):
         return grad, None, None
 
 
+@traced("kernels.quantile_extreme_means_fused")
 def quantile_extreme_means_fused(
     x: torch.Tensor, k_lo: int, k_hi: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -41,6 +41,7 @@ import torch
 from .._config import COMPLEX_DTYPE
 from ..ops._frames import windowed_frames
 from ..utils.dispatch import on_cuda, radix_shape_ok
+from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 from .mel_fused import PAD_CODES
@@ -138,6 +139,7 @@ def _check(y: torch.Tensor, n_fft: int, hop_length: int, center: bool) -> None:
         )
 
 
+@traced("kernels.stft_fused")
 def stft_fused(
     y: torch.Tensor,
     win: torch.Tensor,
@@ -157,6 +159,7 @@ def stft_fused(
     return with_plain_backward(_launch, stft_plain, y, win, **kw)
 
 
+@traced("kernels.stft_magnitude_fused")
 def stft_magnitude_fused(
     y: torch.Tensor,
     win: torch.Tensor,

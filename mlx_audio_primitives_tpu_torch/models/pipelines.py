@@ -154,8 +154,8 @@ class TrainableLogMelFrontend:
         fb_t = torch.as_tensor(params["fb_t"], dtype=REAL_DTYPE, device=y.device).contiguous()
         kw = dict(n_fft=self.n_fft, hop_length=self.hop_length, center=True,
                   pad_mode="constant")
-        if (dispatch.kernel_route(use_pallas, y.device)
-                and dispatch.radix_shape_ok(self.n_fft, self.hop_length)):
+        if dispatch.route("trainable_logmel_frontend", use_pallas, y.device,
+                          gate=dispatch.radix_shape_ok(self.n_fft, self.hop_length)):
             mel = melspectrogram_fused(y, win, fb_t, **kw)
         else:
             mel = melspectrogram_plain(y, win, fb_t, **kw)

@@ -20,6 +20,7 @@ import torch
 
 from .._config import REAL_DTYPE
 from ..utils import dispatch
+from ..utils.profiler import traced
 
 ArrayLike = Any
 
@@ -50,6 +51,7 @@ def _to_db(
     return S_db
 
 
+@traced("ops.power_to_db")
 def power_to_db(
     S: ArrayLike,
     ref: float | Callable = 1.0,
@@ -60,12 +62,14 @@ def power_to_db(
     return _to_db(S, ref, coefficient=10.0, amin=amin, top_db=top_db)
 
 
+@traced("ops.db_to_power")
 def db_to_power(S_db: ArrayLike, ref: float = 1.0) -> torch.Tensor:
     """Invert :func:`power_to_db`: ``ref * 10**(S_db / 10)``."""
     S_db = dispatch.to_tensor(S_db, REAL_DTYPE)
     return ref * torch.pow(10.0, S_db / 10.0)
 
 
+@traced("ops.amplitude_to_db")
 def amplitude_to_db(
     S: ArrayLike,
     ref: float | Callable = 1.0,
@@ -76,6 +80,7 @@ def amplitude_to_db(
     return _to_db(S, ref, coefficient=20.0, amin=amin, top_db=top_db)
 
 
+@traced("ops.db_to_amplitude")
 def db_to_amplitude(S_db: ArrayLike, ref: float = 1.0) -> torch.Tensor:
     """Invert :func:`amplitude_to_db`: ``ref * 10**(S_db / 20)``."""
     S_db = dispatch.to_tensor(S_db, REAL_DTYPE)

@@ -39,6 +39,7 @@ from ..kernels.mel_fused import melspectrogram_fused
 from ..kernels.select_extremes import quantile_extreme_means_fused, select_supported
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive, validate_range
 from ._frames import frame_signal_batched, pad_signal
 from .stft import _as_batched, _get_padded_window, _validate_stft_params, magnitude_spectrogram
@@ -81,6 +82,7 @@ def _compute_spectrogram(
     return S
 
 
+@traced("ops.spectral_centroid")
 def spectral_centroid(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -135,8 +137,8 @@ def _moments_fused(y, sr, freq, *, n_fft, hop_length, win_length, window, center
     # the same argument checks as the magnitude route, so both raise alike
     _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
     y, input_is_1d = _as_batched(y, n_fft, center)
-    if not (dispatch.kernel_route(None, y.device)
-            and dispatch.radix_shape_ok(n_fft, hop_length)):
+    if not dispatch.route("spectral_moments", None, y.device,
+                          gate=dispatch.radix_shape_ok(n_fft, hop_length)):
         return None
     if freq is None:
         w = _moments_weight(sr, n_fft, device=y.device)
@@ -152,6 +154,7 @@ def _moments_fused(y, sr, freq, *, n_fft, hop_length, win_length, window, center
     return (M0[0], M1[0]) if input_is_1d else (M0, M1)
 
 
+@traced("ops.spectral_bandwidth")
 def spectral_bandwidth(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -187,6 +190,7 @@ def spectral_bandwidth(
     return out if is_batched else out[0]
 
 
+@traced("ops.spectral_rolloff")
 def spectral_rolloff(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -219,6 +223,7 @@ def spectral_rolloff(
     return out if is_batched else out[0]
 
 
+@traced("ops.spectral_flatness")
 def spectral_flatness(
     y: ArrayLike | None = None,
     S: ArrayLike | None = None,
@@ -278,6 +283,7 @@ def contrast_bands(
     return bands
 
 
+@traced("ops.spectral_contrast")
 def spectral_contrast(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -319,7 +325,6 @@ def spectral_contrast(
 
     B, n_bins, F = S.shape
     zeros = S.new_zeros((B, 1, F))
-    use_kernel = dispatch.kernel_route(None, S.device)
     valleys, peaks = [], []
     for band in contrast_bands(freq_np, fmin, n_bands, quantile):
         if band is None:
@@ -332,7 +337,8 @@ def spectral_contrast(
         if n_quantile == 1:
             valley_bf = torch.amin(sub, dim=1)
             peak_bf = torch.amax(sub, dim=1)
-        elif use_kernel and select_supported(W, n_quantile, n_quantile):
+        elif dispatch.route("spectral_contrast", None, S.device,
+                            gate=select_supported(W, n_quantile, n_quantile)):
             # rows = frames of the natural layout, read in place
             valley_bf, peak_bf = quantile_extreme_means_fused(
                 sub.transpose(1, 2), n_quantile, n_quantile
@@ -355,6 +361,7 @@ def spectral_contrast(
     return out if is_batched else out[0]
 
 
+@traced("ops.zero_crossing_rate")
 def zero_crossing_rate(
     y: ArrayLike,
     frame_length: int = 2048,

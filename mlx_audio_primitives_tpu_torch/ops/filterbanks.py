@@ -20,6 +20,7 @@ import torch
 from .._config import FILTERBANK_CACHE_SIZE
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_non_negative, validate_positive
 
 ArrayLike = Any
@@ -31,6 +32,7 @@ def _unknown_formula(formula: str) -> ValueError:
     return ValueError(f"Unknown formula: '{formula}'. Supported: 'zwicker', 'traunmuller'")
 
 
+@traced("ops.hz_to_bark")
 def hz_to_bark(frequencies: ArrayLike, formula: str = "zwicker") -> np.ndarray:
     """Convert Hz to Bark (host float64 NumPy).
 
@@ -55,6 +57,7 @@ def _zwicker_derivative(f: np.ndarray) -> np.ndarray:
     return t1 + t2
 
 
+@traced("ops.bark_to_hz")
 def bark_to_hz(bark: ArrayLike, formula: str = "zwicker") -> np.ndarray:
     """Convert Bark to Hz (host float64 NumPy).
 
@@ -143,6 +146,7 @@ def _validate_band_params(n_bands, fmin, fmax, sr, name="n_bands") -> float:
     return float(fmax)
 
 
+@traced("ops.bark_filterbank")
 def bark_filterbank(
     sr: int,
     n_fft: int,
@@ -162,6 +166,7 @@ def bark_filterbank(
                                   device=dispatch.default_device(device))
 
 
+@traced("ops.linear_filterbank")
 def linear_filterbank(
     sr: int,
     n_fft: int,

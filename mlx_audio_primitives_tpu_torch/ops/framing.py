@@ -24,6 +24,7 @@ import torch
 
 from .._config import REAL_DTYPE
 from ..utils import dispatch
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive
 from ._frames import frame_signal_batched, pad_signal
 
@@ -38,6 +39,7 @@ def _as_2d(y: ArrayLike) -> tuple[torch.Tensor, bool]:
     return (y[None] if input_is_1d else y), input_is_1d
 
 
+@traced("ops.frame")
 def frame(y: ArrayLike, frame_length: int, hop_length: int, axis: int = -1) -> torch.Tensor:
     """Frame a signal into overlapping windows, ``(..., F, frame_length)``
     (a strided view of the input)."""
@@ -50,6 +52,7 @@ def frame(y: ArrayLike, frame_length: int, hop_length: int, axis: int = -1) -> t
     return frames[0] if input_is_1d else frames
 
 
+@traced("ops.rms")
 def rms(
     y: ArrayLike,
     frame_length: int = 2048,
@@ -82,6 +85,7 @@ def _normalize_zi(zi, batch_size: int, device: torch.device) -> torch.Tensor:
     return zi
 
 
+@traced("ops.preemphasis")
 def preemphasis(
     y: ArrayLike,
     coef: float = 0.97,
@@ -135,6 +139,7 @@ def _recurrence(x: torch.Tensor, coef: float) -> torch.Tensor:
     return intra.reshape(B, nb * _IIR_BLOCK)[:, :n]
 
 
+@traced("ops.deemphasis")
 def deemphasis(
     y: ArrayLike,
     coef: float = 0.97,

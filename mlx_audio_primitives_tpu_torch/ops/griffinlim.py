@@ -38,6 +38,7 @@ from .._config import COMPLEX_DTYPE, REAL_DTYPE
 from ..kernels.dft import forward_basis, inverse_basis
 from ..kernels.stft_radix import stft_fused, stft_plain
 from ..utils import dispatch
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive
 from .stft import (
     _get_padded_window,
@@ -136,6 +137,7 @@ def _griffinlim_core(
     return istft_step(rebuilt)
 
 
+@traced("ops.griffinlim")
 def griffinlim(
     S: ArrayLike,
     n_iter: int = 32,

@@ -24,6 +24,7 @@ from ..kernels.dft import forward_basis
 from ..kernels.mel_fused import melspectrogram_fused, melspectrogram_plain
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_non_negative, validate_positive
 from .stft import _as_batched, _get_padded_window, _resolve_fft_mode, _validate_stft_params
 
@@ -37,6 +38,7 @@ _MIN_LOG_MEL = (_MIN_LOG_HZ - _F_MIN) / _F_SP
 _LOGSTEP = np.log(6.4) / 27.0
 
 
+@traced("ops.hz_to_mel")
 def hz_to_mel(frequencies: ArrayLike, htk: bool = False) -> np.ndarray:
     """Convert Hz to mel (host float64 NumPy)."""
     f = np.asarray(frequencies, dtype=np.float64)
@@ -50,6 +52,7 @@ def hz_to_mel(frequencies: ArrayLike, htk: bool = False) -> np.ndarray:
         )
 
 
+@traced("ops.mel_to_hz")
 def mel_to_hz(mels: ArrayLike, htk: bool = False) -> np.ndarray:
     """Convert mel to Hz (host float64 NumPy)."""
     m = np.asarray(mels, dtype=np.float64)
@@ -98,6 +101,7 @@ def _mel_filterbank_table(
     return weights
 
 
+@traced("ops.mel_filterbank")
 def mel_filterbank(
     sr: int,
     n_fft: int,
@@ -124,6 +128,7 @@ def mel_filterbank(
                                  device=dispatch.default_device(device))
 
 
+@traced("ops.melspectrogram")
 def melspectrogram(
     y: ArrayLike,
     sr: int = 22050,
@@ -165,6 +170,7 @@ def melspectrogram(
     return out[0] if input_is_1d else out
 
 
+@traced("ops.filterbank_spectrogram")
 def filterbank_spectrogram(
     y: ArrayLike,
     win: ArrayLike,
@@ -193,12 +199,10 @@ def filterbank_spectrogram(
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
               power=float(power))
 
-    if (
-        dispatch.kernel_route(use_pallas, y.device)
-        and (fft_mode == "auto" or use_pallas is True)
-        and power in (1.0, 2.0)
-        and dispatch.radix_shape_ok(n_fft, hop_length)
-    ):
+    if dispatch.route("filterbank_spectrogram", use_pallas, y.device,
+                      fft_mode=fft_mode == "auto" or use_pallas is True,
+                      power=power in (1.0, 2.0),
+                      gate=dispatch.radix_shape_ok(n_fft, hop_length)):
         return melspectrogram_fused(y, win, fb_t, **kw)
     matmul = _resolve_fft_mode(fft_mode, n_fft) == "matmul"
     basis = forward_basis(n_fft, device=y.device) if matmul else None

@@ -26,6 +26,7 @@ import torch
 from .._config import DCT_CACHE_SIZE, REAL_DTYPE
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive
 from ._frames import pad_signal
 from .convert import power_to_db
@@ -59,6 +60,7 @@ def _dct_basis_t(n_out: int, n_in: int, norm: str | None) -> np.ndarray:
     return basis.T
 
 
+@traced("ops.dct")
 def dct(
     x: ArrayLike,
     type: int = 2,
@@ -84,6 +86,7 @@ def dct(
     return out
 
 
+@traced("ops.mfcc")
 def mfcc(
     y: ArrayLike | None = None,
     sr: int = 22050,
@@ -169,6 +172,7 @@ def _savgol_tables(width: int, polyorder: int, deriv: int, delta_t: float) -> np
 _PAD_MODES = {"nearest": "edge", "mirror": "reflect", "constant": "constant", "wrap": "wrap"}
 
 
+@traced("ops.delta")
 def delta(
     data: ArrayLike,
     width: int = 9,

@@ -39,6 +39,7 @@ from ..kernels.mel_fused import acf_fused
 from ..kernels.mel_fused import acf_lag_basis as _acf_lag_basis
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive
 from ._frames import frame_signal_batched, pad_signal
 
@@ -103,6 +104,7 @@ def _autocorrelation_chunked(y: torch.Tensor, *, max_lag: int, n_chunk: int,
     return r.to(REAL_DTYPE)
 
 
+@traced("ops.autocorrelation")
 def autocorrelation(
     y: ArrayLike,
     max_lag: int | None = None,
@@ -157,8 +159,8 @@ def _framewise_acf(
     tensor where the gate admits, else the plain route."""
     n_fft = _next_pow2(2 * frame_length - 1)
     kw = dict(frame_length=frame_length, hop_length=hop_length, lo=lo, hi=hi)
-    if (dispatch.kernel_route(None, y.device)
-            and _acf_kernel_route(n_fft, frame_length, hop_length, lo, hi)):
+    if dispatch.route("framewise_acf", None, y.device,
+                      gate=_acf_kernel_route(n_fft, frame_length, hop_length, lo, hi)):
         return _framewise_acf_fused(y, **kw)
     return _framewise_acf_plain(y, _acf_lag_basis(n_fft, lo, hi, device=y.device), **kw)
 
@@ -274,6 +276,7 @@ def _centered(y: ArrayLike, frame_length: int, center: bool, mode: str = "consta
     return y, input_is_1d
 
 
+@traced("ops.pitch_detect_acf")
 def pitch_detect_acf(
     y: ArrayLike,
     sr: int = 22050,
@@ -442,6 +445,7 @@ def yin(
     return f0[0] if input_is_1d else f0
 
 
+@traced("ops.periodicity")
 def periodicity(
     y: ArrayLike,
     sr: int = 22050,

@@ -28,6 +28,7 @@ from .._config import REAL_DTYPE
 from ..kernels.dft import irfft_len, rfft_len
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ..utils.validation import validate_positive
 from ._frames import frame_signal_batched
 
@@ -68,6 +69,7 @@ def _resample_linear_core(y: torch.Tensor, target_length: int) -> torch.Tensor:
 _POLY_TYPES = ("polyphase", "kaiser_best", "kaiser_fast")
 
 
+@traced("ops.resample")
 def resample(
     y: ArrayLike,
     orig_sr: int,
@@ -280,6 +282,7 @@ def _polyphase_core(
     return out[:, m0 : m0 + n_out]
 
 
+@traced("ops.resample_poly")
 def resample_poly(
     y: ArrayLike,
     up: int,

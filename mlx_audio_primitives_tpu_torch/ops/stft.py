@@ -45,6 +45,7 @@ from ..kernels.stft_radix import (
 )
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 from ._frames import num_frames, window_envelope
 from .windows import _ALIASES, get_window, window_host
 
@@ -152,6 +153,7 @@ def _get_padded_window(
     return win.contiguous()
 
 
+@traced("ops.stft")
 def stft(
     y: ArrayLike,
     n_fft: int = 2048,
@@ -181,11 +183,9 @@ def stft(
     fft_mode_r = _resolve_fft_mode(fft_mode, n_fft)
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
 
-    if (
-        dispatch.kernel_route(use_pallas, y.device)
-        and (fft_mode == "auto" or use_pallas is True)
-        and dispatch.radix_shape_ok(n_fft, hop_length)
-    ):
+    if dispatch.route("stft", use_pallas, y.device,
+                      fft_mode=fft_mode == "auto" or use_pallas is True,
+                      gate=dispatch.radix_shape_ok(n_fft, hop_length)):
         out = stft_fused(y, win, **kw)
     else:
         basis = forward_basis(n_fft, device=y.device) if fft_mode_r == "matmul" else None
@@ -220,13 +220,15 @@ def magnitude_spectrogram(
     y, input_is_1d = _as_batched(y, n_fft, center)
     win = _get_padded_window(window, win_length, n_fft, y.device)
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode)
-    if dispatch.kernel_route(use_pallas, y.device) and dispatch.radix_shape_ok(n_fft, hop_length):
+    if dispatch.route("magnitude_spectrogram", use_pallas, y.device,
+                      gate=dispatch.radix_shape_ok(n_fft, hop_length)):
         out = stft_magnitude_fused(y, win, **kw)
     else:
         out = stft_magnitude_plain(y, win, **kw)
     return out[0] if input_is_1d else out
 
 
+@traced("ops.istft")
 def istft(
     stft_matrix: ArrayLike,
     hop_length: int | None = None,
@@ -313,16 +315,15 @@ def _istft_tier(use_pallas: bool | None, device: torch.device, fft_mode: str, n_
     """The inverse's tier, as the JAX package picks it: 'fused' (K3) under
     the radix gate unless an explicit ``fft_mode`` pins the plain
     transforms, else 'ola' (inverse transform, then K4) within K4's gate,
-    else 'none' (the plain composition)."""
-    want = dispatch.kernel_route(use_pallas, device)
-    if (
-        want
-        and (fft_mode == "auto" or use_pallas is True)
-        and dispatch.radix_shape_ok(n_fft, hop_length)
-        and freq_bins == n_fft // 2 + 1
-    ):
+    else 'none' (the plain composition). Where K3 does not take the call,
+    the route counts it as plain (``dispatch.plain.istft.<reason>``), the
+    'ola' tier included: its inverse transform is the plain one."""
+    if dispatch.route("istft", use_pallas, device,
+                      fft_mode=fft_mode == "auto" or use_pallas is True,
+                      gate=dispatch.radix_shape_ok(n_fft, hop_length)
+                      and freq_bins == n_fft // 2 + 1):
         return "fused"
-    if want and ola_supported(n_fft, hop_length):
+    if dispatch.kernel_route(use_pallas, device) and ola_supported(n_fft, hop_length):
         return "ola"
     return "none"
 
@@ -344,17 +345,20 @@ def _istft_core(S: torch.Tensor, win: torch.Tensor, env: torch.Tensor,
     return istft_plain(S, win, env, padded_length=padded_length, basis=basis, owned=owned, **kw)
 
 
+@traced("ops.magnitude")
 def magnitude(stft_matrix: ArrayLike) -> torch.Tensor:
     """Magnitude of a complex STFT."""
     return dispatch.to_tensor(stft_matrix).abs()
 
 
+@traced("ops.phase")
 def phase(stft_matrix: ArrayLike) -> torch.Tensor:
     """Phase (radians) of a complex STFT via arctan2(imag, real)."""
     S = dispatch.to_tensor(stft_matrix)
     return torch.atan2(S.imag, S.real)
 
 
+@traced("ops.check_nola")
 def check_nola(
     window: str | ArrayLike,
     hop_length: int,

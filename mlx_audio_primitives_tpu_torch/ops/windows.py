@@ -19,6 +19,7 @@ import torch
 from .._config import REAL_DTYPE, WINDOW_CACHE_SIZE
 from ..utils import dispatch
 from ..utils.cache import table_cache
+from ..utils.profiler import traced
 
 # Generalized-cosine coefficients (Harris 1978), as in scipy.signal.windows.
 _COSINE_COEFFS: dict[str, tuple[float, ...]] = {
@@ -88,6 +89,7 @@ def _window_table(name: str, n: int, fftbins: bool, beta: float | None) -> np.nd
     return _symmetric_window_np(name, n, beta)
 
 
+@traced("ops.get_window")
 def get_window(
     window: str | tuple | torch.Tensor | np.ndarray,
     n_fft: int,

@@ -16,8 +16,10 @@ Each one remembers the cache and the arguments it came from
 from a table (K1's contraction plan) beside the table.
 As in the JAX package, every cache registers itself, so that
 :func:`clear_all_caches` empties them all (cold-cache benchmarks) and
-:func:`cache_stats` reports their hits, misses and entries, and every hit
-and miss is reported to the profiler (`utils/profiler.py`).
+:func:`cache_stats` reports their hits, misses and entries; the profiler
+(`utils/profiler.py`) reads its cache accesses from them. While the port
+records, a miss is the span ``tables.build.<name>``: the host build, the
+cast and the copy to the device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from . import profiler
 
 # Registry of every live TableCache, for clear_all_caches() / cache_stats().
 _CACHE_REGISTRY: list["TableCache"] = []
@@ -48,6 +52,7 @@ class TableCache:
         self.name = name
         self.dtype = dtype
         self._host_builder = functools.lru_cache(maxsize=maxsize)(builder)
+        self._span = f"tables.build.{name}"
         self._device_cache: dict[tuple, torch.Tensor] = {}
         self._maxsize = maxsize
         self._order: list[tuple] = []
@@ -75,11 +80,11 @@ class TableCache:
                 self._order.append(key)
             else:
                 self.misses += 1
-        self._note_profiler(hit is not None)
         if hit is not None:
             return hit
-        host = np.asarray(self._host_builder(*args)).astype(self.dtype)
-        table = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+        with profiler.span(self._span):
+            host = np.asarray(self._host_builder(*args)).astype(self.dtype)
+            table = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
         table._table_origin = (self, args)
         with self._lock:
             if key in self._device_cache:
@@ -94,15 +99,10 @@ class TableCache:
         """Return the host float64 table (tier 1 only)."""
         return self._host_builder(*args)
 
-    def _note_profiler(self, hit: bool) -> None:
-        # lazy import: the profiler imports nothing of this module
-        from . import profiler
-
-        profiler.log_cache_access(self.name, hit)
-
     def clear(self) -> None:
         """Empty both tiers and zero the counts."""
         with self._lock:
+            profiler._cache_cleared(self.name, self.hits, self.misses)
             self._host_builder.cache_clear()
             self._device_cache.clear()
             self._order.clear()

@@ -17,6 +17,10 @@ choice:
   Pallas interpret mode;
 * ``use_pallas=False`` always takes the plain composition.
 
+Each op decides by :func:`route`, which adds the shape gate and the op's
+other conditions to :func:`kernel_route` and, while the port records
+(`utils/profiler.py`), counts the route taken.
+
 ``MLX_AUDIO_TPU_DISABLE_PALLAS=1`` turns every kernel off, as it does in the
 JAX package (read once, at import, like the JAX package's ``HAS_PALLAS``).
 
@@ -38,6 +42,7 @@ import os
 import torch
 
 from .. import _config
+from . import profiler
 
 #: False when ``MLX_AUDIO_TPU_DISABLE_PALLAS=1``: no kernel is ever selected.
 KERNELS_ENABLED: bool = os.environ.get("MLX_AUDIO_TPU_DISABLE_PALLAS", "0") != "1"
@@ -76,6 +81,28 @@ def kernel_route(flag: bool | None, device: torch.device) -> bool:
     if flag is None:
         return torch.device(device).type == "cuda"
     return False
+
+
+def route(op: str, flag: bool | None, device: torch.device, **gates: bool) -> bool:
+    """Whether ``op`` takes its kernel wrapper: :func:`kernel_route` and
+    every one of ``gates`` (each named for what it checks: ``gate`` the
+    shape gate, ``power``, ``fft_mode``). While the port records, a call
+    that could take the kernel (a CUDA tensor, or ``use_pallas=True``)
+    counts ``dispatch.kernel.<op>``, or ``dispatch.plain.<op>.<reason>``
+    with the reason it did not: ``use_pallas`` where the flag or
+    ``MLX_AUDIO_TPU_DISABLE_PALLAS`` turns the kernel off, else the first
+    gate that is False."""
+    want = kernel_route(flag, device)
+    reason = None if want else "use_pallas"
+    if want:
+        for k, ok in gates.items():
+            if not ok:
+                reason = k
+                break
+    if (want or device.type == "cuda") and profiler.recording():
+        profiler.count(f"dispatch.kernel.{op}" if reason is None
+                       else f"dispatch.plain.{op}.{reason}")
+    return reason is None
 
 
 #: True unless ``MLX_AUDIO_TPU_DISABLE_PALLAS=1``: the kernels can run at
