@@ -19,7 +19,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 /usr/local/cuda). Phases, in order; any failure raises and exits non-zero:
 
 1. environment: the card, its power limit, TF32 off;
-2. build: nvcc compiles the six kernels from ``csrc/``, one process per
+2. build: nvcc compiles kernels K1-K6 from ``csrc/``, one process per
    source, all at once (timed, and each source's process); for each
    K1/K2/K2m instance, each instance of K1's fast and ACF entries and each K3
    instance (one per shape of the radix gate), ptxas's registers and spill
@@ -47,7 +47,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    lengths, K1 at column counts around its 16-column tiles; K3 on every
    shape of the radix gate, on both spectrum layouts; K5 on the default
    contrast bands and over k = 1..16 on random, tie-heavy and +-inf/NaN
-   rows, held to its unmodified twin, NaN matching NaN;
+   rows, held to its unmodified twin, NaN matching NaN; K6, the dB
+   conversion, bit for bit at the log-mel cells' shapes, at a ``ref`` whose
+   reciprocal rounds, on NaN, +inf and zeros, on an unaligned input and on a
+   transposed mel;
    ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
    and K5 at 65,537 clips; K1 at the pitch ACF's shapes, n_fft 4096, hop
    512, no centre pad, the boxcar window, 432 and 331 lag-basis columns,
@@ -66,7 +69,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    30 s and K1, K2 and K3 on warmup's 1 s clip);
 4. the public main paths on CUDA tensors, each with every launch counter
    reset just before and read just after:
-   a. log-mel (``power_to_db(melspectrogram)``) at the headline (64 x 1 s)
+   a. log-mel (``power_to_db(melspectrogram)``, K1 then K6) at the headline (64 x 1 s)
       and scale (256 x 4 s) configurations against a float64 CPU oracle,
       under ``ANALYSIS_FAST_GEMM``'s default (K1's fast entry, as on every
       public path) and set to False (its dense entry),
@@ -276,34 +279,40 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 #: set to False, on the dense entry (3xTF32)
 K1_MAIN = "mel_fused_fast_kernel"
 K1_EXACT = "mel_fused_kernel"
+#: K6, the dB conversion: once a power_to_db / amplitude_to_db call on a
+#: non-empty CUDA tensor with a scalar ref, twice with top_db (the maximum,
+#: then the floor)
+K6 = "db_fused_kernel"
 #: the kernels each public path must launch
-LOG_MEL_PATH = (K1_MAIN, K1_EXACT, "stft_kernel", "istft_kernel", "overlap_add_kernel")
-FEATURE_PATH = (K1_MAIN, "stft_mag_kernel", "select_extremes_kernel")
+LOG_MEL_PATH = (K1_MAIN, K1_EXACT, K6, "stft_kernel", "istft_kernel", "overlap_add_kernel")
+FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "select_extremes_kernel")
 #: the feature path's launches: K1 for MFCC's mel and the centroid's
-#: moments, K2m for bandwidth, rolloff, flatness and contrast, K5 for the
-#: four contrast bands that take it
-FEATURE_LAUNCHES = {K1_MAIN: 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
+#: moments, K6 twice for MFCC's dB (top_db 80), K2m for bandwidth,
+#: rolloff, flatness and contrast, K5 for the four contrast bands that take it
+FEATURE_LAUNCHES = {K1_MAIN: 2, K6: 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
 #: the rhythm-and-harmony path's launches per public call (phase 4e): K1
-#: once for onset_strength's mel (so once for beat_track of a signal),
+#: and K6 once for onset_strength's mel and its dB (so once for beat_track
+#: of a signal),
 #: once for chroma_stft's chroma weight and once for the mel PCEN takes;
 #: none for the CQT family, whose n_fft 16384 is outside the radix gate,
 #: or for tempo of an envelope
-RHYTHM_LAUNCHES = {"onset_strength": {K1_MAIN: 1}, "chroma_stft": {K1_MAIN: 1},
-                   "pcen": {K1_MAIN: 1}, "beat_track": {K1_MAIN: 1},
+RHYTHM_LAUNCHES = {"onset_strength": {K1_MAIN: 1, K6: 1}, "chroma_stft": {K1_MAIN: 1},
+                   "pcen": {K1_MAIN: 1}, "beat_track": {K1_MAIN: 1, K6: 1},
                    "cqt": {}, "chroma_cqt": {}, "tempo": {}}
 #: the effects, decomposition and streaming path's launches per public call
 #: (phase 4f; per push for the streams): K2 and K3 once each for the
 #: STFT -> op -> ISTFT effects, K2 three times for the reassignment's
 #: three windows, K2 once a push of the STFT stream and K1 once a push of
-#: the mel and chroma streams; none for the rest, which run plain torch in
-#: either package
+#: the mel and chroma streams (K6 too for the log-mel and MFCC streams' dB),
+#: K6 once for trim's and split's frame dB; none for the rest, which run
+#: plain torch in either package
 _K2_K3 = {"stft_kernel": 1, "istft_kernel": 1}
 EFFECTS_LAUNCHES = {"harmonic": _K2_K3, "percussive": _K2_K3, "time_stretch": _K2_K3,
                     "pitch_shift": _K2_K3, "reassigned_spectrogram": {"stft_kernel": 3},
-                    "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {K1_MAIN: 1},
-                    "StreamingMFCC": {K1_MAIN: 1}, "StreamingChroma": {K1_MAIN: 1},
+                    "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {K1_MAIN: 1, K6: 1},
+                    "StreamingMFCC": {K1_MAIN: 1, K6: 1}, "StreamingChroma": {K1_MAIN: 1},
                     "StreamingPCEN": {K1_MAIN: 1}, "StreamingISTFT": {}, "StreamingPitch": {},
-                    "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {}, "split": {},
+                    "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {K6: 1}, "split": {K6: 1},
                     "recurrence_matrix": {}, "nn_filter": {}, "decompose": {}}
 #: the streams of phase 4f: 30 pushes of 1 s (43 hops) at batch 64
 STREAM_CHUNK = 43 * HOP
@@ -319,8 +328,8 @@ WARMUP_SHAPES = ((SR, LONG), (1, 64))
 WARMUP_OPS = ("stft", "istft", "melspectrogram", "mfcc", "chroma_stft", "pcen")
 #: warmup's launches per layout over the six ops: K2 for stft and for
 #: istft's spectrum, K3 for istft, K1 for melspectrogram, mfcc, chroma_stft
-#: and pcen's mel
-WARMUP_LAUNCHES = {K1_MAIN: 4, "stft_kernel": 2, "istft_kernel": 1}
+#: and pcen's mel, K6 twice for mfcc's dB (top_db 80)
+WARMUP_LAUNCHES = {K1_MAIN: 4, K6: 2, "stft_kernel": 2, "istft_kernel": 1}
 #: phase 4h, parallel and training at one rank: the keyword spotter of
 #: examples/train_keyword_spotter.py (16 kHz, n_fft 512, hop 128, 40 mels,
 #: convs (16, 32), 4 classes) on 1 s clips, its steps timed at batch 32 and
@@ -349,8 +358,8 @@ CP_NET = dict(n_classes=10, d_model=64, n_heads=4, d_ff=128, n_blocks=2)
 CP_TRAIN = (32, 1722 * 128)
 CP_STEPS = 10
 #: the keyword-spotter example at its documented defaults: 60 steps of
-#: batch 32, then one evaluation batch (K1 once each)
-KWS_EXAMPLE_LAUNCHES = {K1_MAIN: 61}
+#: batch 32, then one evaluation batch (K1 and K6 once each)
+KWS_EXAMPLE_LAUNCHES = {K1_MAIN: 61, K6: 61}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -721,11 +730,13 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     kw = dict(n_fft=N_FFT, hop_length=HOP, center=True, pad_mode="constant")
     errs: dict[str, float] = {}
 
-    def run(kernel, fn, *args, **kwargs):
+    def run(kernel, fn, *args, n_launches=1, **kwargs):
         before = kernel.launches
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
-        check(kernel.launches == before + 1, f"{kernel.name}: launch counter did not rise")
+        check(kernel.launches == before + n_launches,
+              f"{kernel.name}: launch counter rose by {kernel.launches - before}, expected "
+              f"{n_launches}")
         return out
 
     # K1, both entries: headline at power 2 and 1, scale at power 2, and the
@@ -814,6 +825,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     check(got.shape == ref.shape and e <= 1e-6, "K4 disagrees with its plain twin")
     errs[k4.KERNEL.name] = e
 
+    k6_vs_plain(gen, run, errs)
     big_batch_vs_plain(gen, run, errs)
     k3_gate_sweep(gen, run, errs)
     slice_kernels_vs_plain(gen, run, errs)
@@ -880,6 +892,48 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
               f"K2 rel {e2:.3e}, K2m rel {e2m:.3e}")
         check(e2 <= 1e-5 and e2m <= 1e-5, "K2/K2m disagree with their plain twins")
     return errs
+
+
+def mel_powers(gen: torch.Generator, shape: tuple) -> torch.Tensor:
+    """Mel-like powers over 14 decades (1e-12 to 1e2), made on the card."""
+    return 10.0 ** (torch.rand(shape, generator=gen, device=gen.device) * 14.0 - 12.0)
+
+
+def k6_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's K6 checks: the dB conversion against its twin, bit for bit
+    (expected error 0.0, NaN matching NaN): the log-mel cell's 64 x 30 s x
+    128 mels with top_db 80, the bucketed cell's largest batch (508 clips of
+    4.75 s, 80 mels, 20 log10) without, a ref whose reciprocal rounds, a
+    streaming push's few frames, NaN, +inf and zeros, an input that is not
+    16-byte aligned (K6's single-float path) and a transposed mel (mapped
+    where its values lie)."""
+    from mlx_audio_primitives_tpu_torch.kernels import db_fused as k6
+
+    for shape, coef, amin, top_db, ref, special in (
+        ((64, 128, 1292), 10.0, 1e-10, 80.0, 1.0, None),
+        ((508, 80, 410), 20.0, 1e-5, None, 1.0, None),
+        ((64, 128, 1292), 10.0, 1e-10, 80.0, 2.5, None),
+        ((1, 128, 4), 20.0, 1e-5, None, 2.5, None),
+        ((8, 128, 300), 10.0, 1e-10, 80.0, 1.0, float("inf")),
+        ((8, 128, 300), 10.0, 1e-10, None, 1.0, float("nan")),
+        ((8, 128, 300), 10.0, 1e-10, 80.0, 1.0, 0.0),
+        ((4 * 128 * 97 + 1,), 10.0, 1e-10, 80.0, 1.0, "unaligned"),
+        ((64, 1292, 128), 10.0, 1e-10, 80.0, 1.0, "transposed"),
+    ):
+        S = mel_powers(gen, shape)
+        if special == "unaligned":
+            S = S[1:]
+        elif special == "transposed":
+            S = S.transpose(1, 2)
+        elif special is not None:
+            S.view(-1)[[17, S.numel() // 2, S.numel() - 1]] = special
+        got = run(k6.KERNEL, k6.to_db_fused, S, coef, ref, amin, top_db,
+                  n_launches=1 + (top_db is not None))
+        e = exact_err(got, k6.to_db_plain(S, coef, ref, amin, top_db))
+        print(f"K6 {tuple(S.shape)} coef {coef} amin {amin} top_db {top_db} ref {ref}"
+              f"{'' if special is None else f' ({special})'}: err {e:.3e} (limit 0, bit-equal)")
+        check(e == 0.0, "K6 disagrees with its plain twin")
+        errs[k6.KERNEL.name] = max(errs.get(k6.KERNEL.name, 0.0), e)
 
 
 def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> None:
@@ -3058,11 +3112,12 @@ def utils_paths(gen: torch.Generator, wav_dir: str) -> tuple[dict, dict]:
     n_batches = LOADER_FILES // PIPE_BATCH
     t0 = time.perf_counter()
     pre = counted_call(f"batch_iterator -> prefetch_to_device -> log-mel, {n_batches} x "
-                       f"({PIPE_BATCH}, {LONG})", {K1_MAIN: n_batches},
+                       f"({PIPE_BATCH}, {LONG})", {K1_MAIN: n_batches, K6: 2 * n_batches},
                        lambda: prefetched_log_mel(ap, clips), total)
     wall_p = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    syn = counted_call("the same batches copied synchronously", {K1_MAIN: n_batches},
+    syn = counted_call("the same batches copied synchronously",
+                       {K1_MAIN: n_batches, K6: 2 * n_batches},
                        lambda: synchronous_log_mel(ap, clips), {k: 0 for k in total})
     wall_s = 1e3 * (time.perf_counter() - t0)
     e_pipe = max(exact_err(a, b) for a, b in zip(pre, syn))
@@ -3365,7 +3420,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         # the sequence-parallel frontend at the feature path's size
         y = torch.randn(FEATURES, generator=gen, device=dev)
         kw = dict(sr=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, center=True)
-        lm = counted_call("logmel_time_sharded", {K1_MAIN: 1},
+        lm = counted_call("logmel_time_sharded", {K1_MAIN: 1, K6: 1},
                           lambda: PP.logmel_time_sharded(y, mesh, fft_mode="pallas", **kw), total)
         got = lm.to_local()
         check(tuple(got.shape) == (FEATURES[0], 1 + LONG // HOP, N_MELS), f"shape {got.shape}")
@@ -3431,7 +3486,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         check(max(errs.values()) <= 1e-4, "the kernel route's gradient disagrees")
         step = M.make_convnet_train_step(mesh, fe, lr=KWS_NET["lr"], **net)
         trained, losses, _ = counted_call(
-            f"keyword spotter, {KWS_STEPS} steps", {K1_MAIN: KWS_STEPS},
+            f"keyword spotter, {KWS_STEPS} steps", {K1_MAIN: KWS_STEPS, K6: KWS_STEPS},
             lambda: train(step, params, yk, lk, KWS_STEPS), total)
         print(f"keyword spotter {tuple(yk.shape)} x {KWS_STEPS} steps: losses "
               + ", ".join(f"{v:.4f}" for v in losses))
@@ -3450,7 +3505,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         ys, ls = sp_batch(gen)
         sstep = M.make_sharded_train_step(mesh, lr=SP_LR, fft_mode="pallas")
         _, slosses, _ = counted_call(
-            f"sequence-parallel trainer, {SP_STEPS} steps", {K1_MAIN: SP_STEPS},
+            f"sequence-parallel trainer, {SP_STEPS} steps", {K1_MAIN: SP_STEPS, K6: SP_STEPS},
             lambda: train(sstep, M.init_classifier_params(N_MELS, 10), ys, ls, SP_STEPS), total)
         print(f"make_sharded_train_step {tuple(ys.shape)} (n_fft {N_FFT}, hop {HOP}, {N_MELS} "
               f"mels, 10 classes, lr {SP_LR}) x {SP_STEPS}: losses "
@@ -3461,7 +3516,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         # tensor and pipeline parallelism at one rank, against the plain models
         tstep = M.make_tp_train_step(PP.make_tp_mesh(1, 1), fe, lr=KWS_NET["lr"], **net)
         _, tlosses, seen = counted_call(
-            "tensor-parallel trainer, 5 steps", {K1_MAIN: 5},
+            "tensor-parallel trainer, 5 steps", {K1_MAIN: 5, K6: 5},
             lambda: train(tstep, params, yk, lk, 5), total)
         # the data-parallel step's loss on the same parameters, step by step
         dense = [float(step(p, yk, lk)[1]) for p in seen]
@@ -3474,7 +3529,7 @@ def parallel_paths(gen: torch.Generator, card: str) -> dict:
         pps = M.make_pp_train_step(PP.make_pp_mesh(1), fe, n_classes=KWS_NET["n_classes"],
                                    n_blocks=4, width=16, n_microbatches=2, lr=KWS_NET["lr"])
         _, plosses2, seen = counted_call(
-            "pipeline-parallel trainer, 5 steps", {K1_MAIN: 5},
+            "pipeline-parallel trainer, 5 steps", {K1_MAIN: 5, K6: 5},
             lambda: train(pps, deep, yk, lk, 5), total)
         serial = [float(_nll_loss(M.deep_classifier_apply(fe, local(p), yk), lk)) for p in seen]
         e_pp = max(abs(a - b) / abs(b) for a, b in zip(plosses2, serial))
@@ -3665,7 +3720,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
         ep_mesh = PP.make_ep_mesh(1, 1)
         step = M.make_ep_train_step(ep_mesh, fe, n_classes=n_cls, lr=lr, **MOE)
         _, losses, seen = counted_call(
-            f"ep trainer, {MOE_STEPS} steps", {K1_MAIN: MOE_STEPS},
+            f"ep trainer, {MOE_STEPS} steps", {K1_MAIN: MOE_STEPS, K6: MOE_STEPS},
             lambda: train(step, params, yk, lk, MOE_STEPS), total)
 
         def dense_loss(p, frontend=fe, use_pallas=None):
@@ -3697,7 +3752,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
         tp_step = M.make_ep_tp_train_step(PP.make_moe_mesh(1, 1, 1), fe, n_classes=n_cls, lr=lr,
                                           **MOE)
         _, tlosses, seen = counted_call(
-            f"ep x tp trainer, {MOE_TP_STEPS} steps", {K1_MAIN: MOE_TP_STEPS},
+            f"ep x tp trainer, {MOE_TP_STEPS} steps", {K1_MAIN: MOE_TP_STEPS, K6: MOE_TP_STEPS},
             lambda: train(tp_step, params, yk, lk, MOE_TP_STEPS), total)
         ep_losses = [float(step(p, yk, lk)[1]) for p in seen]
         e_tp = max(abs(a - b) / abs(b) for a, b in zip(tlosses, ep_losses))
@@ -3714,7 +3769,7 @@ def models_paths(gen: torch.Generator, card: str) -> dict:
                                             seed=0, **CP_NET)
         cstep = M.make_cp_train_step(mesh, fft_mode="pallas", **CP, **CP_NET)
         new1, closses, _ = counted_call(
-            f"cp trainer, {CP_STEPS} steps", {K1_MAIN: CP_STEPS},
+            f"cp trainer, {CP_STEPS} steps", {K1_MAIN: CP_STEPS, K6: CP_STEPS},
             lambda: train(cstep, cparams, yc, lc, CP_STEPS), total)
         print(f"make_cp_train_step (1, 1) {tuple(yc.shape)} 'pallas' ({CP_TRAIN[1] // CP['hop_length']}"
               " tokens): losses " + ", ".join(f"{v:.4f}" for v in closses))
@@ -3999,6 +4054,7 @@ def times(gen: torch.Generator, card: str) -> dict:
     kernel against its twin, its library call and its bound."""
     phase(f"5. times (CUDA-event medians after warm-up, ms) on {card}")
     import mlx_audio_primitives_tpu_torch as ap
+    from mlx_audio_primitives_tpu_torch.kernels import db_fused as k6
     from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
@@ -4107,7 +4163,11 @@ def times(gen: torch.Generator, card: str) -> dict:
         # for the lo and once for the hi end
         k5.KERNEL.name: (sum(4 * Bf * R * (v.shape[-1] + 2) for v, _ in bands),
                          sum(2 * Bf * R * v.shape[-1] for v, _ in bands)),
+        # the dB conversion reads each power once and writes each dB value
+        # once; clamp, divide, log10, scale, max and floor a value
+        k6.KERNEL.name: (8 * Bf * N_MELS * R, 6 * Bf * N_MELS * R),
     }
+    mel64 = mel_powers(gen, (Bf, N_MELS, R))
     istft_lib = lambda: torch.istft(S, N_FFT, HOP, window=win, center=True, length=LONG)  # noqa: E731
     cases = (
         (k2.KERNEL.name, "30 s clip", lambda: k2.stft_fused(y_long, win, **kw),
@@ -4146,6 +4206,9 @@ def times(gen: torch.Generator, card: str) -> dict:
         (k5.KERNEL.name, "the 4 default contrast bands of 64 x 30 s",
          lambda: [k5.quantile_extreme_means_fused(v, k, k) for v, k in bands],
          lambda: [k5.quantile_extreme_means_plain(v, k, k) for v, k in bands], None),
+        (k6.KERNEL.name, f"64 x 30 s x {N_MELS} mels, top_db 80",
+         lambda: k6.to_db_fused(mel64, 10.0, 1.0, 1e-10, 80.0),
+         lambda: k6.to_db_plain(mel64, 10.0, 1.0, 1e-10, 80.0), None),
     )
     # the STFT wrapper's host cost: 1000 calls on a 1 s clip, no sync; and
     # K2's device time on one 30 s clip, where the CUDA-event time of a call

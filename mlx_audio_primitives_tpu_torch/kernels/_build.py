@@ -54,6 +54,7 @@ build_info: dict = {}
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -175,15 +176,16 @@ class Kernel:
         self._fn = None
         self._span = f"launch.{name}"
 
-    def launch(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; count the launch."""
+    def launch(self, device: torch.device, *args, launches: int = 1) -> None:
+        """Call the launcher on ``device``'s current stream; count the
+        ``launches`` kernel launches it makes."""
         if profiler.recording():
             with profiler.span(self._span):
-                self._launch(device, *args)
+                self._launch(device, *args, launches=launches)
         else:
-            self._launch(device, *args)
+            self._launch(device, *args, launches=launches)
 
-    def _launch(self, device: torch.device, *args) -> None:
+    def _launch(self, device: torch.device, *args, launches: int) -> None:
         if self._fn is None:
             fn = getattr(library(), self.launcher)
             fn.argtypes = list(self.argtypes)
@@ -194,7 +196,7 @@ class Kernel:
         if err != 0:
             msg = library().mapt_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} ({msg})")
-        self.launches += 1
+        self.launches += launches
 
 
 #: Every kernel of the port, in the order the modules register them.

@@ -7,7 +7,9 @@ the global max; ``perceptual_weighting``, ``mu_compress`` and
 ``mu_expand`` with the JAX package's semantics. The JAX package computes ``log10``/``10**x`` with its own
 polynomials (`kernels/precise_math.py`) because XLA's fast log misses the
 ~2e-6 dB contract; the port uses ``torch.log10`` and ``torch.pow``, whose
-CPU and CUDA float32 versions are accurate to a few ulp.
+CPU and CUDA float32 versions are accurate to a few ulp. On a CUDA tensor
+the dB conversion runs K6 (`kernels/db_fused.py`), one launch with the
+plain route's float32 operations in its order.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+from ..kernels.db_fused import to_db_fused, to_db_plain
 from ..utils import dispatch
 from ..utils.profiler import traced
 
@@ -26,6 +29,7 @@ ArrayLike = Any
 
 
 def _to_db(
+    op: str,
     S: ArrayLike,
     ref: float | Callable,
     coefficient: float,
@@ -35,20 +39,13 @@ def _to_db(
     if amin <= 0:
         raise ValueError(f"amin must be positive, got {amin}")
     S = dispatch.to_tensor(S, REAL_DTYPE)
-    if callable(ref):
-        ref_value = torch.as_tensor(ref(S), dtype=S.dtype, device=S.device)
-        ref_clamped = torch.clamp(ref_value, min=amin)
-    else:
-        # a scalar ref stays on the host: a device tensor made from it costs a
-        # blocking host-to-device copy, which stalls the host until the kernel
-        # that produced S has finished
-        ref_clamped = float(max(np.float32(ref), np.float32(amin)))
-    S_db = coefficient * torch.log10(torch.clamp(S, min=amin) / ref_clamped)
-    if top_db is not None:
-        if top_db <= 0:
-            raise ValueError(f"top_db must be positive, got {top_db}")
-        S_db = torch.maximum(S_db, S_db.max() - top_db)
-    return S_db
+    if top_db is not None and top_db <= 0:
+        raise ValueError(f"top_db must be positive, got {top_db}")
+    # K6 takes a scalar ref and a non-empty input of any layout; an empty one
+    # keeps the plain route's result (with top_db, its error)
+    if dispatch.route(op, None, S.device, ref=not callable(ref), nonempty=S.numel() > 0):
+        return to_db_fused(S, coefficient, ref, amin, top_db)
+    return to_db_plain(S, coefficient, ref, amin, top_db)
 
 
 @traced("ops.power_to_db")
@@ -59,7 +56,7 @@ def power_to_db(
     top_db: float | None = 80.0,
 ) -> torch.Tensor:
     """Convert a power spectrogram to dB: ``10 * log10(S / ref)``."""
-    return _to_db(S, ref, coefficient=10.0, amin=amin, top_db=top_db)
+    return _to_db("power_to_db", S, ref, coefficient=10.0, amin=amin, top_db=top_db)
 
 
 @traced("ops.db_to_power")
@@ -77,7 +74,7 @@ def amplitude_to_db(
     top_db: float | None = 80.0,
 ) -> torch.Tensor:
     """Convert an amplitude spectrogram to dB: ``20 * log10(S / ref)``."""
-    return _to_db(S, ref, coefficient=20.0, amin=amin, top_db=top_db)
+    return _to_db("amplitude_to_db", S, ref, coefficient=20.0, amin=amin, top_db=top_db)
 
 
 @traced("ops.db_to_amplitude")

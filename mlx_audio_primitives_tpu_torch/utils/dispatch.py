@@ -86,12 +86,12 @@ def kernel_route(flag: bool | None, device: torch.device) -> bool:
 def route(op: str, flag: bool | None, device: torch.device, **gates: bool) -> bool:
     """Whether ``op`` takes its kernel wrapper: :func:`kernel_route` and
     every one of ``gates`` (each named for what it checks: ``gate`` the
-    shape gate, ``power``, ``fft_mode``). While the port records, a call
-    that could take the kernel (a CUDA tensor, or ``use_pallas=True``)
-    counts ``dispatch.kernel.<op>``, or ``dispatch.plain.<op>.<reason>``
-    with the reason it did not: ``use_pallas`` where the flag or
-    ``MLX_AUDIO_TPU_DISABLE_PALLAS`` turns the kernel off, else the first
-    gate that is False."""
+    shape gate, ``power``, ``fft_mode``, ``ref``, ``nonempty``). While the
+    port records, a call that could take the kernel (a CUDA tensor, or
+    ``use_pallas=True``) counts ``dispatch.kernel.<op>``, or
+    ``dispatch.plain.<op>.<reason>`` with the reason it did not:
+    ``use_pallas`` where the flag or ``MLX_AUDIO_TPU_DISABLE_PALLAS`` turns
+    the kernel off, else the first gate that is False."""
     want = kernel_route(flag, device)
     reason = None if want else "use_pallas"
     if want:

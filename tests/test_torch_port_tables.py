@@ -19,6 +19,7 @@ from torch_port_util import launch_counts, max_rel, same_bits, signals
 import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_table
+from mlx_audio_primitives_tpu_torch.kernels.db_fused import to_db_fused
 from mlx_audio_primitives_tpu_torch.kernels.mel_fused import acf_fused, melspectrogram_fused
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
 from mlx_audio_primitives_tpu_torch.ops.mel import filterbank_spectrogram
@@ -207,7 +208,7 @@ def test_cpu_calls_launch_nothing():
     before = launch_counts()
     assert set(before) == {"mel_fused_kernel", "mel_fused_fast_kernel", "mel_fused_acf_kernel",
                            "stft_kernel", "stft_mag_kernel", "istft_kernel", "overlap_add_kernel",
-                           "select_extremes_kernel"}
+                           "select_extremes_kernel", "db_fused_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
     tap.istft(S, hop_length=128, use_pallas=True)
@@ -216,6 +217,8 @@ def test_cpu_calls_launch_nothing():
     quantile_extreme_means_fused(mag.transpose(1, 2), 3, 3)
     tap.spectral_centroid(y, n_fft=512, hop_length=128)
     tap.spectral_contrast(y, n_fft=512, hop_length=128)
+    tap.power_to_db(mag)
+    to_db_fused(mag, 20.0, 1.0, 1e-5, None)
     acf_fused(torch.from_numpy(signals(4, (1, 4096))), torch.ones(1024), n_fft=1024,
               hop_length=128, lo=1, hi=300)
     for fast in (True, False):
