@@ -20,7 +20,9 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 
 1. environment: the card, its power limit, TF32 off;
 2. build: nvcc compiles kernels K1-K6 from ``csrc/``, one process per
-   source, all at once (timed, and each source's process); for each
+   source, all at once (timed, and each source's process); K1's
+   mixed-radix entry's (K1m's) registers and spill bytes (a spill fails
+   the run); for each
    K1/K2/K2m instance, each instance of K1's fast and ACF entries and each K3
    instance (one per shape of the radix gate), ptxas's registers and spill
    bytes (a spill fails the run; for K3 also a stack frame), its threads,
@@ -50,7 +52,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    rows, held to its unmodified twin, NaN matching NaN; K6, the dB
    conversion, bit for bit at the log-mel cells' shapes, at a ``ref`` whose
    reciprocal rounds, on NaN, +inf and zeros, on an unaligned input and on a
-   transposed mel;
+   transposed mel; at Whisper large-v3's batch (64 x 30 s at 16 kHz, n_fft
+   400, hop 160, 128 mels), K1m within 2e-5 of max of its twin and K6's
+   per-item form (a floor per clip, ``/ 40 + 1``) on the mel's
+   ``[..., :-1]`` view bit for bit its twin, also with NaN and +inf;
    ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
    and K5 at 65,537 clips; K1 at the pitch ACF's shapes, n_fft 4096, hop
    512, no centre pad, the boxcar window, 432 and 331 lag-basis columns,
@@ -74,7 +79,10 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       under ``ANALYSIS_FAST_GEMM``'s default (K1's fast entry, as on every
       public path) and set to False (its dense entry),
       the 30 s ``stft`` -> ``istft`` round trip, an ``istft`` at hop 441
-      (the overlap-add tier), and one gradient;
+      (the overlap-add tier), and one gradient; then Whisper large-v3's
+      front end (``whisper_v3_logmel()``) on 64 x 30 s at 16 kHz (K1m once,
+      K6's per-item form twice) against a float64 oracle of Whisper's
+      ``log_mel_spectrogram``;
    b. the spectral-feature path of a genre-tagging front end on 64 clips of
       30 s at 22,050 Hz (n_fft 2048, hop 512): MFCC (20) with deltas of
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
@@ -188,7 +196,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    ``torch.stft``); each kernel's bound from the bytes and operations of
    its shapes (K1's contraction as three TF32 or bf16 tensor-core
    products of the dense weight: both entries' times at scale, 64 x 30 s
-   and 12 columns, and the blocks the fast entry's plan contracts), timed
+   and 12 columns, and the blocks the fast entry's plan contracts; K1m's
+   and K6's per-item form's at Whisper's batch, K1m's device time too), timed
    plain, library, kernel, kernel, library, plain; the STFT wrapper's host
    time per call; device times of K2 and of ``torch.stft`` on one 30 s
    clip and at 64 x 30 s, of K2m, of K1 beside K2m on the same clips
@@ -283,6 +292,16 @@ K1_EXACT = "mel_fused_kernel"
 #: non-empty CUDA tensor with a scalar ref, twice with top_db (the maximum,
 #: then the floor)
 K6 = "db_fused_kernel"
+#: Whisper large-v3's front end (``models/presets.py::whisper_v3_logmel``):
+#: a batch of 64 windows of 30 s at 16 kHz, n_fft 400 at hop 160, 128 Slaney
+#: mels to 8 kHz; K1's mixed-radix entry (K1m) once, K6's per-item form
+#: twice (each clip's maximum, then the floor and ``/ 40 + 1``)
+K1M = "mel_fused_mixed_kernel"
+K6_ITEM = "db_item_kernel"
+WHISPER = (64, 480_000)
+WHISPER_SR = 16000
+WHISPER_KW = dict(n_fft=400, hop_length=160, center=True, pad_mode="reflect", power=2.0)
+WHISPER_LAUNCHES = {K1M: 1, K6_ITEM: 2}
 #: the kernels each public path must launch
 LOG_MEL_PATH = (K1_MAIN, K1_EXACT, K6, "stft_kernel", "istft_kernel", "overlap_add_kernel")
 FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "select_extremes_kernel")
@@ -516,6 +535,7 @@ def build() -> None:
         if not k5_entry and re.search(r"Function properties|registers|spill", ln):
             print("  ptxas:", ln.strip())
     fft_occupancy(log)
+    k1m_instance(log)
     k5_instances(log)
     k5_sass()
     # the host table library and WAV codec: one g++ call, or a silent
@@ -527,6 +547,26 @@ def build() -> None:
     print(f"native table library and WAV codec: {time.perf_counter() - t0:.2f} s "
           f"(g++ {_native.build_info.get('seconds', 0.0):.2f} s) at {_native.build_info.get('path')}")
     check(ok, f"the native library did not load: {_native.build_info.get('error')}")
+
+
+def k1m_instance(log: str) -> None:
+    """K1m's instance (n_fft 400): ptxas's registers and spill bytes. Fails
+    on a spill."""
+    regs = spill = None
+    entry = False
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            entry = f"{K1M}ILi400E" in ln
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            regs, entry = int(m.group(1)), False
+    check(regs is not None and spill is not None, f"ptxas reported no {K1M} instance at n_fft 400")
+    print(f"  {K1M} n_fft 400: {regs} registers, {spill} bytes spilled")
+    check(spill == 0, f"{K1M} spills at n_fft 400")
 
 
 def k5_instances(log: str) -> None:
@@ -826,6 +866,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     errs[k4.KERNEL.name] = e
 
     k6_vs_plain(gen, run, errs)
+    whisper_kernels_vs_plain(gen, run, errs)
     big_batch_vs_plain(gen, run, errs)
     k3_gate_sweep(gen, run, errs)
     slice_kernels_vs_plain(gen, run, errs)
@@ -934,6 +975,45 @@ def k6_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
               f"{'' if special is None else f' ({special})'}: err {e:.3e} (limit 0, bit-equal)")
         check(e == 0.0, "K6 disagrees with its plain twin")
         errs[k6.KERNEL.name] = max(errs.get(k6.KERNEL.name, 0.0), e)
+
+
+def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's checks at Whisper large-v3's batch (``WHISPER``, n_fft 400,
+    hop 160, reflect pad, the 128-mel Slaney table to 8 kHz): K1m within
+    2e-5 of max of its twin (the fast entry's class: the twin's passes round
+    in another order, and a power's bf16 split can move by one step), then
+    K6's per-item form on the mel's ``[..., :-1]`` view, as the front end
+    calls it (top_db 80, ``/ 40 + 1``), bit for bit its twin, also with NaN
+    and +inf in three clips."""
+    from mlx_audio_primitives_tpu_torch.kernels import db_fused as k6
+    from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
+    from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
+
+    dev = torch.device("cuda", 0)
+    y = torch.randn(WHISPER, generator=gen, device=dev)
+    win = torch.hann_window(WHISPER_KW["n_fft"], periodic=True, device=dev)
+    fb_t = mel_filterbank(WHISPER_SR, WHISPER_KW["n_fft"], N_MELS, 0.0, 8000.0, device=dev).t()
+    mel = run(k1.KERNEL_MIXED, k1.melspectrogram_fused_mixed, y, win, fb_t, **WHISPER_KW)
+    ref = k1.melspectrogram_mixed_plain(y, win, fb_t, **WHISPER_KW)
+    e = rel_err(mel, ref)
+    print(f"K1m {tuple(y.shape)} n_fft 400 hop 160 reflect -> {tuple(mel.shape)}: rel err "
+          f"{e:.3e} (limit 2e-5)")
+    check(mel.shape == ref.shape == (WHISPER[0], N_MELS, 1 + WHISPER[1] // 160) and e <= 2e-5,
+          "K1m disagrees with its plain twin")
+    errs[K1M] = abs_err(mel, ref)
+    del ref
+    special = mel.clone()
+    special[3, 5, 7], special[9, 100, mel.shape[-1] // 2], special[-1, -1, -2] = (
+        float("nan"), float("inf"), float("inf"))
+    kw = dict(per_item=True, scale=1.0 / 40.0, offset=1.0)
+    for label, S in (("the mel's [..., :-1]", mel[..., :-1]),
+                     ("with NaN and +inf", special[..., :-1])):
+        got = run(k6.KERNEL_ITEM, k6.to_db_fused, S, 10.0, 1.0, 1e-10, 80.0, n_launches=2, **kw)
+        e = exact_err(got, k6.to_db_plain(S, 10.0, 1.0, 1e-10, 80.0, **kw))
+        print(f"K6 per item {tuple(S.shape)}, {label}, top_db 80, / 40 + 1: err {e:.3e} "
+              f"(limit 0, bit-equal)")
+        check(e == 0.0 and got.is_contiguous(), "K6's per-item form disagrees with its plain twin")
+        errs[K6_ITEM] = max(errs.get(K6_ITEM, 0.0), e)
 
 
 def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> None:
@@ -1349,7 +1429,40 @@ def main_path(gen: torch.Generator) -> dict:
     e_g = rel_err(yg.grad, yp.grad)
     print(f"gradient (2, {SR}): kernel path vs plain path rel err {e_g:.3e} (limit 1e-4)")
     check(e_g <= 1e-4, "gradient disagrees")
+
+    # Whisper large-v3's front end, counters reset just before its call
+    from mlx_audio_primitives_tpu_torch.models.presets import whisper_v3_logmel
+
+    yw = torch.randn(WHISPER, generator=gen, device=dev)
+    front = whisper_v3_logmel()
+    feats = counted_call("whisper_v3_logmel", WHISPER_LAUNCHES, lambda: front(yw), launches)
+    e_w = abs_err(feats, whisper_oracle(yw))
+    print(f"whisper_v3_logmel {tuple(yw.shape)} -> {tuple(feats.shape)}: abs err vs f64 oracle "
+          f"{e_w:.3e} in Whisper's units (limit 2e-4)")
+    check(feats.shape == (WHISPER[0], N_MELS, 3000) and e_w <= 2e-4,
+          "whisper_v3_logmel misses its contract")
     return launches
+
+
+def whisper_oracle(y: torch.Tensor) -> torch.Tensor:
+    """Whisper's ``log_mel_spectrogram`` in float64 on ``y``'s device:
+    ``torch.stft`` with a periodic Hann window, centred with a reflect pad;
+    ``|X|^2`` without the last frame; the 128-mel Slaney table to 8 kHz
+    (host float64); ``log10(max(mel, 1e-10))`` floored 8 below each clip's
+    maximum; ``(x + 4) / 4``."""
+    from mlx_audio_primitives_tpu_torch.ops.mel import _mel_filterbank_table
+
+    n_fft, hop = WHISPER_KW["n_fft"], WHISPER_KW["hop_length"]
+    win = torch.hann_window(n_fft, periodic=True, dtype=torch.float64, device=y.device)
+    X = torch.stft(y.double(), n_fft, hop, window=win, center=True, pad_mode="reflect",
+                   return_complex=True)
+    p = X[..., :-1].abs() ** 2
+    del X
+    fb = torch.from_numpy(_mel_filterbank_table.host(WHISPER_SR, n_fft, N_MELS, 0.0, 8000.0, False,
+                                                     "slaney")).to(y.device)
+    L = torch.log10(torch.clamp(torch.matmul(fb, p), min=1e-10))
+    L = torch.maximum(L, L.amax(dim=(-2, -1), keepdim=True) - 8.0)
+    return (L + 4.0) / 4.0
 
 
 def feature_set(ap, y: torch.Tensor) -> dict:
@@ -4142,6 +4255,11 @@ def times(gen: torch.Generator, card: str) -> dict:
     # operations of each kernel's function at its shape
     F30 = S.shape[-1]
     Bf, Lf = FEATURES
+    Bw, Lw = WHISPER
+    Fw = 1 + Lw // WHISPER_KW["hop_length"]
+    y_wh = torch.randn(WHISPER, generator=gen, device=dev)
+    win_wh = torch.hann_window(400, periodic=True, device=dev)
+    fb_wh = mel_filterbank(WHISPER_SR, 400, N_MELS, 0.0, 8000.0, device=dev).t()
     R = 1 + Lf // HOP
     F441 = frames.shape[1]
     fft_frame = N_FFT + _rfft_flops(N_FFT)  # window, then the transform
@@ -4166,8 +4284,18 @@ def times(gen: torch.Generator, card: str) -> dict:
         # the dB conversion reads each power once and writes each dB value
         # once; clamp, divide, log10, scale, max and floor a value
         k6.KERNEL.name: (8 * Bf * N_MELS * R, 6 * Bf * N_MELS * R),
+        # K1m: the audio, window, weight and mel once; the window, the real
+        # FFT and the powers in FP32 (its three bf16 products: k1m_products)
+        K1M: (4 * (Bw * Lw + 400 + 201 * N_MELS + Bw * N_MELS * Fw),
+              Bw * Fw * (400 + _rfft_flops(400) + 3 * 201)),
+        # K6's per-item form as the front end calls it, on the mel less its
+        # last frame: the same operations and the affine's two a value
+        K6_ITEM: (8 * Bw * N_MELS * (Fw - 1), 8 * Bw * N_MELS * (Fw - 1)),
     }
+    k1m_products = 3 * Bw * Fw * 2 * 201 * N_MELS
     mel64 = mel_powers(gen, (Bf, N_MELS, R))
+    mel_wh = mel_powers(gen, (Bw, N_MELS, Fw))[..., :-1]
+    item_kw = dict(per_item=True, scale=1.0 / 40.0, offset=1.0)
     istft_lib = lambda: torch.istft(S, N_FFT, HOP, window=win, center=True, length=LONG)  # noqa: E731
     cases = (
         (k2.KERNEL.name, "30 s clip", lambda: k2.stft_fused(y_long, win, **kw),
@@ -4209,6 +4337,12 @@ def times(gen: torch.Generator, card: str) -> dict:
         (k6.KERNEL.name, f"64 x 30 s x {N_MELS} mels, top_db 80",
          lambda: k6.to_db_fused(mel64, 10.0, 1.0, 1e-10, 80.0),
          lambda: k6.to_db_plain(mel64, 10.0, 1.0, 1e-10, 80.0), None),
+        (K1M, "Whisper's 64 x 30 s at 16 kHz, n_fft 400, hop 160, 128 mels",
+         lambda: k1.melspectrogram_fused_mixed(y_wh, win_wh, fb_wh, **WHISPER_KW),
+         lambda: k1.melspectrogram_mixed_plain(y_wh, win_wh, fb_wh, **WHISPER_KW), None),
+        (K6_ITEM, f"the [..., :-1] view of Whisper's 64 x {N_MELS} x {Fw} mel, top_db 80, / 40 + 1",
+         lambda: k6.to_db_fused(mel_wh, 10.0, 1.0, 1e-10, 80.0, **item_kw),
+         lambda: k6.to_db_plain(mel_wh, 10.0, 1.0, 1e-10, 80.0, **item_kw), None),
     )
     # the STFT wrapper's host cost: 1000 calls on a 1 s clip, no sync; and
     # K2's device time on one 30 s clip, where the CUDA-event time of a call
@@ -4241,6 +4375,10 @@ def times(gen: torch.Generator, card: str) -> dict:
     # K1's two entries (the kernels line takes the scale configuration's)
     out = k1_times("scale (256, 88200)", y_scale, win, fb_t, 20)
     k1_times("64 x 30 s", y_feat, win, fb_t, 5)
+    ms = kernel_device_ms(lambda: k1.melspectrogram_fused_mixed(y_wh, win_wh, fb_wh, **WHISPER_KW),
+                          K1M, 5)
+    print(f"{K1M} device time, Whisper's 64 x 30 s at 16 kHz (torch.profiler, 5 calls): "
+          f"{ms:.4f} ms, bound {_bound(*work[K1M], bf16_ops=k1m_products)[0]:.4f} ms")
     for name, shape, kern, twin, lib in cases:
         # in turns, so that a slow spell of the shared host falls on all three
         p_a = cuda_ms(twin)
@@ -4249,7 +4387,8 @@ def times(gen: torch.Generator, card: str) -> dict:
         l_b = cuda_ms(lib) if lib is not None else None
         p_b = cuda_ms(twin)
         lib_ms = statistics.median([l_a, l_b]) if lib is not None else None
-        bound_ms, bound_by = _bound(*(work.get(name) or work[name.split("[")[0]]))
+        bound_ms, bound_by = _bound(*(work.get(name) or work[name.split("[")[0]]),
+                                    bf16_ops=k1m_products if name == K1M else 0.0)
         print(f"{name} at {shape}: kernel {k_a:.4f} / {k_b:.4f}, plain {p_a:.4f} / {p_b:.4f}, "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}, "
               f"bound {bound_ms:.4f} ({bound_by})")

@@ -46,6 +46,19 @@
 // loads and stores in the floor pass saved 6%. Variants that kept 70% of
 // the input in shared memory across a grid barrier or skipped the max
 // pass's log10f where a value cannot hold the maximum read 0.048-0.051 ms.
+//
+// The per-item form (db_item_launch; Whisper's log-mel, where each clip of a
+// batch is floored at its own maximum less top_db, so that a clip's features
+// do not depend on its batch-mates): items of rows x cols values, rows a
+// stride apart and each row's values neighbours (a [..., :-1] slice of a
+// (B, n_mels, F) mel is read in place), and out = v * scale + offset with v
+// the floored dB value, written dense (items, rows, cols). Each item's
+// values are cut into equal chunks, one a block; db_item_max_kernel reduces
+// a chunk's maximum into its slot, and db_item_kernel reduces the slots of
+// its item and walks its chunk (the blocks in reverse, so that the items the
+// first launch read last come first, where L2 may still hold them), with
+// the plain route's operations: scale and offset as a product and a sum,
+// each rounded (no FMA).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -158,6 +171,74 @@ db_fused_kernel(const float* __restrict__ s, float* __restrict__ out, long long 
   }
 }
 
+// The per-item form. Chunk c of bpi of an item of n values: [n c / bpi,
+// n (c + 1) / bpi), walked row by row, a row's values four a thread in
+// flight; fn(value, its index in the item) for each. Indices within an item
+// are 32-bit (the launcher holds an item to INT32_MAX values): at 32
+// registers a thread, 64-bit ones spilled.
+template <typename Fn>
+__device__ __forceinline__ void walk_chunk(int n, int c, int bpi, int cols, long long s_row,
+                                           const float* s, bool stream, Fn&& fn) {
+  const int e0 = static_cast<int>(static_cast<long long>(n) * c / bpi);
+  const int e1 = static_cast<int>(static_cast<long long>(n) * (c + 1) / bpi);
+  for (int r = e0 / cols; r < (e1 + cols - 1) / cols; ++r) {
+    const int base = r * cols;
+    const int c0 = e0 > base ? e0 - base : 0, c1 = e1 - base < cols ? e1 - base : cols;
+    const float* row = s + r * s_row;
+    int x = c0 + threadIdx.x;
+    for (; x + 3 * kThreads < c1; x += 4 * kThreads) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = stream ? __ldcs(row + x + j * kThreads) : row[x + j * kThreads];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fn(v[j], base + x + j * kThreads);
+    }
+    for (; x < c1; x += kThreads) fn(stream ? __ldcs(row + x) : row[x], base + x);
+  }
+}
+
+// The maximum of the dB values of chunk blockIdx.x % bpi of item
+// blockIdx.x / bpi into slot[blockIdx.x]
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+db_item_max_kernel(const float* __restrict__ s, int n, int cols, long long s_item,
+                   long long s_row, int bpi, float amin, float inv, float coef,
+                   float* __restrict__ slot) {
+  const int b = blockIdx.x / bpi;
+  float m = -INFINITY;
+  walk_chunk(n, blockIdx.x % bpi, bpi, cols, s_row, s + b * s_item, false,
+             [&](float v, int) { m = nan_max(m, db_value(v, amin, inv, coef)); });
+  m = block_max(m);
+  if (threadIdx.x == 0) slot[blockIdx.x] = m;
+}
+
+// out = maximum(dB, thr) * scale + offset over the chunk, the blocks from
+// the last; TOP_DB: thr is the maximum of the item's bpi slots less top_db,
+// else -inf
+template <bool TOP_DB>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+db_item_kernel(const float* __restrict__ s, float* __restrict__ out, int n, int cols,
+               long long s_item, long long s_row, int bpi, float amin, float inv, float coef,
+               float top_db, float scale, float offset, const float* __restrict__ slot) {
+  const int x = gridDim.x - 1 - blockIdx.x;
+  const int b = x / bpi;
+  float thr = -INFINITY;
+  if constexpr (TOP_DB) {
+    float m = -INFINITY;
+    for (int i = threadIdx.x; i < bpi; i += kThreads) m = nan_max(m, slot[b * bpi + i]);
+    m = block_max(m);
+    __shared__ float block_thr;
+    if (threadIdx.x == 0) block_thr = __fsub_rn(m, top_db);
+    __syncthreads();
+    thr = block_thr;
+  }
+  float* o = out + static_cast<long long>(b) * n;
+  walk_chunk(n, x % bpi, bpi, cols, s_row, s + b * s_item, true,
+             [&](float v, int at) {
+               const float d = floor_at(db_value(v, amin, inv, coef), thr);
+               __stcs(o + at, __fadd_rn(__fmul_rn(d, scale), offset));
+             });
+}
+
 }  // namespace
 
 // The workspace slots a launch on `device` may use (one float each): the
@@ -205,6 +286,48 @@ extern "C" int db_fused_launch(const float* s, float* out, long long n, float am
       db_fused_kernel<4, false><<<grid, block, 0, st>>>(s, out, n, amin, inv, coef, 0.f, slot);
     else
       db_fused_kernel<1, false><<<grid, block, 0, st>>>(s, out, n, amin, inv, coef, 0.f, slot);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's per-item form over items of rows x cols values at s (item b, row r,
+// column c at s + b s_item + r s_row + c), the result dense (items, rows,
+// cols) at out: out = maximum(dB, its item's maximum less top_db) * scale +
+// offset with has_top_db (db_item_max_kernel into slot, then db_item_kernel),
+// dB * scale + offset without (db_item_kernel alone), on the stream. slot
+// holds n_slot floats, at least the larger of db_fused_slots() and items; an
+// item holds at most INT32_MAX values.
+extern "C" int db_item_launch(const float* s, float* out, long long items, long long rows,
+                              long long cols, long long s_item, long long s_row, float amin,
+                              float inv, float coef, int has_top_db, float top_db, float scale,
+                              float offset, float* slot, long long n_slot, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (items <= 0 || rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int slots = 0;
+  err = static_cast<cudaError_t>(db_fused_slots(device, &slots));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // chunks an item: the grid near one resident wave, a chunk at least 1024
+  // values
+  const long long n = rows * cols, per_block = 4LL * kThreads;
+  long long bpi = slots / items;
+  if (bpi > (n + per_block - 1) / per_block) bpi = (n + per_block - 1) / per_block;
+  if (bpi < 1) bpi = 1;
+  if (n > INT32_MAX || items * bpi > n_slot || items * bpi > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(items * bpi)), block(kThreads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int c = static_cast<int>(bpi), n32 = static_cast<int>(n), w = static_cast<int>(cols);
+  if (has_top_db) {
+    db_item_max_kernel<<<grid, block, 0, st>>>(s, n32, w, s_item, s_row, c, amin, inv, coef, slot);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    db_item_kernel<true><<<grid, block, 0, st>>>(s, out, n32, w, s_item, s_row, c, amin, inv, coef,
+                                                 top_db, scale, offset, slot);
+  } else {
+    db_item_kernel<false><<<grid, block, 0, st>>>(s, out, n32, w, s_item, s_row, c, amin, inv,
+                                                  coef, 0.f, scale, offset, slot);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -475,4 +475,129 @@ static __device__ __forceinline__ void first_pass(float2 (&v)[kRegPoints], const
   }
 }
 
+// ---------------------------------------------------------------------------
+// Mixed-radix passes (K1's mixed-radix entry, csrc/mel_fused_mixed.cu): the
+// complex FFT of M = 2^a * 5^b points as in-place decimation-in-frequency
+// passes, the radix-5 passes first, then the power of two in radix-8
+// passes, the first of which takes what is left (radix 2 or 4): M = 200 is
+// 5, 5, 8. Pass p reads its points at stride S_p = M / (R_0 ... R_p),
+// transforms them (natural order in and out) and multiplies output q of the
+// butterfly at offset i < S_p by W_{R_p S_p}^{i q}; after the last pass bin
+// k = q_0 + R_0 q_1 + R_0 R_1 q_2 + ... sits at q_0 S_0 + q_1 S_1 + ...
+// (mixed_pos). kernels/mel_fused.py::mixed_fft runs the same passes in torch.
+static __host__ __device__ constexpr int mixed_fives(int m) {
+  int b = 0;
+  while (m % 5 == 0) {
+    m /= 5;
+    ++b;
+  }
+  return b;
+}
+
+static __host__ __device__ constexpr int mixed_log2(int m) {
+  while (m % 5 == 0) m /= 5;
+  int l = 0;
+  while (m > 1) {
+    m >>= 1;
+    ++l;
+  }
+  return l;
+}
+
+static __host__ __device__ constexpr int mixed_passes(int m) {
+  return mixed_fives(m) + (mixed_log2(m) + 2) / 3;
+}
+
+static __host__ __device__ constexpr int mixed_radix(int m, int p) {
+  return p < mixed_fives(m)    ? 5
+         : p > mixed_fives(m) ? 8
+                              : 1 << (mixed_log2(m) - 3 * ((mixed_log2(m) + 2) / 3 - 1));
+}
+
+static __host__ __device__ constexpr int mixed_stride(int m, int p) {
+  int s = m;
+  for (int q = 0; q <= p; ++q) s /= mixed_radix(m, q);
+  return s;
+}
+
+static __host__ __device__ constexpr int mixed_pos(int m, int k) {
+  int pos = 0;
+  for (int p = 0; p < mixed_passes(m); ++p) {
+    pos += (k % mixed_radix(m, p)) * mixed_stride(m, p);
+    k /= mixed_radix(m, p);
+  }
+  return pos;
+}
+
+// The twiddles of pass p, W_{R S}^{i q} for q = 1..R-1 and i < S, staged as
+// table[(q-1)*S + i] at offset mixed_tw_offset(m, p) (none for the last
+// pass, whose stride is 1)
+static __host__ __device__ constexpr int mixed_tw_size(int m, int p) {
+  return mixed_stride(m, p) > 1 ? (mixed_radix(m, p) - 1) * mixed_stride(m, p) : 0;
+}
+
+static __host__ __device__ constexpr int mixed_tw_offset(int m, int p) {
+  int o = 0;
+  for (int q = 0; q < p; ++q) o += mixed_tw_size(m, q);
+  return o;
+}
+
+// Stage every pass's table from the host table tw_host (W_N^e, e = 0..M)
+// (threads tid of nt)
+template <int M>
+static __device__ __forceinline__ void stage_mixed_twiddles(float2* twp,
+                                                            const float2* __restrict__ tw_host,
+                                                            int tid, int nt) {
+  constexpr int P = mixed_passes(M);
+  for (int x = tid; x < mixed_tw_offset(M, P); x += nt) {
+    int p = 0;
+    while (x >= mixed_tw_offset(M, p + 1)) ++p;
+    const int s = mixed_stride(M, p), e = x - mixed_tw_offset(M, p);
+    twp[x] = w_m_from_host(tw_host, (e % s) * (e / s + 1) * (M / (mixed_radix(M, p) * s)), M);
+  }
+}
+
+// In-register DFT of the 5 points v[O .. O+4], natural order in and out
+// (cos and sin of 2 pi / 5 and 4 pi / 5, float64 values rounded once)
+template <int O>
+static __device__ __forceinline__ void dft5(float2 (&v)[kRegPoints]) {
+  constexpr float c1 = 0.30901699437494742f, c2 = -0.80901699437494742f,
+                  s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;
+  const float2 x0 = v[O];
+  const float2 t1 = cadd(v[O + 1], v[O + 4]), t2 = cadd(v[O + 2], v[O + 3]);
+  const float2 t3 = csub(v[O + 1], v[O + 4]), t4 = csub(v[O + 2], v[O + 3]);
+  const float2 a1 = make_float2(x0.x + c1 * t1.x + c2 * t2.x, x0.y + c1 * t1.y + c2 * t2.y);
+  const float2 a2 = make_float2(x0.x + c2 * t1.x + c1 * t2.x, x0.y + c2 * t1.y + c1 * t2.y);
+  const float2 b1 = make_float2(s1 * t3.x + s2 * t4.x, s1 * t3.y + s2 * t4.y);
+  const float2 b2 = make_float2(s2 * t3.x - s1 * t4.x, s2 * t3.y - s1 * t4.y);
+  v[O] = cadd(x0, cadd(t1, t2));
+  v[O + 1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+  v[O + 4] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
+  v[O + 2] = make_float2(a2.x + b2.y, a2.y - b2.x);  // a2 - i b2
+  v[O + 3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
+}
+
+// The radix-R DFT of a mixed pass on v[O .. O+R-1]
+template <int R, int O>
+static __device__ __forceinline__ void mixed_dft(float2 (&v)[kRegPoints]) {
+  static_assert(R == 2 || R == 4 || R == 5 || R == 8, "mixed passes are radix 2, 4, 5 or 8");
+  if constexpr (R == 5)
+    dft5<O>(v);
+  else
+    dft_regs<R == 8 ? 3 : R == 4 ? 2 : 1, O>(v);
+}
+
+// Outputs q = 1..R-1 of the butterfly at offset i of pass P times the
+// pass's twiddles
+template <int M, int P>
+static __device__ __forceinline__ void mixed_twiddle(float2 (&v)[kRegPoints], const float2* twp,
+                                                     int i) {
+  constexpr int R = mixed_radix(M, P), S = mixed_stride(M, P);
+  if constexpr (S > 1) {
+    const float2* t = twp + mixed_tw_offset(M, P) + i;
+#pragma unroll
+    for (int q = 1; q < R; ++q) v[q] = cmul(v[q], t[(q - 1) * S]);
+  }
+}
+
 }  // namespace mapt

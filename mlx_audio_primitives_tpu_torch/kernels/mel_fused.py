@@ -68,6 +68,20 @@ the passes leave them.
 It reads no weight: at n_fft 4096 with 432 lags the dense contraction read
 the 3.5 MB basis from L2 once per 4-frame tile. Its bound is the two FFTs'
 FP32 operations.
+
+The mixed-radix entry, K1m (``mel_fused_mixed_kernel``,
+`csrc/mel_fused_mixed.cu`, :func:`melspectrogram_fused_mixed`). K1 at an
+n_fft off the radix gate, at any hop from n_fft / 8 to n_fft
+(`utils/dispatch.py::mixed_shape_ok`; Whisper's 400 at hop 160, which does
+not divide it). Tiles of 32 frames read from one staged segment at offsets of
+the hop; the real FFT as the complex FFT of n_fft / 2 packed points in
+radix-5 and radix-8 passes (:func:`mixed_fft`), FP32, through shared memory;
+the power rows as bf16 hi and lo; and the fast entry's contraction from the
+same plan (:func:`band_plan_host`; a W given per call is packed on its device
+by :func:`device_plan`). It has the fast entry's precision and no exact mode,
+so the port's gate admits it only while ``_config.ANALYSIS_FAST_GEMM`` is on.
+Its plain twin, :func:`melspectrogram_mixed_plain`, runs the same passes in
+torch; the backward is the exact plain composition's.
 """
 
 from __future__ import annotations
@@ -81,7 +95,7 @@ import torch
 from .. import _config
 from ..ops._frames import windowed_frames
 from ..utils.cache import TableCache, table_cache, table_origin
-from ..utils.dispatch import on_cuda, radix_shape_ok
+from ..utils.dispatch import MIXED_N_FFTS, mixed_shape_ok, on_cuda, radix_shape_ok
 from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
@@ -107,6 +121,15 @@ KERNEL_ACF = register(Kernel(
     "mel_fused_acf_kernel", "mel_fused_acf_launch",
     (P, I64, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
+    replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
+))
+
+#: K1m: the same pallas_call at an n_fft off the radix gate (the fast
+#: entry's contraction from the same plan)
+KERNEL_MIXED = register(Kernel(
+    "mel_fused_mixed_kernel", "mel_fused_mixed_launch",
+    (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32),
+    source="mlx_audio_primitives_tpu_torch/csrc/mel_fused_mixed.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
 
@@ -151,9 +174,15 @@ def melspectrogram_plain(
     ``hi@hi + hi@lo + lo@hi`` of the bf16 splits, in the JAX ``_group_dot``
     order. ``fb_t`` may be a view (a cached table's transpose); the product
     takes it contiguous."""
-    fb_t = fb_t.contiguous()
     frames = windowed_frames(y, win, n_fft, hop_length, center, pad_mode)
-    spec = rfft_frames(frames, n_fft, basis)
+    return _contract(rfft_frames(frames, n_fft, basis), fb_t, power, fast_gemm)
+
+
+def _contract(spec: torch.Tensor, fb_t: torch.Tensor, power: float,
+              fast_gemm: bool) -> torch.Tensor:
+    """``|spec|^power @ fb_t`` -> ``(B, n_cols, F)``: exact, or (``fast_gemm``)
+    as ``hi@hi + hi@lo + lo@hi`` of the bf16 splits."""
+    fb_t = fb_t.contiguous()
     p = spec.real**2 + spec.imag**2
     if power == 1.0:
         p = torch.sqrt(p)
@@ -441,3 +470,168 @@ def acf_fused(ypad: torch.Tensor, win: torch.Tensor, *, n_fft: int, hop_length: 
     if not on_cuda(ypad, win):
         return acf_plain(ypad, win, **kw)
     return with_plain_backward(_launch_acf, acf_plain, ypad, win, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K1m, the mixed-radix entry
+
+
+def mixed_radices(m: int) -> list[int]:
+    """The passes of the complex FFT of ``m = 2^a * 5^b`` points, as
+    `csrc/fft_common.cuh::mixed_radix` orders them: the radix-5 passes, then
+    the power of two in radix-8 passes, the first taking what is left."""
+    fives, rest = 0, m
+    while rest % 5 == 0:
+        rest //= 5
+        fives += 1
+    log2 = rest.bit_length() - 1
+    if rest != 1 << log2:
+        raise ValueError(f"the mixed passes need m = 2^a * 5^b, got {m}")
+    n8 = (log2 + 2) // 3
+    return [5] * fives + ([1 << (log2 - 3 * (n8 - 1))] if n8 else []) + [8] * max(n8 - 1, 0)
+
+
+def mixed_positions(m: int) -> np.ndarray:
+    """Where bin k of the passes' transform sits after the last pass
+    (`fft_common.cuh::mixed_pos`): k's digits q_p (``mixed_radices`` order,
+    least significant first) at the passes' strides S_p."""
+    pos, k, span = np.zeros(m, np.int64), np.arange(m), m
+    for r in mixed_radices(m):
+        span //= r
+        pos += (k % r) * span
+        k //= r
+    return pos
+
+
+def mixed_fft(z: torch.Tensor) -> torch.Tensor:
+    """The complex DFT over the last axis of ``z`` (``m = 2^a * 5^b``
+    points) as K1m computes it: in-place decimation-in-frequency passes
+    (pass p: the radix-R DFT of the points at stride S, output q of offset i
+    times W_{RS}^{iq}), then the digit-reversed result read in natural
+    order. Tables in float64, rounded once."""
+    m, lead = z.shape[-1], z.shape[:-1]
+    span = m
+    for r in mixed_radices(m):
+        s = span // r
+        q = np.arange(r)
+        dft = torch.from_numpy(np.exp(-2j * np.pi * np.outer(q, q) / r)).to(z)
+        tw = torch.from_numpy(np.exp(-2j * np.pi * np.outer(q, np.arange(s)) / (r * s))).to(z)
+        x = z.reshape(*lead, m // (r * s), r, s)
+        z = (torch.einsum("...rs,rq->...qs", x, dft) * tw).reshape(*lead, m)
+        span = s
+    return z[..., torch.from_numpy(mixed_positions(m)).to(z.device)]
+
+
+def melspectrogram_mixed_plain(
+    y: torch.Tensor,  # (B, L)
+    win: torch.Tensor,  # (n_fft,) padded window
+    fb_t: torch.Tensor,  # (n_bins, n_cols)
+    *,
+    n_fft: int,
+    hop_length: int,
+    center: bool,
+    pad_mode: str,
+    power: float = 2.0,
+) -> torch.Tensor:
+    """Plain twin of K1m: pad, frame, window; the real FFT as K1m takes it
+    (the complex FFT of the packed points ``x[2n] + i x[2n+1]`` by
+    :func:`mixed_fft`, then ``X[k] = E[k] + W_N^k O[k]`` from ``Z[k]`` and
+    ``conj Z[M-k]``); ``|X|^power``; the fast entry's bf16x3 contraction ->
+    ``(B, n_cols, F)``."""
+    frames = windowed_frames(y, win, n_fft, hop_length, center, pad_mode)
+    m = n_fft // 2
+    z = mixed_fft(torch.complex(frames[..., 0::2].contiguous(), frames[..., 1::2].contiguous()))
+    k = torch.arange(m + 1, device=z.device)
+    a, c = z[..., k % m], z[..., (m - k) % m].conj()
+    tw = rfft_twiddles(n_fft, device=frames.device)
+    w = torch.complex(tw[:, 0], tw[:, 1])
+    spec = 0.5 * (a + c) + w * ((a - c) * -0.5j)
+    return _contract(spec, fb_t, power, fast_gemm=True)
+
+
+def device_plan(fb_t: torch.Tensor) -> torch.Tensor:
+    """The full-range plan of a W given per call (``band_plan_host(fb_t.T,
+    band=False)``'s words), packed with torch ops on W's device: nothing is
+    copied to the host."""
+    n_bins, n_cols = fb_t.shape
+    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
+    wp = fb_t.new_zeros(16 * n_mt, 16 * ksteps)
+    wp[:n_cols, :n_bins] = fb_t.t()
+    hi = wp.to(torch.bfloat16)
+    lo = (wp - hi.float()).to(torch.bfloat16)
+
+    def words(half: torch.Tensor) -> torch.Tensor:
+        # (column, k-step, q, pair): the even bin in the low 16 bits
+        u = (half.view(torch.int16).to(torch.int64) & 0xFFFF).reshape(16 * n_mt, ksteps, 4, 2, 2)
+        v = u[..., 0] | (u[..., 1] << 16)
+        return torch.where(v >= 2**31, v - 2**32, v)
+
+    head = torch.zeros(plan_w_offset(n_mt), dtype=torch.int64, device=fb_t.device)
+    head[:5] = torch.tensor([PLAN_MAGIC, n_cols, n_mt, ksteps, n_mt * ksteps])
+    head[PLAN_HEADER:PLAN_HEADER + n_mt + 1] = ksteps * torch.arange(n_mt + 1)
+    return torch.cat([head, torch.cat([words(hi), words(lo)], dim=-1).reshape(-1)]).to(torch.int32)
+
+
+def _launch_mixed(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power):
+    require(y, "y", torch.float32, 2)
+    require(win, "win", torch.float32, 1)
+    if fb_t.device != y.device or fb_t.dtype != torch.float32 or fb_t.dim() != 2:
+        raise ValueError(f"fb_t must be a 2-D float32 tensor on {y.device}; got "
+                         f"{fb_t.dtype} {tuple(fb_t.shape)} on {fb_t.device}")
+    B, L = y.shape
+    n_bins, n_cols = fb_t.shape
+    if win.shape[0] != n_fft or n_bins != n_fft // 2 + 1:
+        raise ValueError(
+            f"mel_fused_mixed_kernel needs win ({n_fft},) and fb_t ({n_fft // 2 + 1}, n_cols); "
+            f"got {tuple(win.shape)} and {tuple(fb_t.shape)}"
+        )
+    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
+    planned = fast_plan(fb_t)
+    if planned is None:
+        plan = device_plan(fb_t)
+    else:
+        plan, host = planned
+        if host[:4].tolist() != [PLAN_MAGIC, n_cols, n_mt, ksteps] or plan.numel() != host.size:
+            raise ValueError(f"the plan does not fit W {tuple(fb_t.shape)}: header {tuple(host[:5])}")
+    pad = n_fft // 2 if center else 0
+    F = 1 + (L + 2 * pad - n_fft) // hop_length
+    tw = rfft_twiddles(n_fft, device=y.device)
+    out = torch.empty((B, n_cols, F), dtype=torch.float32, device=y.device)
+    KERNEL_MIXED.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), plan.data_ptr(),
+                        out.data_ptr(), B, n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode],
+                        int(power))
+    return out
+
+
+@traced("kernels.mel_fused_mixed")
+def melspectrogram_fused_mixed(
+    y: torch.Tensor,
+    win: torch.Tensor,
+    fb_t: torch.Tensor,
+    *,
+    n_fft: int,
+    hop_length: int,
+    center: bool,
+    pad_mode: str,
+    power: float = 2.0,
+) -> torch.Tensor:
+    """``(B, L) -> (B, n_cols, F)`` through K1m, ``mel_fused_mixed_kernel``,
+    on a CUDA tensor, through its plain twin on a CPU tensor: the fast
+    entry's precision (~1e-5 of max of an exact product).
+
+    Requires the mixed-radix gate (`utils/dispatch.py::mixed_shape_ok`) and
+    ``power`` in {1, 2}; any window and any dense ``fb_t``. The backward
+    differentiates the exact plain composition."""
+    if not mixed_shape_ok(n_fft, hop_length):
+        raise ValueError(f"the mixed-radix mel kernel requires n_fft in {MIXED_N_FFTS} and "
+                         f"n_fft/8 <= hop <= n_fft; got n_fft={n_fft}, hop={hop_length}")
+    if power not in (1.0, 2.0):
+        raise ValueError(f"fused mel kernel supports power in {{1, 2}}, got {power}")
+    if y.shape[1] + (n_fft if center else 0) < n_fft:
+        raise ValueError(
+            f"signal length ({y.shape[1]}) must be >= n_fft ({n_fft}) when center=False"
+        )
+    kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
+              power=float(power))
+    forward = _launch_mixed if on_cuda(y, win, fb_t) else melspectrogram_mixed_plain
+    return with_plain_backward(forward, melspectrogram_plain, y, win, fb_t, **kw)

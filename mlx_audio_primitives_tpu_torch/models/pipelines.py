@@ -21,7 +21,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .._config import REAL_DTYPE
 from ..kernels.mel_fused import melspectrogram_fused, melspectrogram_plain
-from ..ops.convert import power_to_db
+from ..ops.convert import _to_db, power_to_db
 from ..ops.mel import mel_filterbank, melspectrogram
 from ..ops.mfcc import mfcc
 from ..ops.pcen import pcen_smoother
@@ -31,6 +31,7 @@ from ..parallel.mesh import DATA_AXIS, TIME_AXIS, P, axis_size, placements
 from ..parallel.sharding import from_local, local_shard
 from ..parallel.time_shard import logmel_time_sharded
 from ..utils import dispatch
+from ..utils.profiler import traced
 
 ArrayLike = Any
 
@@ -81,6 +82,50 @@ class LogMelFrontend:
             norm=self.norm,
         )
         return power_to_db(mel, top_db=self.top_db)
+
+
+class WhisperLogMelFrontend:
+    """Whisper's log-mel features (openai/whisper, ``whisper/audio.py``:
+    ``pad_or_trim``, then ``log_mel_spectrogram``), batched: ``(samples,)``
+    or ``(batch, samples)`` at 16 kHz -> ``(n_mels, 3000)`` or ``(batch,
+    n_mels, 3000)``.
+
+    Each clip is padded with zeros or trimmed to 480,000 samples (30 s). Its
+    mel power spectrogram (n_fft 400, hop 160, a periodic Hann window,
+    centred with a reflect pad, Slaney mels to 8 kHz) runs K1's mixed-radix
+    entry on a CUDA tensor; its last frame is dropped, as a view; then K6's
+    per-item form takes ``10 log10(max(mel, 1e-10))``, floors it 80 dB below
+    the clip's own maximum and maps it by ``/ 40 + 1``, which is Whisper's
+    ``(max(L, L.max() - 8) + 4) / 4`` on ``L = log10(max(mel, 1e-10))``. The
+    maximum is each clip's, as Hugging Face's ``WhisperFeatureExtractor``
+    takes it in a batch, so a clip's features do not depend on its
+    batch-mates. ``use_pallas`` routes both steps as the ops route it.
+    Large-v3's 128 mels (earlier versions had 80).
+    """
+
+    sr, n_fft, hop_length, n_samples, n_mels, fmax = 16000, 400, 160, 480_000, 128, 8000.0
+
+    def __init__(self, use_pallas: bool | None = None):
+        self.use_pallas = use_pallas
+
+    @traced("models.whisper_v3_logmel")
+    def __call__(self, y: ArrayLike) -> torch.Tensor:
+        y = dispatch.to_tensor(y, REAL_DTYPE)
+        if y.dim() not in (1, 2):
+            raise ValueError(f"expected (samples,) or (batch, samples), got shape {tuple(y.shape)}")
+        n = y.shape[-1]
+        if n > self.n_samples:
+            y = y[..., :self.n_samples]
+        elif n < self.n_samples:
+            y = tnf.pad(y, (0, self.n_samples - n))
+        mel = melspectrogram(
+            y, sr=self.sr, n_fft=self.n_fft, hop_length=self.hop_length, window="hann",
+            center=True, pad_mode="reflect", power=2.0, n_mels=self.n_mels, fmin=0.0,
+            fmax=self.fmax, htk=False, norm="slaney", use_pallas=self.use_pallas,
+        )
+        return _to_db("power_to_db", mel[..., :-1], 1.0, 10.0, 1e-10, 80.0,
+                      per_item=mel.dim() == 3, scale=1.0 / 40.0, offset=1.0,
+                      use_pallas=self.use_pallas)
 
 
 class MFCCPipeline:

@@ -35,17 +35,28 @@ def _to_db(
     coefficient: float,
     amin: float,
     top_db: float | None,
+    *,
+    per_item: bool = False,
+    scale: float = 1.0,
+    offset: float = 0.0,
+    use_pallas: bool | None = None,
 ) -> torch.Tensor:
+    """The dB conversion of ``op`` and its route. ``per_item``, ``scale``
+    and ``offset`` (K6's per-item form: a ``top_db`` floor per index of the
+    leading dimension, then ``* scale + offset``) serve the port's own front
+    ends (`models/pipelines.py::WhisperLogMelFrontend`); the public ops keep
+    the whole-input floor."""
     if amin <= 0:
         raise ValueError(f"amin must be positive, got {amin}")
     S = dispatch.to_tensor(S, REAL_DTYPE)
     if top_db is not None and top_db <= 0:
         raise ValueError(f"top_db must be positive, got {top_db}")
+    kw = dict(per_item=per_item, scale=scale, offset=offset)
     # K6 takes a scalar ref and a non-empty input of any layout; an empty one
     # keeps the plain route's result (with top_db, its error)
-    if dispatch.route(op, None, S.device, ref=not callable(ref), nonempty=S.numel() > 0):
-        return to_db_fused(S, coefficient, ref, amin, top_db)
-    return to_db_plain(S, coefficient, ref, amin, top_db)
+    if dispatch.route(op, use_pallas, S.device, ref=not callable(ref), nonempty=S.numel() > 0):
+        return to_db_fused(S, coefficient, ref, amin, top_db, **kw)
+    return to_db_plain(S, coefficient, ref, amin, top_db, **kw)
 
 
 @traced("ops.power_to_db")

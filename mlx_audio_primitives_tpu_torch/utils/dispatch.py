@@ -175,6 +175,27 @@ def radix_shape_ok(n_fft: int, hop_length: int) -> bool:
     )
 
 
+#: The n_fft values of K1's mixed-radix entry (`csrc/mel_fused_mixed.cu`, one
+#: instance each): Whisper's 400 = 2^4 * 5^2, off the radix gate
+MIXED_N_FFTS = (400,)
+
+
+def mixed_shape_ok(n_fft: int, hop_length: int) -> bool:
+    """The shape gate of K1's mixed-radix entry: an n_fft it is built for, at
+    any hop from ``n_fft // 8`` to ``n_fft`` (the hop need not divide it)."""
+    return n_fft in MIXED_N_FFTS and n_fft // 8 <= hop_length <= n_fft
+
+
+def mel_shape_ok(n_fft: int, hop_length: int) -> bool:
+    """The port's shape gate for K1 in ``filterbank_spectrogram``: the JAX
+    radix gate's shapes (:func:`radix_shape_ok`, K1's dense and fast
+    entries) and, while the fast contraction mode is on
+    (``_config.ANALYSIS_FAST_GEMM``, read at call time), the mixed-radix
+    entry's (:func:`mixed_shape_ok`), which has no exact mode."""
+    return radix_shape_ok(n_fft, hop_length) or (
+        _config.ANALYSIS_FAST_GEMM and mixed_shape_ok(n_fft, hop_length))
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device (the wrapper launches
     its kernel), False when all lie on the CPU (the wrapper runs the plain

@@ -207,8 +207,9 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
 def test_cpu_calls_launch_nothing():
     before = launch_counts()
     assert set(before) == {"mel_fused_kernel", "mel_fused_fast_kernel", "mel_fused_acf_kernel",
-                           "stft_kernel", "stft_mag_kernel", "istft_kernel", "overlap_add_kernel",
-                           "select_extremes_kernel", "db_fused_kernel"}
+                           "mel_fused_mixed_kernel", "stft_kernel", "stft_mag_kernel",
+                           "istft_kernel", "overlap_add_kernel", "select_extremes_kernel",
+                           "db_fused_kernel", "db_item_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
     tap.istft(S, hop_length=128, use_pallas=True)
@@ -224,6 +225,8 @@ def test_cpu_calls_launch_nothing():
     for fast in (True, False):
         melspectrogram_fused(torch.from_numpy(y), torch.ones(512), torch.ones(257, 3), n_fft=512,
                              hop_length=128, center=True, pad_mode="constant", fast_gemm=fast)
+    tap.melspectrogram(y, sr=16000, n_fft=400, hop_length=160, n_mels=16, use_pallas=True)
+    to_db_fused(mag, 10.0, 1.0, 1e-10, 80.0, per_item=True, scale=0.025, offset=1.0)
     assert launch_counts() == before
 
 
