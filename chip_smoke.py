@@ -22,7 +22,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 2. build: nvcc compiles kernels K1-K6 from ``csrc/``, one process per
    source, all at once (timed, and each source's process); K1's
    mixed-radix entry's (K1m's) registers and spill bytes (a spill fails
-   the run); for each
+   the run); each K2s instance's (the STFT kernel's statistics emit, one
+   per FFT size, statistic and power: a spill fails the run); for each
    K1/K2/K2m instance, each instance of K1's fast and ACF entries and each K3
    instance (one per shape of the radix gate), ptxas's registers and spill
    bytes (a spill fails the run; for K3 also a stack frame), its threads,
@@ -44,7 +45,9 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    m-tile and on a W given per call, whose plan the launch packs, and the
    128-mel plan's 73 of 520 blocks; K3 also through
    its natural-spectrum entries
-   ``istft_fused_t`` / ``istft_fused_nat``; K1/K2/K2m also at the smallest
+   ``istft_fused_t`` / ``istft_fused_nat``; K2s's bandwidth, rolloff and
+   flatness at 64 x 30 s against its twin and against float64 of K2m's
+   magnitude; K1/K2/K2m also at the smallest
    n_fft, at frame counts that are not whole tiles and at odd clip
    lengths, K1 at column counts around its 16-column tiles; K3 on every
    shape of the radix gate, on both spectrum layouts; K5 on the default
@@ -87,7 +90,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       30 s at 22,050 Hz (n_fft 2048, hop 512): MFCC (20) with deltas of
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
       zero-crossing rate and RMS, the first 4 clips against a float64 CPU
-      oracle, with its launches counted (K1 2, K2m 4, K5 4);
+      oracle, with its launches counted (K1 2, K2m 1, K2s 3, K5 4);
    c. ``istft`` and ``spectral_contrast`` on 65,537 small clips, past
       grid y's 65,535, with K3's and K5's launches counted;
    d. ``griffinlim`` at 64 x 30 s (32 iterations: K2 32 and K3 33
@@ -190,7 +193,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       ``torch.profiler``; the process group is destroyed before phase 5;
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
-   reductions), and of
+   reductions), of the bandwidth, rolloff and flatness against theirs
+   (K2m's magnitude and the plain passes K2s replaces), and of
    each kernel alone against its plain twin and, where one PyTorch call
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
@@ -304,11 +308,13 @@ WHISPER_KW = dict(n_fft=400, hop_length=160, center=True, pad_mode="reflect", po
 WHISPER_LAUNCHES = {K1M: 1, K6_ITEM: 2}
 #: the kernels each public path must launch
 LOG_MEL_PATH = (K1_MAIN, K1_EXACT, K6, "stft_kernel", "istft_kernel", "overlap_add_kernel")
-FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "select_extremes_kernel")
+FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "stft_stats_kernel", "select_extremes_kernel")
 #: the feature path's launches: K1 for MFCC's mel and the centroid's
-#: moments, K6 twice for MFCC's dB (top_db 80), K2m for bandwidth,
-#: rolloff, flatness and contrast, K5 for the four contrast bands that take it
-FEATURE_LAUNCHES = {K1_MAIN: 2, K6: 2, "stft_mag_kernel": 4, "select_extremes_kernel": 4}
+#: moments, K6 twice for MFCC's dB (top_db 80), K2m for contrast, K2s for
+#: bandwidth, rolloff and flatness, K5 for the four contrast bands that
+#: take it
+FEATURE_LAUNCHES = {K1_MAIN: 2, K6: 2, "stft_mag_kernel": 1, "stft_stats_kernel": 3,
+                    "select_extremes_kernel": 4}
 #: the rhythm-and-harmony path's launches per public call (phase 4e): K1
 #: and K6 once for onset_strength's mel and its dB (so once for beat_track
 #: of a signal),
@@ -528,13 +534,14 @@ def build() -> None:
     by_source = _build.build_info.get("seconds_by_source", {})
     print("nvcc seconds by source:", ", ".join(f"{k} {v:.2f}" for k, v in by_source.items()))
     log = _build.build_info.get("log", "")
-    k5_entry = False  # K5's 16 instances are summed up by k5_instances
+    summed = False  # K5's 16 and K2s's 35 instances are summed up below
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            k5_entry = "select_extremes_kernel" in ln
-        if not k5_entry and re.search(r"Function properties|registers|spill", ln):
+            summed = "select_extremes_kernel" in ln or "stft_stats_kernel" in ln
+        if not summed and re.search(r"Function properties|registers|spill", ln):
             print("  ptxas:", ln.strip())
     fft_occupancy(log)
+    k2s_instances(log)
     k1m_instance(log)
     k5_instances(log)
     k5_sass()
@@ -567,6 +574,44 @@ def k1m_instance(log: str) -> None:
     check(regs is not None and spill is not None, f"ptxas reported no {K1M} instance at n_fft 400")
     print(f"  {K1M} n_fft 400: {regs} registers, {spill} bytes spilled")
     check(spill == 0, f"{K1M} spills at n_fft 400")
+
+
+K2S_STATS = {0: "bandwidth", 1: "rolloff", 2: "flatness"}
+
+
+def k2s_instances(log: str) -> None:
+    """K2s per instance (FFT size, statistic, power: bandwidth and flatness
+    at 1 and 2, rolloff one): ptxas's registers and spill bytes, and per FFT
+    size its threads and resident warps per SM at the hop the sizes run
+    with here. Fails on a spill."""
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+
+    rows, entry, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?stft_stats_kernelILi(\d+)ELi(\d)ELi(\d)E", ln)
+        if m:
+            entry = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), spill)
+            entry, spill = None, 0
+    check(len(rows) == 35, f"ptxas reported {len(rows)} K2s instances, expected 35")
+    dev = torch.device("cuda", 0)
+    for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
+        hop = HOP if n_fft == N_FFT else min(1024, max(128, n_fft // 4))
+        g = k2.launch_geometry(n_fft, hop, dev)
+        per_sm = g["blocks_per_sm"][k2.KERNEL_STATS.name]
+        print(f"  {k2.KERNEL_STATS.name} n_fft {n_fft} hop {hop}: "
+              + ", ".join(f"{K2S_STATS[st]}{'' if st == 1 else f' p{pw}'} {r} registers {sp} B "
+                          f"spilled" for (lm, st, pw), (r, sp) in sorted(rows.items())
+                          if lm == n_fft.bit_length() - 2)
+              + f"; {g['threads']} threads, {per_sm * g['threads'] // 32} warps per SM")
+    spilled = sorted(k for k, (_, sp) in rows.items() if sp)
+    check(not spilled, f"K2s spills in the instances (log2 M, statistic, power) {spilled}")
 
 
 def k5_instances(log: str) -> None:
@@ -808,6 +853,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
         errs[k2.KERNEL_MAG.name] = max(errs.get(k2.KERNEL_MAG.name, 0.0), abs_err(mag, ref))
         del ref
 
+    k2s_vs_plain(gen, run, errs, win, kw)
     k5_vs_plain(gen, mag, run, errs)
     del mag
     contrast_nan_vs_cpu(gen)
@@ -1014,6 +1060,58 @@ def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
               f"(limit 0, bit-equal)")
         check(e == 0.0 and got.is_contiguous(), "K6's per-item form disagrees with its plain twin")
         errs[K6_ITEM] = max(errs.get(K6_ITEM, 0.0), e)
+
+
+def k2s_vs_plain(gen: torch.Generator, run, errs: dict, win: torch.Tensor, kw: dict) -> None:
+    """K2s at the feature path's 64 x 30 s, each statistic at the feature
+    defaults (p 2, roll_percent 0.85, power 2), against its twin (bandwidth
+    within 2e-5 of max, flatness 3e-4: the twin's cuFFT and K2 round a bin
+    near zero differently, which flatness's mean log carries; rolloff one
+    bin in at most 0.5% of frames) and against the statistic in float64 of
+    K2m's magnitude, the same float32 spectrum (5e-6 of max; rolloff the
+    same rule)."""
+    from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.features import _get_frequencies
+
+    y = torch.randn(FEATURES, generator=gen, device=win.device)
+    freq = _get_frequencies(SR, N_FFT, device=win.device)
+    S = k2.stft_magnitude_fused(y, win, **kw).double()
+    f = freq.double()[None, :, None]
+    total = S.sum(1, keepdim=True) + 1e-10
+    c = (f * S).sum(1, keepdim=True) / total
+    ref64 = {"bandwidth": torch.sqrt((S * (f - c) ** 2).sum(1, keepdim=True) / total)}
+    cs = S.cumsum(1)
+    first = torch.argmax((cs >= 0.85 * cs[:, -1:]).to(torch.uint8), 1)
+    ref64["rolloff"] = freq.double()[first][:, None]
+    del cs
+    x = torch.clamp(S * S, min=1e-10)
+    ref64["flatness"] = (torch.exp(torch.log(x).mean(1, keepdim=True))
+                         / (x.mean(1, keepdim=True) + 1e-10))
+    del S, x
+    step = SR / N_FFT
+    for stat, lim64, lim in (("bandwidth", 5e-6, 2e-5), ("rolloff", None, None),
+                             ("flatness", 5e-6, 3e-4)):
+        fq = None if stat == "flatness" else freq
+        got = run(k2.KERNEL_STATS, k2.stft_stats_fused, y, win, fq, stat=stat, **kw)
+        twin = k2.stft_stats_plain(y, win, fq, stat=stat, **kw)
+        if stat == "rolloff":
+            d = [torch.round(got.double() / step) - torch.round(r.double() / step)
+                 for r in (twin, ref64[stat])]
+            shares = [float((x != 0).double().mean()) for x in d]
+            most = max(float(x.abs().max()) for x in d)
+            print(f"K2s rolloff {FEATURES}: {shares[0]:.3e} of frames off the twin's bin, "
+                  f"{shares[1]:.3e} off float64 of K2m's magnitude, at most {most:.0f} bin "
+                  f"(limits 5e-3 and 1)")
+            check(max(shares) <= 5e-3 and most <= 1, "K2s's rolloff misses its twin")
+        else:
+            e, e64 = rel_err(got, twin), rel_err(got, ref64[stat])
+            print(f"K2s {stat} {FEATURES}: rel err {e:.3e} against its twin (limit {lim:g}), "
+                  f"{e64:.3e} against float64 of K2m's magnitude (limit {lim64:g})")
+            check(got.shape == twin.shape and e <= lim and e64 <= lim64,
+                  f"K2s's {stat} disagrees with its twin")
+        # the kernels line keys the bandwidth by the kernel's name
+        errs[k2.KERNEL_STATS.name if stat == "bandwidth" else f"{k2.KERNEL_STATS.name}[{stat}]"] = (
+            abs_err(got, twin))
 
 
 def k5_vs_plain(gen: torch.Generator, mag: torch.Tensor, run, errs: dict) -> None:
@@ -4173,6 +4271,7 @@ def times(gen: torch.Generator, card: str) -> dict:
     from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
     from mlx_audio_primitives_tpu_torch.kernels import select_extremes as k5
     from mlx_audio_primitives_tpu_torch.kernels import stft_radix as k2
+    from mlx_audio_primitives_tpu_torch.ops.features import _get_frequencies
     from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
     from mlx_audio_primitives_tpu_torch.ops.stft import _get_padded_window, _istft_envelope_table
     from mlx_audio_primitives_tpu_torch.utils import dispatch
@@ -4229,6 +4328,23 @@ def times(gen: torch.Generator, card: str) -> dict:
     print(f"centroid 64 x 30 s: spectral_centroid (K1 moments route) {k1_a:.4f} / {k1_b:.4f}, "
           f"K2m and two reductions {m_a:.4f} / {m_b:.4f} (routes agree to {e:.3e} of max)")
 
+    # bandwidth, rolloff and flatness of 64 x 30 s: each through K2s, against
+    # the route it left, K2m's magnitude and the plain passes over it
+    for op in ("spectral_bandwidth", "spectral_rolloff", "spectral_flatness"):
+        kwo = dict(n_fft=N_FFT, hop_length=HOP, **({} if op == "spectral_flatness" else dict(sr=SR)))
+        fn = getattr(ap, op)
+
+        def via_k2s():
+            return fn(y_feat, **kwo)
+
+        def via_k2m():
+            return fn(S=magnitude_spectrogram(y_feat, n_fft=N_FFT, hop_length=HOP), **kwo)
+
+        s_a, m_a, m_b, s_b = (cuda_ms(via_k2s, 2, 10), cuda_ms(via_k2m, 2, 10),
+                              cuda_ms(via_k2m, 2, 10), cuda_ms(via_k2s, 2, 10))
+        print(f"{op} 64 x 30 s: through K2s {s_a:.4f} / {s_b:.4f}, K2m and the plain passes "
+              f"{m_a:.4f} / {m_b:.4f}")
+
     # each kernel alone against its plain twin and its library call, at the
     # main paths' shapes, with its bound at that shape
     fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
@@ -4243,6 +4359,11 @@ def times(gen: torch.Generator, card: str) -> dict:
                                    device=dev)
     mag = k2.stft_magnitude_fused(y_feat, win, **kw)
     bands = [(mag[:, a:b, :].transpose(1, 2), k) for a, b, k in default_bands()]
+    freq_feat = _get_frequencies(SR, N_FFT, device=dev)
+    # K2s's three statistics in the kernels line: the bandwidth under the
+    # kernel's own name
+    k2s_name = {stat: k2.KERNEL_STATS.name if stat == "bandwidth" else
+                f"{k2.KERNEL_STATS.name}[{stat}]" for stat in ("bandwidth", "rolloff", "flatness")}
     kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
     # K3 and K4 at 64 x 30 s: the spectrum of the feature path's clips, and
     # their windowed frames at hop 441
@@ -4269,6 +4390,13 @@ def times(gen: torch.Generator, card: str) -> dict:
                                          Bf * R * fft_frame),
         k2.KERNEL_MAG.name: (4 * (Bf * Lf + N_FFT + Bf * n_bins * R),
                              Bf * R * (fft_frame + 4 * n_bins)),
+        # K2s: the clips, window and freq table read once, a float a frame
+        # written; the magnitude and then the statistic's operations a bin
+        # (bench_port/bounds/spectral_*.py's counts: 8, 2, 4)
+        **{name: (4 * (Bf * Lf + N_FFT + n_bins + Bf * R),
+                  Bf * R * (fft_frame + (4 + per_bin) * n_bins))
+           for name, per_bin in ((k2s_name["bandwidth"], 8), (k2s_name["rolloff"], 2),
+                                 (k2s_name["flatness"], 4))},
         k3.KERNEL.name: (8 * n_bins * F30 + 4 * (N_FFT + 2 * T),
                          F30 * (_rfft_flops(N_FFT) + 2 * N_FFT) + T),
         # the envelope is read once a launch, whatever the batch
@@ -4308,6 +4436,10 @@ def times(gen: torch.Generator, card: str) -> dict:
                             return_complex=True)),
         (k2.KERNEL_MAG.name, "64 x 30 s", lambda: k2.stft_magnitude_fused(y_feat, win, **kw),
          lambda: k2.stft_magnitude_plain(y_feat, win, **kw), None),
+        *((k2s_name[stat], "64 x 30 s",
+           lambda stat=stat, fq=fq: k2.stft_stats_fused(y_feat, win, fq, stat=stat, **kw),
+           lambda stat=stat, fq=fq: k2.stft_stats_plain(y_feat, win, fq, stat=stat, **kw), None)
+          for stat, fq in (("bandwidth", freq_feat), ("rolloff", freq_feat), ("flatness", None))),
         (k3.KERNEL.name, "30 s clip", lambda: k3.istft_fused(St, win, env, **kw3),
          lambda: k3.istft_plain(St, win, env, **kw3), istft_lib),
         (f"{k3.KERNEL.name}[64 x 30 s]", "64 x 30 s",
@@ -4365,6 +4497,10 @@ def times(gen: torch.Generator, card: str) -> dict:
               f"device operations)")
     print(f"K2m device time, 64 x 30 s (torch.profiler, 5 calls): "
           f"{kernel_device_ms(lambda: k2.stft_magnitude_fused(y_feat, win, **kw), 'stft_kernel', 5):.4f} ms")
+    for stat, fq in (("bandwidth", freq_feat), ("rolloff", freq_feat), ("flatness", None)):
+        ms = kernel_device_ms(lambda: k2.stft_stats_fused(y_feat, win, fq, stat=stat, **kw),
+                              k2.KERNEL_STATS.name, 5)
+        print(f"K2s {stat} device time, 64 x 30 s (torch.profiler, 5 calls): {ms:.4f} ms")
     k1_split(y_scale, y_feat, win, fb_t, kw)
     for kernel, fast in ((k1.KERNEL, False), (k1.KERNEL_FAST, True)):
         ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, fast_gemm=fast, **kw),

@@ -30,6 +30,18 @@ the end: each bin is written as ``sqrt(re^2 + im^2)`` in float32. Bound by
 the same output write, now 4 bytes per bin per frame: at 64 x 30 s clips
 (n_fft 2048, hop 512) 169 MB in and 339 MB out, 0.15 ms at 3.35 TB/s,
 against ~5 GFLOP of FFT, 0.08 ms at the FP32 peak.
+
+K2s (``stft_stats_kernel``, the same source) is the third emit: one
+per-frame statistic of the magnitude, chosen at launch: spectral bandwidth
+(p 1 or 2), rolloff or flatness (power 1 or 2), :func:`stft_stats_fused`.
+It replaces no TPU kernel: the JAX package computes the three features
+with XLA over a magnitude spectrogram, and the port ran K2m and then ~30
+PyTorch passes over its 339 MB output at 64 x 30 s. K2s forms the same
+float32 magnitudes, reduces each frame on chip and writes one float a
+frame. Bound: y read once and 4 bytes a frame written (~0.05 ms at 64 x
+30 s), so by the FFT front end it shares with K2 and K2m. The layout of the
+reduction is in the source note. Its twin, :func:`stft_stats_plain`, is
+K2m's twin and the plain route's per-frame formulas in torch.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from .._config import COMPLEX_DTYPE
 from ..ops._frames import windowed_frames
 from ..utils.dispatch import on_cuda, radix_shape_ok
 from ..utils.profiler import traced
-from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
+from ._build import F32, I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
 from .mel_fused import PAD_CODES
 
@@ -62,20 +74,32 @@ KERNEL_MAG = register(Kernel(
     replaces="mlx_audio_primitives_tpu/kernels/stft_radix.py:128",
 ))
 
+#: K2s: no TPU kernel; the JAX package's XLA bandwidth, rolloff and flatness
+KERNEL_STATS = register(Kernel(
+    "stft_stats_kernel", "stft_stats_launch",
+    (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, F32),
+    source="mlx_audio_primitives_tpu_torch/csrc/stft.cu",
+    replaces="mlx_audio_primitives_tpu/ops/features.py:160",
+))
+
+#: K2s's statistics, by the code its launcher takes
+STATS = {"bandwidth": 0, "rolloff": 1, "flatness": 2}
+
 
 def launch_geometry(n_fft: int, hop_length: int, device: torch.device) -> dict:
-    """K2/K2m's launch at ``(n_fft, hop_length)`` on a CUDA ``device``:
+    """K2/K2m/K2s's launch at ``(n_fft, hop_length)`` on a CUDA ``device``:
     threads per block, frames per tile, dynamic shared memory per block
     (bytes) and resident blocks per SM of each emit."""
     fn = library().stft_geometry
     fn.argtypes = [I32, I32, I32, P]
     fn.restype = I32
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 6)()
     err = fn(n_fft, hop_length, device.index, ctypes.cast(info, P))
     if err != 0:
         raise RuntimeError(f"stft_geometry failed: CUDA error {err}")
     return dict(threads=info[0], frames_per_tile=info[1], smem_bytes=info[2],
-                blocks_per_sm={KERNEL.name: info[3], KERNEL_MAG.name: info[4]})
+                blocks_per_sm={KERNEL.name: info[3], KERNEL_MAG.name: info[4],
+                               KERNEL_STATS.name: info[5]})
 
 
 def stft_plain(
@@ -182,3 +206,117 @@ def stft_magnitude_fused(
     if not on_cuda(y, win):
         return stft_magnitude_plain(y, win, **kw)
     return with_plain_backward(_launch_mag, stft_magnitude_plain, y, win, **kw)
+
+
+def stft_stats_plain(
+    y: torch.Tensor,
+    win: torch.Tensor,
+    freq: torch.Tensor | None = None,
+    *,
+    stat: str,
+    n_fft: int,
+    hop_length: int,
+    center: bool,
+    pad_mode: str,
+    p: float = 2.0,
+    norm: bool = True,
+    roll_percent: float = 0.85,
+    power: float = 2.0,
+    amin: float = 1e-10,
+) -> torch.Tensor:
+    """Plain twin and plain composition of K2s: K2m's twin, then ``stat``'s
+    per-frame formula in the plain route's torch operations -> float32
+    ``(B, 1, F)``. ``freq`` holds one value per bin (bandwidth and rolloff;
+    flatness reads none)."""
+    S = stft_magnitude_plain(y, win, n_fft=n_fft, hop_length=hop_length, center=center,
+                             pad_mode=pad_mode)
+    if stat == "bandwidth":
+        total = torch.sum(S, dim=1, keepdim=True) + 1e-10
+        centroid = torch.sum(freq[:, None] * S, dim=1, keepdim=True) / total
+        deviation = torch.abs(freq[None, :, None] - centroid)
+        weighted = torch.sum(S * torch.pow(deviation, p), dim=1, keepdim=True)
+        if norm:
+            weighted = weighted / total
+        return torch.pow(weighted, 1.0 / p)
+    if stat == "rolloff":
+        cumsum = torch.cumsum(S, dim=1)
+        # argmax returns the first maximum: the first bin at or above threshold
+        idx = torch.argmax((cumsum >= roll_percent * cumsum[:, -1:, :]).to(torch.uint8), dim=1)
+        return freq[idx][:, None, :]
+    if power != 1.0:
+        S = torch.pow(S, power)
+    S = torch.clamp(S, min=amin)
+    gmean = torch.pow(10.0, torch.mean(torch.log10(S), dim=1, keepdim=True))
+    return gmean / (torch.mean(S, dim=1, keepdim=True) + 1e-10)
+
+
+def stats_power_ok(p: float = 2.0, power: float = 2.0, **_) -> bool:
+    """Whether K2s takes a statistic's exponents (:func:`stft_stats_fused`'s
+    keywords): bandwidth's ``p`` and flatness's ``power`` in {1, 2}."""
+    return p in (1.0, 2.0) and power in (1.0, 2.0)
+
+
+def _launch_stats(y, win, freq=None, *, stat, n_fft, hop_length, center, pad_mode, p=2.0,
+                  norm=True, roll_percent=0.85, power=2.0, amin=1e-10):
+    require(y, "y", torch.float32, 2)
+    require(win, "win", torch.float32, 1)
+    if win.shape[0] != n_fft:
+        raise ValueError(f"{KERNEL_STATS.name} needs a ({n_fft},) window, got {tuple(win.shape)}")
+    if freq is not None:
+        require(freq, "freq", torch.float32, 1)
+        if freq.shape[0] != n_fft // 2 + 1:
+            raise ValueError(f"{KERNEL_STATS.name} needs one freq a bin ({n_fft // 2 + 1}), "
+                             f"got {freq.shape[0]}")
+    B, L = y.shape
+    pad = n_fft // 2 if center else 0
+    F = 1 + (L + 2 * pad - n_fft) // hop_length
+    exponent, a = {"bandwidth": (p, float(norm)), "rolloff": (1.0, roll_percent),
+                   "flatness": (power, amin)}[stat]
+    tw = rfft_twiddles(n_fft, device=y.device)
+    out = torch.empty((B, 1, F), dtype=torch.float32, device=y.device)
+    KERNEL_STATS.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(),
+                        None if freq is None else freq.data_ptr(), out.data_ptr(), B, n_fft,
+                        hop_length, F, pad, PAD_CODES[pad_mode], STATS[stat], int(exponent), a)
+    return out
+
+
+@traced("kernels.stft_stats_fused")
+def stft_stats_fused(
+    y: torch.Tensor,
+    win: torch.Tensor,
+    freq: torch.Tensor | None = None,
+    *,
+    stat: str,
+    n_fft: int,
+    hop_length: int,
+    center: bool,
+    pad_mode: str,
+    p: float = 2.0,
+    norm: bool = True,
+    roll_percent: float = 0.85,
+    power: float = 2.0,
+    amin: float = 1e-10,
+) -> torch.Tensor:
+    """``(B, L) -> float32 (B, 1, F)``: per frame, the magnitude's spectral
+    bandwidth (``p`` 1 or 2, ``norm``; ``freq`` one value per bin), rolloff
+    (``roll_percent``; ``freq``) or flatness (``power`` 1 or 2, ``amin``),
+    through ``stft_stats_kernel`` on a CUDA tensor, through the plain twin
+    on a CPU tensor. The backward differentiates the plain twin; rolloff, a
+    bin's frequency, passes a gradient to ``freq`` only, as the plain route
+    does."""
+    if stat not in STATS:
+        raise ValueError(f"stat must be one of {sorted(STATS)}, got {stat!r}")
+    if (freq is None) != (stat == "flatness"):
+        raise ValueError(f"{stat} takes {'no freq' if stat == 'flatness' else 'a freq'}")
+    if not stats_power_ok(p, power):
+        raise ValueError(f"{KERNEL_STATS.name} takes p and power in {{1, 2}}, got p={p}, "
+                         f"power={power}")
+    _check(y, n_fft, hop_length, center)
+    kw = dict(stat=stat, n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
+              p=p, norm=norm, roll_percent=roll_percent, power=power, amin=amin)
+    tensors = (y, win) if freq is None else (y, win, freq)
+    if not on_cuda(*tensors):
+        return stft_stats_plain(*tensors, **kw)
+    if stat == "rolloff":
+        tensors = (y.detach(), win.detach(), freq)
+    return with_plain_backward(_launch_stats, stft_stats_plain, *tensors, **kw)

@@ -18,7 +18,15 @@ kernels of this path are:
   (``_moments_fused``), so the magnitude never reaches device memory. K1's
   contraction walks ``ceil(n_cols / 16)`` column tiles, so the two columns
   cost one tile (``chip_smoke.py`` phase 5 times this route against the
-  magnitude and two reductions).
+  magnitude and two reductions);
+* the bandwidth, rolloff and flatness of a signal ``y``: the STFT kernel's
+  per-frame statistics emit (K2s, ``stft_stats_fused``), which reduces each
+  frame's magnitudes on chip and writes one value a frame
+  (``_frame_stat``). An ``S`` input, a ``centroid`` given to the bandwidth,
+  a ``freq`` other than one value per bin, a ``p`` or ``power`` other than
+  1 and 2 and a shape outside the radix gate take the magnitude route,
+  counted as ``dispatch.plain.<op>.spectrum``, ``.centroid``, ``.freq``,
+  ``.power`` and ``.gate``.
 
 Elsewhere each takes its plain composition. The JAX package computes the
 dB and geometric-mean logs with its own polynomials
@@ -37,6 +45,7 @@ import torch
 from .._config import REAL_DTYPE
 from ..kernels.mel_fused import melspectrogram_fused
 from ..kernels.select_extremes import quantile_extreme_means_fused, select_supported
+from ..kernels.stft_radix import stats_power_ok, stft_stats_fused
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.profiler import traced
@@ -154,6 +163,40 @@ def _moments_fused(y, sr, freq, *, n_fft, hop_length, win_length, window, center
     return (M0[0], M1[0]) if input_is_1d else (M0, M1)
 
 
+def _frame_stat(op, stat, y, S, sr, freq, *, n_fft, hop_length, win_length, window, center,
+                pad_mode, centroid=None, **params):
+    """``op``'s statistic per frame, ``(..., 1, F)``, from the STFT kernel's
+    statistics emit (K2s) for a signal ``y``; None where the kernel does not
+    take the call (an ``S`` input, a ``centroid`` given, a ``freq`` other
+    than one value per bin, a ``p`` or ``power`` other than 1 and 2, a shape
+    outside the radix gate, kernels off or not on CUDA), and the caller
+    takes the magnitude route."""
+    if S is not None:
+        # librosa's protocol: a given S wins over y
+        device = S.device if isinstance(S, torch.Tensor) else dispatch.default_device()
+        dispatch.route(op, None, device, spectrum=False)
+        return None
+    if y is None:
+        return None
+    if hop_length is None:
+        hop_length = n_fft // 4
+    if win_length is None:
+        win_length = n_fft
+    # the same argument checks as the magnitude route, so both raise alike
+    _validate_stft_params(n_fft, hop_length, win_length, pad_mode)
+    y, input_is_1d = _as_batched(y, n_fft, center)
+    f = None if stat == "flatness" else _freq(freq, sr, n_fft, y.device)
+    per_bin = f is None or (f.dim() == 1 and f.shape[0] == n_fft // 2 + 1)
+    if not dispatch.route(op, None, y.device, centroid=centroid is None, freq=per_bin,
+                          power=stats_power_ok(**params),
+                          gate=dispatch.radix_shape_ok(n_fft, hop_length)):
+        return None
+    win = _get_padded_window(window, win_length, n_fft, y.device)
+    out = stft_stats_fused(y, win, None if f is None else f.contiguous(), stat=stat, n_fft=n_fft,
+                           hop_length=hop_length, center=center, pad_mode=pad_mode, **params)
+    return out[0] if input_is_1d else out
+
+
 @traced("ops.spectral_bandwidth")
 def spectral_bandwidth(
     y: ArrayLike | None = None,
@@ -170,7 +213,16 @@ def spectral_bandwidth(
     p: float = 2.0,
     norm: bool = True,
 ) -> torch.Tensor:
-    """Spectral bandwidth ``(sum(S*|f-c|^p)/sum(S))^(1/p)`` per frame."""
+    """Spectral bandwidth ``(sum(S*|f-c|^p)/sum(S))^(1/p)`` per frame.
+
+    From a signal on a CUDA device (radix shapes, no ``centroid`` given)
+    through the STFT kernel's statistics emit (K2s); otherwise from the
+    magnitude and its reductions."""
+    out = _frame_stat("spectral_bandwidth", "bandwidth", y, S, sr, freq, n_fft=n_fft,
+                      hop_length=hop_length, win_length=win_length, window=window,
+                      center=center, pad_mode=pad_mode, centroid=centroid, p=p, norm=norm)
+    if out is not None:
+        return out
     S = _compute_spectrogram(y, S, n_fft, hop_length, win_length, window, center, pad_mode)
     freq = _freq(freq, sr, n_fft, S.device)
     is_batched = S.dim() == 3
@@ -206,9 +258,16 @@ def spectral_rolloff(
     use_cpp: bool = True,
 ) -> torch.Tensor:
     """Rolloff frequency: the first bin whose cumulative energy reaches
-    ``roll_percent`` of the frame's total, shape ``(..., 1, F)``."""
+    ``roll_percent`` of the frame's total, shape ``(..., 1, F)``: through
+    the STFT kernel's statistics emit (K2s) for a signal on a CUDA device,
+    as the bandwidth."""
     del use_cpp
     validate_range(roll_percent, "roll_percent", low=0.0, high=1.0)
+    out = _frame_stat("spectral_rolloff", "rolloff", y, S, sr, freq, n_fft=n_fft,
+                      hop_length=hop_length, win_length=win_length, window=window,
+                      center=center, pad_mode=pad_mode, roll_percent=roll_percent)
+    if out is not None:
+        return out
     S = _compute_spectrogram(y, S, n_fft, hop_length, win_length, window, center, pad_mode)
     freq = _freq(freq, sr, n_fft, S.device)
     is_batched = S.dim() == 3
@@ -237,7 +296,13 @@ def spectral_flatness(
     amin: float = 1e-10,
 ) -> torch.Tensor:
     """Spectral flatness (Wiener entropy): geometric over arithmetic mean of
-    ``max(S, amin)``, shape ``(..., 1, F)``."""
+    ``max(S, amin)``, shape ``(..., 1, F)``: through the STFT kernel's
+    statistics emit (K2s) for a signal on a CUDA device, as the bandwidth."""
+    out = _frame_stat("spectral_flatness", "flatness", y, S, None, None, n_fft=n_fft,
+                      hop_length=hop_length, win_length=win_length, window=window,
+                      center=center, pad_mode=pad_mode, power=power, amin=amin)
+    if out is not None:
+        return out
     S = _compute_spectrogram(
         y, S, n_fft, hop_length, win_length, window, center, pad_mode, power,
         fast_gemm=False,

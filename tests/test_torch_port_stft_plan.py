@@ -235,3 +235,166 @@ def test_plan_geometry_fits(log_m):
             continue
         seg_cap = ((ft - 1) * hop + 2 * m + 3 + 3) & ~3
         assert seg_off_bytes + 4 * seg_cap <= SMEM_LIMIT, (log_m, hop)
+
+
+# --- K2s: the per-frame statistics emit -----------------------------------
+
+
+def emit_bins(log_m: int) -> tuple[np.ndarray, ...]:
+    """The emit's lanes' bins: for each (k0, J) with k = k0 + J*T <= M/2,
+    the lane k0, the bins k and M - k (-1 where the lane stores no mirror:
+    k = M/2) and the Z slots pa, pc they are read from (emit_pairs)."""
+    m = 1 << log_m
+    t_count = m >> REG_BITS
+    k0 = np.arange(t_count)
+    lo1 = rdigit_rev(log_m, k0)
+    lo2 = np.where(k0 > 0, rdigit_rev(log_m, (t_count - k0) % t_count), 0)
+    out = []
+    for j in range(m // 2 // t_count + 1):
+        h1 = rdigit_rev(log_m, np.array(j * t_count))
+        h2_0 = rdigit_rev(log_m, np.array((m - j * t_count) & (m - 1)))
+        h2 = rdigit_rev(log_m, np.array((m - (j + 1) * t_count) & (m - 1)))
+        k = k0 + j * t_count
+        keep = k <= m // 2
+        mirror = np.where(k == 0, m, np.where(k < m // 2, m - k, -1))
+        out.append(np.stack([k0, k, mirror, lo1 + h1, lo2 + np.where(k0 > 0, h2, h2_0)])[:, keep])
+    return tuple(np.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("log_m", LOG_MS)
+def test_k2s_stash_and_walk_maps(log_m):
+    """K2s keeps each magnitude in the Z slot its lane has just read: each
+    slot is read by one lane only (so no barrier is needed before the
+    write), and bins 0..M land on distinct floats, bin k < M at the .x of
+    rpidx(rdigit_rev(k)) and bin M at the .y of slot 0. The rolloff's walk
+    finds bin 16t + i at rdigit_rev(16t) + rdigit_rev(i). The padding
+    slots hold a float2 a warp of the block (the emit's sums) and of the
+    frame (the rolloff's scan), apart from every Z slot and the last slot."""
+    m = 1 << log_m
+    t_count = m >> REG_BITS
+    lane, k, mirror, pa, pc = emit_bins(log_m)
+    readers = np.concatenate([pa, pc[pc != pa]])
+    assert np.array_equal(np.sort(readers), np.arange(m))  # each slot read once
+    assert np.array_equal(pa, rdigit_rev(log_m, k))
+    has = mirror >= 0
+    # where each bin is kept, as a float index of the frame buffer
+    kept = {int(b): 2 * int(rpidx(p)) for b, p in zip(k, pa)}
+    for b, p, q in zip(mirror[has], pc[has], pa[has]):
+        kept[int(b)] = 2 * int(rpidx(q)) + 1 if b == m else 2 * int(rpidx(p))
+    assert sorted(kept) == list(range(m + 1)) and len(set(kept.values())) == m + 1
+    for b in range(m):
+        assert kept[b] == 2 * rpidx(rdigit_rev(log_m, np.array(b)))
+    t = np.arange(t_count)[:, None]
+    i = np.arange(REG_POINTS)[None, :]
+    assert np.array_equal(rdigit_rev(log_m, 16 * t) + rdigit_rev(log_m, i),
+                          rdigit_rev(log_m, 16 * t + i))
+    fs = rframe_stride(m)
+    pads = 17 * np.arange(m // 16) + 16
+    assert pads.max() < fs - 1
+    assert not np.isin(pads, rpidx(np.arange(m))).any() and fs - 1 not in rpidx(np.arange(m))
+    max_nt = MAX_THREADS // 2 if log_m >= 11 else MAX_THREADS
+    ft = min(16, max_nt // t_count)
+    assert ft * t_count // 32 <= m // 16 and max(t_count // 32, 1) <= m // 16
+
+
+def model_k2s(frames: np.ndarray, win: np.ndarray, freq: np.ndarray, roll_percent: float):
+    """K2s's bandwidth (p = 2), flatness (power 2) and rolloff of ``(nf, N)``
+    frames in the kernel's order of float32 operations: each emit lane's
+    sums over its bins (emit_pairs' order), the frame's lanes combined by
+    the xor shuffles and then warp by warp; the rolloff's in-order chunks
+    of 16 bins, a Hillis-Steele scan a warp, the warps' totals in order."""
+    nf, n_fft = frames.shape
+    m = n_fft // 2
+    log_m = m.bit_length() - 1
+    t_count = m >> REG_BITS
+    S = np.abs(model_rfft(frames, win)).astype(np.float32)  # (nf, M+1)
+    lane, k, mirror, _, _ = emit_bins(log_m)
+    f32 = np.float32
+
+    def lane_sums(fn):
+        """Each lane's sum of fn(S, bin) over its bins in its order, then
+        the sum over lanes in the kernel's combination order."""
+        acc = np.zeros((nf, t_count), np.float32)
+        for ln, b, mb in zip(lane, k, mirror):
+            acc[:, ln] += fn(S[:, b], b)
+            if mb >= 0:
+                acc[:, ln] += fn(S[:, mb], mb)
+        max_nt = MAX_THREADS // 2 if log_m >= 11 else MAX_THREADS
+        ft = min(16, max_nt // t_count)
+        per_warp = 32 // ft  # lanes of one frame in a warp: k0 = per_warp*w .. +per_warp-1
+        acc = acc.reshape(nf, t_count // per_warp, per_warp)
+        d = 1
+        while d < acc.shape[-1]:  # xor butterfly: the same sums in every lane
+            acc = acc + acc[..., np.arange(acc.shape[-1]) ^ d]
+            d <<= 1
+        tot = np.zeros(nf, np.float32)
+        for w in range(acc.shape[1]):
+            tot += acc[:, w, 0]
+        return tot
+
+    fq = freq.astype(np.float32)
+    s0 = lane_sums(lambda s, b: s)
+    s1 = lane_sums(lambda s, b: fq[b] * s)
+    c = s1 / (s0 + f32(1e-10))
+    dev = lane_sums(lambda s, b: s * (np.abs(fq[b] - c) ** 2).astype(np.float32))
+    bandwidth = np.sqrt(dev / (s0 + f32(1e-10)))
+    x = np.maximum(S * S, f32(1e-10))
+    lsum = lane_sums(lambda s, b: np.log2(np.maximum(s * s, f32(1e-10))))
+    xsum = lane_sums(lambda s, b: np.maximum(s * s, f32(1e-10)))
+    n = f32(m + 1)
+    flatness = (f32(2) ** (lsum / n)) / (xsum / n + f32(1e-10))
+    assert x.shape == S.shape
+
+    # rolloff: chunks of 16 bins in order, thread T-1 also bin M
+    chunks = S[:, :m].reshape(nf, t_count, REG_POINTS)
+    csum = np.zeros((nf, t_count), np.float32)
+    for i in range(REG_POINTS):
+        csum += chunks[:, :, i]
+    csum[:, -1] += S[:, m]
+    w = min(t_count, 32)
+    inc = csum.reshape(nf, -1, w).copy()
+    d = 1
+    while d < w:
+        shifted = np.zeros_like(inc)
+        shifted[..., d:] = inc[..., :-d]
+        inc = inc + np.where(np.arange(w) >= d, shifted, f32(0))
+        d <<= 1
+    before = np.zeros_like(inc)
+    before[..., 1:] = inc[..., :-1]
+    warp_tot = np.zeros((nf, inc.shape[1]), np.float32)
+    for q in range(1, inc.shape[1]):
+        warp_tot[:, q] = warp_tot[:, q - 1] + inc[:, q - 1, -1]
+    before = (warp_tot[..., None] + before).reshape(nf, t_count)
+    run = before.copy()
+    runs = np.zeros((nf, t_count, REG_POINTS), np.float32)
+    for i in range(REG_POINTS):
+        run += chunks[:, :, i]
+        runs[:, :, i] = run
+    last = run[:, -1] + S[:, m]
+    thr = f32(roll_percent) * last
+    hit = np.concatenate([runs.reshape(nf, m), last[:, None]], axis=1) >= thr[:, None]
+    idx = np.where(hit.any(1), np.argmax(hit, axis=1), 0)
+    return bandwidth, flatness, fq[idx]
+
+
+@pytest.mark.parametrize("log_m", LOG_MS)
+def test_k2s_model_matches_float64(log_m):
+    """The model of K2s's sums, scan and threshold, on the model of its
+    FFT, against the statistics of ``numpy.fft.rfft`` in float64: bandwidth
+    and flatness within 1e-5 of max, rolloff within one bin."""
+    n_fft = 2 << log_m
+    frames = signals(80 + log_m, (6, n_fft))
+    win = window_host("hann", n_fft).astype(np.float32)
+    freq = np.linspace(0, 11025.0, n_fft // 2 + 1)
+    bw, flat, roll = model_k2s(frames, win, freq, 0.85)
+    S = np.abs(np.fft.rfft(win.astype(np.float64) * frames.astype(np.float64), axis=-1))
+    total = S.sum(1) + 1e-10
+    c = (freq * S).sum(1) / total
+    bw64 = np.sqrt((S * (freq - c[:, None]) ** 2).sum(1) / total)
+    x = np.maximum(S**2, 1e-10)
+    flat64 = np.exp(np.log(x).mean(1)) / (x.mean(1) + 1e-10)
+    cs = np.cumsum(S, 1)
+    roll64 = freq[np.argmax(cs >= 0.85 * cs[:, -1:], 1)]
+    assert np.abs(bw - bw64).max() <= 1e-5 * bw64.max()
+    assert np.abs(flat - flat64).max() <= 1e-5 * flat64.max()
+    assert np.abs(np.rint((roll - roll64) / (11025.0 / (n_fft // 2)))).max() <= 1

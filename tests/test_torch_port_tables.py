@@ -22,6 +22,7 @@ from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_t
 from mlx_audio_primitives_tpu_torch.kernels.db_fused import to_db_fused
 from mlx_audio_primitives_tpu_torch.kernels.mel_fused import acf_fused, melspectrogram_fused
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
+from mlx_audio_primitives_tpu_torch.kernels.stft_radix import stft_stats_fused
 from mlx_audio_primitives_tpu_torch.ops.mel import filterbank_spectrogram
 from mlx_audio_primitives_tpu_torch.ops.stft import _istft_envelope_table
 from mlx_audio_primitives_tpu_torch.utils import dispatch
@@ -209,7 +210,7 @@ def test_cpu_calls_launch_nothing():
     assert set(before) == {"mel_fused_kernel", "mel_fused_fast_kernel", "mel_fused_acf_kernel",
                            "mel_fused_mixed_kernel", "stft_kernel", "stft_mag_kernel",
                            "istft_kernel", "overlap_add_kernel", "select_extremes_kernel",
-                           "db_fused_kernel", "db_item_kernel"}
+                           "db_fused_kernel", "db_item_kernel", "stft_stats_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
     tap.istft(S, hop_length=128, use_pallas=True)
@@ -227,6 +228,10 @@ def test_cpu_calls_launch_nothing():
                              hop_length=128, center=True, pad_mode="constant", fast_gemm=fast)
     tap.melspectrogram(y, sr=16000, n_fft=400, hop_length=160, n_mels=16, use_pallas=True)
     to_db_fused(mag, 10.0, 1.0, 1e-10, 80.0, per_item=True, scale=0.025, offset=1.0)
+    for stat, freq in (("bandwidth", torch.arange(257.0)), ("rolloff", torch.arange(257.0)),
+                       ("flatness", None)):
+        stft_stats_fused(torch.from_numpy(y), torch.ones(512), freq, stat=stat, n_fft=512,
+                         hop_length=128, center=True, pad_mode="constant")
     assert launch_counts() == before
 
 
