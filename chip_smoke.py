@@ -42,7 +42,7 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    tables' transpose views, whose band plans the fast entry reads; the fast
    entry also on clips with inf and NaN samples (NaN in every column of
    each frame they reach, as the twin), on a cached table with an all-zero
-   m-tile and on a W given per call, whose plan the launch packs, and the
+   m-tile and on a W given per call, whose plan ``plan_of`` packs, and the
    128-mel plan's 73 of 520 blocks; K3 also through
    its natural-spectrum entries
    ``istft_fused_t`` / ``istft_fused_nat``; K2s's bandwidth, rolloff and
@@ -56,7 +56,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    conversion, bit for bit at the log-mel cells' shapes, at a ``ref`` whose
    reciprocal rounds, on NaN, +inf and zeros, on an unaligned input and on a
    transposed mel; at Whisper large-v3's batch (64 x 30 s at 16 kHz, n_fft
-   400, hop 160, 128 mels), K1m within 2e-5 of max of its twin and K6's
+   400, hop 160, 128 mels), K1m within 2e-5 of max of its twin (also with
+   a W given per call) and K6's
    per-item form (a floor per clip, ``/ 40 + 1``) on the mel's
    ``[..., :-1]`` view bit for bit its twin, also with NaN and +inf;
    ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
@@ -1027,7 +1028,8 @@ def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     """Phase 3's checks at Whisper large-v3's batch (``WHISPER``, n_fft 400,
     hop 160, reflect pad, the 128-mel Slaney table to 8 kHz): K1m within
     2e-5 of max of its twin (the fast entry's class: the twin's passes round
-    in another order, and a power's bf16 split can move by one step), then
+    in another order, and a power's bf16 split can move by one step), also
+    on four clips with a W given per call (``plan_of`` packs its plan), then
     K6's per-item form on the mel's ``[..., :-1]`` view, as the front end
     calls it (top_db 80, ``/ 40 + 1``), bit for bit its twin, also with NaN
     and +inf in three clips."""
@@ -1039,7 +1041,7 @@ def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
     y = torch.randn(WHISPER, generator=gen, device=dev)
     win = torch.hann_window(WHISPER_KW["n_fft"], periodic=True, device=dev)
     fb_t = mel_filterbank(WHISPER_SR, WHISPER_KW["n_fft"], N_MELS, 0.0, 8000.0, device=dev).t()
-    mel = run(k1.KERNEL_MIXED, k1.melspectrogram_fused_mixed, y, win, fb_t, **WHISPER_KW)
+    mel = run(k1.KERNEL_MIXED, k1.melspectrogram_fused, y, win, fb_t, **WHISPER_KW)
     ref = k1.melspectrogram_mixed_plain(y, win, fb_t, **WHISPER_KW)
     e = rel_err(mel, ref)
     print(f"K1m {tuple(y.shape)} n_fft 400 hop 160 reflect -> {tuple(mel.shape)}: rel err "
@@ -1048,6 +1050,14 @@ def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
           "K1m disagrees with its plain twin")
     errs[K1M] = abs_err(mel, ref)
     del ref
+    # a W given per call (trainable): plan_of packs its full-range plan
+    w = (fb_t * (1.0 + 0.1 * torch.rand(fb_t.shape, generator=gen, device=dev))).contiguous()
+    y4 = y[:4].contiguous()
+    got = run(k1.KERNEL_MIXED, k1.melspectrogram_fused, y4, win, w, **WHISPER_KW)
+    e = rel_err(got, k1.melspectrogram_mixed_plain(y4, win, w, **WHISPER_KW))
+    print(f"K1m, a W given per call {tuple(w.shape)}, {k1.plan_of(w)[1]} blocks: rel err {e:.3e} "
+          f"(limit 2e-5)")
+    check(e <= 2e-5, "K1m disagrees with its plain twin on a W given per call")
     special = mel.clone()
     special[3, 5, 7], special[9, 100, mel.shape[-1] // 2], special[-1, -1, -2] = (
         float("nan"), float("inf"), float("inf"))
@@ -1372,7 +1382,7 @@ def k1_fast_cases(gen: torch.Generator, run, errs: dict) -> None:
     an inf and a NaN sample (NaN in every column of every such frame, as
     the twin gives: the tile takes every k-step), a cached table with an
     all-zero m-tile (one k-step for it), and a W given per call (the
-    trainable frontends'), whose full-range plan the launch packs; and the
+    trainable frontends'), whose full-range plan ``plan_of`` packs; and the
     blocks each plan contracts."""
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.ops.mel import mel_filterbank
@@ -4470,7 +4480,7 @@ def times(gen: torch.Generator, card: str) -> dict:
          lambda: k6.to_db_fused(mel64, 10.0, 1.0, 1e-10, 80.0),
          lambda: k6.to_db_plain(mel64, 10.0, 1.0, 1e-10, 80.0), None),
         (K1M, "Whisper's 64 x 30 s at 16 kHz, n_fft 400, hop 160, 128 mels",
-         lambda: k1.melspectrogram_fused_mixed(y_wh, win_wh, fb_wh, **WHISPER_KW),
+         lambda: k1.melspectrogram_fused(y_wh, win_wh, fb_wh, **WHISPER_KW),
          lambda: k1.melspectrogram_mixed_plain(y_wh, win_wh, fb_wh, **WHISPER_KW), None),
         (K6_ITEM, f"the [..., :-1] view of Whisper's 64 x {N_MELS} x {Fw} mel, top_db 80, / 40 + 1",
          lambda: k6.to_db_fused(mel_wh, 10.0, 1.0, 1e-10, 80.0, **item_kw),
@@ -4511,7 +4521,7 @@ def times(gen: torch.Generator, card: str) -> dict:
     # K1's two entries (the kernels line takes the scale configuration's)
     out = k1_times("scale (256, 88200)", y_scale, win, fb_t, 20)
     k1_times("64 x 30 s", y_feat, win, fb_t, 5)
-    ms = kernel_device_ms(lambda: k1.melspectrogram_fused_mixed(y_wh, win_wh, fb_wh, **WHISPER_KW),
+    ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y_wh, win_wh, fb_wh, **WHISPER_KW),
                           K1M, 5)
     print(f"{K1M} device time, Whisper's 64 x 30 s at 16 kHz (torch.profiler, 5 calls): "
           f"{ms:.4f} ms, bound {_bound(*work[K1M], bf16_ops=k1m_products)[0]:.4f} ms")

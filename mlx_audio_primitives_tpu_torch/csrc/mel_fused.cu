@@ -63,14 +63,15 @@
 // only those blocks (73 of 520 at the 128-mel table: a mel filter is a
 // triangle a few bins wide), the warps taking equal shares of them. A W
 // given per call (a trainable filterbank) is packed into a full-range plan on the
-// device by a small kernel first; no call copies or transposes a cached
-// table.
+// device first, by mel_fused_fast_pack_kernel (mel_fused_pack_launch); no call
+// copies or transposes a cached table.
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_bf16.h>
 
 #include "fft_common.cuh"
+#include "k1_plan.cuh"
 
 namespace {
 
@@ -133,26 +134,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b on the tensor cores (m16n8k16, bf16 in, FP32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The bf16 split of x0 (low half) and x1 (high half) as two packed words:
-// hi = bf16_rn(x), lo = bf16_rn(x - hi), rounding to nearest even, as
-// _bf16_split does (x - hi is exact in FP32)
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = reinterpret_cast<const unsigned&>(h);
-  lo = reinterpret_cast<const unsigned&>(l);
 }
 
 // |X[k]|^p and |X[M-k]|^p of the frame z for k = k0 + J*TP <= M/2, where
@@ -464,23 +445,7 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
 // The fast entry (mel_fused_fast_launch): the contraction as the JAX
 // kernel's fast_gemm mode computes it, over the weight's nonzero band.
 //
-// The plan (kernels/mel_fused.py::band_plan_host for a cached table, built
-// once per table and device; mel_fused_fast_pack_kernel for a W given per
-// call), int32 words:
-//   [0] kPlanMagic, [1] n_cols, [2] n_mt, [3] ksteps, [4] blocks, [5..7] 0;
-//   [kPlanHeader + mt], mt <= n_mt: the blocks of the m-tiles before mt;
-//   [kPlanHeader + n_mt + 1 + mt], mt < n_mt: the m-tile's first k-step;
-//   from plan_w_offset(n_mt) (16-byte aligned): W^T split into bf16
-//   hi = bf16_rn(x) and lo = bf16_rn(x - hi), zero-padded to 16 n_mt columns
-//   and ksteps k-steps of 16 bins, 16 words a (column, k-step), column by
-//   column: for q = 0..3 the words hi(4q, 4q+1), hi(4q+2, 4q+3),
-//   lo(4q, 4q+1), lo(4q+2, 4q+3), the even bin in the low half.
-// A block is an (m-tile, k-step) pair; m-tile mt's columns are exactly zero
-// outside its blocks (at least one; every k-step for a dense W). Thread q's
-// 16-byte load at (column, k-step) is its A registers of that column: the
-// k-step's bins permuted so that a thread's four are consecutive (fragment
-// columns 2q, 2q+1 are bins 4q, 4q+1 and columns 2q+8, 2q+9 bins 4q+2,
-// 4q+3; the B registers take the same permutation), hi and lo already split.
+// It reads W from the plan whose layout csrc/k1_plan.cuh sets out.
 //
 // Per tile of FT frames (the dense entry's tile: 16 frames and 1,024
 // threads at n_fft 2048; two 512-thread blocks of 8 frames an SM measured
@@ -504,18 +469,12 @@ mel_fused_kernel(const float* __restrict__ y, long long L,
 //   column, as in the dense product). Skipping a block of exact zeros
 //   changes no finite sum.
 // At the scale configuration's 128-mel table the blocks are 73 of 520.
-constexpr int kPlanMagic = 0x4B31BA4D;
-constexpr int kPlanHeader = 8;
 // After the segment: the tile's flag, then the m-tiles' reduction lists
 // (shared_tail_words: n_mt + 1 words past the flag's 4)
 constexpr int kFlagBytes = 16;
 
 __host__ __device__ constexpr int shared_tail_bytes(int n_mt) {
   return kFlagBytes + ((4 * (n_mt + 1) + 15) & ~15);
-}
-
-__host__ __device__ constexpr int plan_w_offset(int n_mt) {
-  return (kPlanHeader + 2 * n_mt + 1 + 3) & ~3;
 }
 
 // The fast entry's tile: the dense entry's (mapt::Geometry<LOG_M, 512>
@@ -548,11 +507,11 @@ __device__ __forceinline__ unsigned share_mask(int tot) {
 // (full)
 __device__ __forceinline__ int band_cum(const int* __restrict__ plan, int mt, bool full,
                                         int ksteps) {
-  return full ? mt * ksteps : __ldg(plan + kPlanHeader + mt);
+  return full ? mt * ksteps : __ldg(plan + mapt::kPlanHeader + mt);
 }
 __device__ __forceinline__ int band_k0(const int* __restrict__ plan, int n_mt, int mt,
                                        bool full) {
-  return full ? 0 : __ldg(plan + kPlanHeader + n_mt + 1 + mt);
+  return full ? 0 : __ldg(plan + mapt::kPlanHeader + n_mt + 1 + mt);
 }
 
 // The sums of k-steps [kb, ke) of the m-tile whose column ca = c0 + g the
@@ -590,9 +549,9 @@ __device__ __forceinline__ void band_unit(float (&acc)[(FT + 7) / 8][4], const f
       const unsigned blo[2] = {ok0 ? l.x : 0u, ok1 ? l.y : 0u};
       // from zero each k-step, as unit_3xtf32
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, alo, bhi);
-      mma_bf16(d, ahi, blo);
-      mma_bf16(d, ahi, bhi);
+      mapt::mma_bf16(d, alo, bhi);
+      mapt::mma_bf16(d, ahi, blo);
+      mapt::mma_bf16(d, ahi, bhi);
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] += d[i];
     }
@@ -678,8 +637,8 @@ mel_fused_fast_kernel(const float* __restrict__ y, long long L,
   static_assert(NW <= 32, "a warp's share is a bit of a word");
   mapt::stage_twiddles<LOG_M>(twp, tw_g, tid, NT);
   for (int mt = tid; mt <= n_mt; mt += NT)
-    flag_at(hop)[4 + mt] = mt < n_mt ? share_ends<NW>(__ldg(plan + kPlanHeader + mt),
-                                          __ldg(plan + kPlanHeader + mt + 1), blocks)
+    flag_at(hop)[4 + mt] = mt < n_mt ? share_ends<NW>(__ldg(plan + mapt::kPlanHeader + mt),
+                                                __ldg(plan + mapt::kPlanHeader + mt + 1), blocks)
                          : static_cast<int>(share_mask<NW>(blocks));
   int tile = blockIdx.x;
   int off = mapt::stage_segment(y + static_cast<long long>(tile / tiles) * L, L,
@@ -732,7 +691,7 @@ mel_fused_fast_kernel(const float* __restrict__ y, long long L,
       const int n_mt_ = opaque(n_mt), n_cols_ = opaque(n_cols);
       const bool full = *flag_at(opaque(hop)) != 0;
       const int tot = full ? n_mt_ * KSTEPS : opaque(blocks);
-      const uint4* wplan = reinterpret_cast<const uint4*>(plan + plan_w_offset(n_mt_));
+      const uint4* wplan = reinterpret_cast<const uint4*>(plan + mapt::plan_w_offset(n_mt_));
       const int b0 = warp * tot / NW, b1 = (warp + 1) * tot / NW;
       float acc[NTILE][4];
       bool held = false;
@@ -791,16 +750,17 @@ mel_fused_fast_kernel(const float* __restrict__ y, long long L,
 }
 
 // A full-range plan from a W given per call, (n_bins, n_cols) at strides
-// (s_bin, s_col) floats: its header and ranges, and W^T split as above, one
-// thread a (column, k-step, q); zero past n_bins or n_cols
+// (s_bin, s_col) floats: its header and ranges, and W^T split as
+// csrc/k1_plan.cuh lays it out, one thread a (column, k-step, q); zero past
+// n_bins or n_cols
 __global__ void mel_fused_fast_pack_kernel(const float* __restrict__ W, long long s_bin,
                                            long long s_col, int n_bins, int n_cols, int n_mt,
                                            int ksteps, int* __restrict__ plan) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int off = plan_w_offset(n_mt);
+  const int off = mapt::plan_w_offset(n_mt);
   if (i < off) {
-    const int mt = i - kPlanHeader;
-    plan[i] = i == 0 ? kPlanMagic
+    const int mt = i - mapt::kPlanHeader;
+    plan[i] = i == 0 ? mapt::kPlanMagic
               : i == 1 ? n_cols
               : i == 2 ? n_mt
               : i == 3 ? ksteps
@@ -817,8 +777,8 @@ __global__ void mel_fused_fast_pack_kernel(const float* __restrict__ W, long lon
     x[r] = k < n_bins && c < n_cols ? W[k * s_bin + c * s_col] : 0.f;
   }
   unsigned h0, l0, h1, l1;
-  split_bf16x2(x[0], x[1], h0, l0);
-  split_bf16x2(x[2], x[3], h1, l1);
+  mapt::split_bf16x2(x[0], x[1], h0, l0);
+  mapt::split_bf16x2(x[2], x[3], h1, l1);
   reinterpret_cast<uint4*>(plan + off)[i] = make_uint4(h0, h1, l0, l1);
 }
 
@@ -1180,13 +1140,11 @@ int launch_m(const float* y, long long L, const float* win, const float* tw, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fast entry from a plan of `blocks` blocks; pack: first pack a
-// full-range plan from W (n_bins, n_cols) at strides (s_bin, s_col) into it
+// The fast entry from a plan of `blocks` blocks
 template <int LOG_M>
 int fast_launch_m(const float* y, long long L, const float* win, const float* tw,
-                  const float* W, long long s_bin, long long s_col, int* plan, int pack,
-                  float* out, int B, int hop, int F, int n_cols, int blocks, int pad, int mode,
-                  int power, int device, cudaStream_t stream) {
+                  const int* plan, float* out, int B, int hop, int F, int n_cols, int blocks,
+                  int pad, int mode, int power, int device, cudaStream_t stream) {
   using G = FastGeometry<LOG_M>;
   constexpr int KSTEPS = G::M / 16 + 1;
   const int n_mt = (n_cols + 15) / 16;
@@ -1196,9 +1154,6 @@ int fast_launch_m(const float* y, long long L, const float* win, const float* tw
   const int err = contract_grid<LOG_M, kFast>(smem, B, F, n_cols, hop, device, &tiles, &total,
                                               &grid);
   if (err != 0 || grid == 0) return err;
-  if (pack)
-    mel_fused_fast_pack_kernel<<<(64 * n_mt * KSTEPS + 255) / 256, 256, 0, stream>>>(
-        W, s_bin, s_col, G::M + 1, n_cols, n_mt, KSTEPS, plan);
   mel_fused_fast_kernel<LOG_M><<<grid, G::NT, smem, stream>>>(
       y, L, win, reinterpret_cast<const float2*>(tw), plan, out, hop, F, n_cols, n_mt, blocks,
       pad, mode, power, tiles, total);
@@ -1267,25 +1222,38 @@ extern "C" int mel_fused_launch(const float* y, long long L, const float* win,
 }
 
 // The fast entry: the same, the contraction as bf16x3 over the blocks of
-// the plan (pack: a full-range plan packed from W first, for a W given per
-// call)
+// the plan
 extern "C" int mel_fused_fast_launch(const float* y, long long L, const float* win,
-                                     const float* tw, const float* W, long long s_bin,
-                                     long long s_col, int* plan, int pack, float* out,
-                                     int B, int n_fft, int hop, int F, int n_cols, int blocks,
-                                     int pad, int mode, int power, int device, void* stream) {
+                                     const float* tw, const int* plan, float* out, int B,
+                                     int n_fft, int hop, int F, int n_cols, int blocks, int pad,
+                                     int mode, int power, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (__builtin_ctz(static_cast<unsigned>(n_fft / 2))) {
-#define MAPT_CASE(LM)                                                                    \
-  case LM:                                                                               \
-    return fast_launch_m<LM>(y, L, win, tw, W, s_bin, s_col, plan, pack, out, B, hop, F, \
-                             n_cols, blocks, pad, mode, power, device, s);
+#define MAPT_CASE(LM)                                                                        \
+  case LM:                                                                                   \
+    return fast_launch_m<LM>(y, L, win, tw, plan, out, B, hop, F, n_cols, blocks, pad, mode, \
+                             power, device, s);
     MAPT_K1_LOG_MS(MAPT_CASE)
 #undef MAPT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The full-range plan of W (n_bins, n_cols) at strides (s_bin, s_col) into
+// plan, plan_w_offset(n_mt) + 256 n_mt ksteps words, for the fast entry and
+// K1m (csrc/mel_fused_mixed.cu)
+extern "C" int mel_fused_pack_launch(const float* W, long long s_bin, long long s_col, int n_bins,
+                                     int n_cols, int* plan, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_bins < 1 || n_cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_mt = (n_cols + 15) / 16, ksteps = (n_bins + 15) / 16;
+  const auto s = static_cast<cudaStream_t>(stream);
+  mel_fused_fast_pack_kernel<<<(64 * n_mt * ksteps + 255) / 256, 256, 0, s>>>(
+      W, s_bin, s_col, n_bins, n_cols, n_mt, ksteps, plan);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The ACF entry: out (B, 1 + hi - lo, F) = lag 0 and lags [lo, hi) of

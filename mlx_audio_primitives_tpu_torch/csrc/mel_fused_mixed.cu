@@ -8,8 +8,8 @@
 // (power-of-two n_fft that a multiple-of-128 hop divides), so at Whisper's
 // shape the port took the plain composition: pad, frame, window, rfft,
 // |X|^2 and an FP32 matmul, each through device memory. The port's own gate
-// (utils/dispatch.py::mel_shape_ok) admits this entry's shapes beside the
-// radix gate's; kernels/mel_fused.py::melspectrogram_fused_mixed launches it.
+// (kernels/mel_fused.py::mel_shape_ok) admits this entry's shapes beside the
+// radix gate's; kernels/mel_fused.py::melspectrogram_fused launches it there.
 //
 // What bounds it on this card. At 64 x 30 s of 16 kHz audio (192,064 frames
 // of 400, 128 mels) the work is 123 MB of audio read and 98 MB of mel written
@@ -37,7 +37,7 @@
 //   (8 frames by 4 bin pairs) both hit 32 banks. The rows lie apart from the
 //   frame buffers; bins past M stay zero from the start;
 // - the contraction as K1's fast entry computes it, from the same plan
-//   (kernels/mel_fused.py::band_plan_host, "The plan" in mel_fused.cu: W^T
+//   (csrc/k1_plan.cuh, kernels/mel_fused.py::plan_of: W^T
 //   split into bf16 hi and lo in the A fragments' order, each 16-column
 //   m-tile's band of 16-bin k-steps): lo*hi + hi*lo + hi*hi on mma.sync
 //   m16n8k16, each k-step from zero, added in FP32. A warp takes whole
@@ -52,17 +52,11 @@
 #include <cuda_bf16.h>
 
 #include "fft_common.cuh"
+#include "k1_plan.cuh"
 
 namespace {
 
 constexpr int kMaxDevices = 64;
-// The plan's header (csrc/mel_fused.cu, "The plan")
-constexpr int kPlanHeader = 8;
-
-__host__ __device__ constexpr int plan_w_offset(int n_mt) {
-  return (kPlanHeader + 2 * n_mt + 1 + 3) & ~3;
-}
-
 // The tile at n_fft N, and the byte offsets of its shared memory: frame
 // buffers, the power rows (hi, then lo), the passes' twiddles, the bins'
 // positions after the passes, the tile's flag, the segment
@@ -95,16 +89,6 @@ struct MixedGeometry {
     return SEG_OFF + sizeof(float) * static_cast<size_t>(cap);
   }
 };
-
-// c += a * b on the tensor cores (m16n8k16, bf16 in, FP32 accumulate), as
-// mel_fused.cu's
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Pass 0 of every frame of the tile: the windowed packed points from the
 // segment (frame f at seg + f * hop), butterflies fastest across lanes; the
@@ -218,13 +202,13 @@ __device__ __forceinline__ void mixed_contract(const unsigned* rows_hi, const un
   constexpr int KSTEPS = G::KSTEPS, RS = G::RS, NTILE = G::FT / 8;
   constexpr int NEXT_COL = 8 * KSTEPS * 4;  // uint4s from column ca to ca + 8
   const int warp = tid >> 5, g = (tid & 31) >> 2, q = tid & 3;
-  const uint4* wplan = reinterpret_cast<const uint4*>(plan + plan_w_offset(n_mt));
+  const uint4* wplan = reinterpret_cast<const uint4*>(plan + mapt::plan_w_offset(n_mt));
   for (int u = warp; u < n_mt * NTILE; u += G::NW) {
     const int mt = u / NTILE, j = u - mt * NTILE;
     int kb = 0, ke = KSTEPS;
     if (!full) {
-      kb = __ldg(plan + kPlanHeader + n_mt + 1 + mt);
-      ke = kb + __ldg(plan + kPlanHeader + mt + 1) - __ldg(plan + kPlanHeader + mt);
+      kb = __ldg(plan + mapt::kPlanHeader + n_mt + 1 + mt);
+      ke = kb + __ldg(plan + mapt::kPlanHeader + mt + 1) - __ldg(plan + mapt::kPlanHeader + mt);
     }
     const int ca = 16 * mt + g, f = 8 * j + g;
     const uint4* w = wplan + static_cast<size_t>(ca) * KSTEPS * 4 + q;
@@ -238,9 +222,9 @@ __device__ __forceinline__ void mixed_contract(const unsigned* rows_hi, const un
       const unsigned blo[2] = {rows_lo[wd], rows_lo[wd + RS]};
       // from zero each k-step, as K1's fast entry
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, alo, bhi);
-      mma_bf16(d, ahi, blo);
-      mma_bf16(d, ahi, bhi);
+      mapt::mma_bf16(d, alo, bhi);
+      mapt::mma_bf16(d, ahi, blo);
+      mapt::mma_bf16(d, ahi, bhi);
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[i] += d[i];
     }

@@ -46,8 +46,9 @@ the kernel contracts only those blocks (73 of 520 at the 128-mel table),
 the warps taking equal shares of them; a tile whose powers hold a value
 that is not finite takes every k-step, so that ``inf * 0`` gives NaN in
 every column, as in the dense product. For a W given per call (a
-trainable filterbank, a caller's own weight) the launcher first packs a
-full-range plan from W on the device. The tile is the dense entry's (two
+trainable filterbank, a caller's own weight) :func:`plan_of` first packs a
+full-range plan from W on the device (``mel_fused_fast_pack_kernel``); the
+plan's layout is `csrc/k1_plan.cuh`'s. The tile is the dense entry's (two
 512-thread blocks an SM at n_fft 2048 measured slower). Its plain twin is
 :func:`melspectrogram_plain` with ``fast_gemm=True``, the same split in
 FP32 matmuls (a product of two bf16 values is exact in FP32). Under either
@@ -70,18 +71,21 @@ the 3.5 MB basis from L2 once per 4-frame tile. Its bound is the two FFTs'
 FP32 operations.
 
 The mixed-radix entry, K1m (``mel_fused_mixed_kernel``,
-`csrc/mel_fused_mixed.cu`, :func:`melspectrogram_fused_mixed`). K1 at an
-n_fft off the radix gate, at any hop from n_fft / 8 to n_fft
-(`utils/dispatch.py::mixed_shape_ok`; Whisper's 400 at hop 160, which does
-not divide it). Tiles of 32 frames read from one staged segment at offsets of
-the hop; the real FFT as the complex FFT of n_fft / 2 packed points in
-radix-5 and radix-8 passes (:func:`mixed_fft`), FP32, through shared memory;
-the power rows as bf16 hi and lo; and the fast entry's contraction from the
-same plan (:func:`band_plan_host`; a W given per call is packed on its device
-by :func:`device_plan`). It has the fast entry's precision and no exact mode,
-so the port's gate admits it only while ``_config.ANALYSIS_FAST_GEMM`` is on.
-Its plain twin, :func:`melspectrogram_mixed_plain`, runs the same passes in
-torch; the backward is the exact plain composition's.
+`csrc/mel_fused_mixed.cu`). K1 at an n_fft off the radix gate, at any hop
+from n_fft / 8 to n_fft (:func:`mixed_shape_ok`; Whisper's 400 at hop 160,
+which does not divide it). Tiles of 32 frames read from one staged segment
+at offsets of the hop; the real FFT as the complex FFT of n_fft / 2 packed
+points in radix-5 and radix-8 passes (:func:`mixed_fft`), FP32, through
+shared memory; the power rows as bf16 hi and lo; and the fast entry's
+contraction from the same plan (:func:`plan_of`). It has the fast entry's
+precision and no exact mode, so K1's gate (:func:`mel_shape_ok`) admits it
+only in the fast mode. Its plain twin, :func:`melspectrogram_mixed_plain`,
+runs the same passes in torch; the backward is the exact plain
+composition's.
+
+:func:`melspectrogram_fused` is the one wrapper of the three filterbank
+entries: it takes the dense entry, the fast entry or K1m from the shape and
+the mode.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ import torch
 from .. import _config
 from ..ops._frames import windowed_frames
 from ..utils.cache import TableCache, table_cache, table_origin
-from ..utils.dispatch import MIXED_N_FFTS, mixed_shape_ok, on_cuda, radix_shape_ok
+from ..utils.dispatch import on_cuda, radix_shape_ok
 from ..utils.profiler import traced
 from ._build import I32, I64, Kernel, P, library, register, require, with_plain_backward
 from .dft import rfft_frames, rfft_twiddles
@@ -107,11 +111,10 @@ KERNEL = register(Kernel(
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
 #: K1's fast entry: the same pallas_call with its fast_gemm mode (bf16x3),
-#: reading its weight from a plan (:func:`band_plan_host`); for a weight
-#: given per call the launcher first packs one from W at its strides
+#: reading its weight from a plan (:func:`plan_of`)
 KERNEL_FAST = register(Kernel(
     "mel_fused_fast_kernel", "mel_fused_fast_launch",
-    (P, I64, P, P, P, I64, I64, P, I32, P, I32, I32, I32, I32, I32, I32, I32, I32, I32),
+    (P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32),
     source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
@@ -133,8 +136,39 @@ KERNEL_MIXED = register(Kernel(
     replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
 ))
 
+#: The full-range plan of a W given per call, packed on its device for the
+#: fast entry and K1m (:func:`plan_of`). Not registered: no launch count
+#: holds it, as none holds a table's build.
+PACK = Kernel(
+    "mel_fused_fast_pack_kernel", "mel_fused_pack_launch", (P, I64, I64, I32, I32, P),
+    source="mlx_audio_primitives_tpu_torch/csrc/mel_fused.cu",
+    replaces="mlx_audio_primitives_tpu/kernels/mel_fused.py:581",
+)
+
 #: pad_mode -> the kernels' padding code (fft_common.cuh::padded_sample)
 PAD_CODES = {"constant": 0, "reflect": 1, "edge": 2}
+
+#: The n_fft values of K1m (`csrc/mel_fused_mixed.cu`, one instance each):
+#: Whisper's 400 = 2^4 * 5^2, off the radix gate
+MIXED_N_FFTS = (400,)
+
+
+def mixed_shape_ok(n_fft: int, hop_length: int) -> bool:
+    """K1m's shape gate: an n_fft it is built for, at any hop from
+    ``n_fft // 8`` to ``n_fft`` (the hop need not divide it)."""
+    return n_fft in MIXED_N_FFTS and n_fft // 8 <= hop_length <= n_fft
+
+
+def mel_shape_ok(n_fft: int, hop_length: int, fast_gemm: bool | None = None) -> bool:
+    """K1's shape gate in :func:`melspectrogram_fused`: the JAX radix gate's
+    shapes (`utils/dispatch.py::radix_shape_ok`, the dense and the fast
+    entries) and, in the fast mode (``fast_gemm``; None:
+    ``_config.ANALYSIS_FAST_GEMM``, read at call time), K1m's
+    (:func:`mixed_shape_ok`), which has no exact mode."""
+    if fast_gemm is None:
+        fast_gemm = _config.ANALYSIS_FAST_GEMM
+    return radix_shape_ok(n_fft, hop_length) or (
+        bool(fast_gemm) and mixed_shape_ok(n_fft, hop_length))
 
 
 def launch_geometry(n_fft: int, hop_length: int, device: torch.device, *,
@@ -301,7 +335,7 @@ def _dense_weight(cache: TableCache, args: tuple, transposed: bool) -> np.ndarra
 def fast_plan(fb_t: torch.Tensor) -> tuple[torch.Tensor, np.ndarray] | None:
     """The fast entry's plan of ``fb_t`` on its device and the plan's host
     words, where ``fb_t`` is a cached table or its transpose; None for a W
-    given per call, whose plan the launch packs on the device."""
+    given per call, whose plan :func:`plan_of` packs on the device."""
     key = _table_key(fb_t)
     if key is None:
         return None
@@ -317,7 +351,27 @@ def contracted_blocks(fb_t: torch.Tensor) -> tuple[int, int]:
     return (every if plan is None else int(plan[1][4])), every
 
 
-def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_gemm=False):
+def plan_of(fb_t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The plan the fast entry and K1m read for the CUDA weight ``fb_t``, and
+    the blocks it holds: a cached table's band plan (:func:`fast_plan`), or
+    for a W given per call a full-range plan packed from W at its strides on
+    the current stream."""
+    n_bins, n_cols = fb_t.shape
+    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
+    planned = fast_plan(fb_t)
+    if planned is None:
+        plan = torch.empty(plan_w_offset(n_mt) + 256 * n_mt * ksteps, dtype=torch.int32,
+                           device=fb_t.device)
+        PACK.launch(fb_t.device, fb_t.data_ptr(), *fb_t.stride(), n_bins, n_cols,
+                    plan.data_ptr())
+        return plan, n_mt * ksteps
+    plan, host = planned
+    if host[:4].tolist() != [PLAN_MAGIC, n_cols, n_mt, ksteps] or plan.numel() != host.size:
+        raise ValueError(f"the plan does not fit W {tuple(fb_t.shape)}: header {tuple(host[:5])}")
+    return plan, int(host[4])
+
+
+def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_gemm):
     require(y, "y", torch.float32, 2)
     require(win, "win", torch.float32, 1)
     if fb_t.device != y.device or fb_t.dtype != torch.float32 or fb_t.dim() != 2:
@@ -327,39 +381,27 @@ def _launch(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power, fast_ge
     n_bins, n_cols = fb_t.shape
     if win.shape[0] != n_fft or n_bins != n_fft // 2 + 1:
         raise ValueError(
-            f"mel_fused_kernel needs win ({n_fft},) and fb_t ({n_fft // 2 + 1}, n_cols); "
+            f"K1 needs win ({n_fft},) and fb_t ({n_fft // 2 + 1}, n_cols); "
             f"got {tuple(win.shape)} and {tuple(fb_t.shape)}"
         )
     pad = n_fft // 2 if center else 0
     F = 1 + (L + 2 * pad - n_fft) // hop_length
     tw = rfft_twiddles(n_fft, device=y.device)
     out = torch.empty((B, n_cols, F), dtype=torch.float32, device=y.device)
+    ptrs = (y.data_ptr(), L, win.data_ptr(), tw.data_ptr())
     shape = (B, n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode], int(power))
     if not fast_gemm:
         key = _table_key(fb_t)
         w = fb_t if key is None else _dense_weight(*key, device=y.device)
         require(w, "fb_t", torch.float32, 2)
-        KERNEL.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), w.data_ptr(),
-                      out.data_ptr(), *shape)
+        KERNEL.launch(y.device, *ptrs, w.data_ptr(), out.data_ptr(), *shape)
         return out
-    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
-    planned = fast_plan(fb_t)
-    if planned is None:
-        # a W given per call (a trainable filterbank, a caller's own
-        # weight): the launcher packs a full-range plan from it first
-        plan = torch.empty(plan_w_offset(n_mt) + 256 * n_mt * ksteps, dtype=torch.int32,
-                           device=y.device)
-        blocks, pack = n_mt * ksteps, 1
+    plan, blocks = plan_of(fb_t)
+    if radix_shape_ok(n_fft, hop_length):
+        KERNEL_FAST.launch(y.device, *ptrs, plan.data_ptr(), out.data_ptr(), *shape[:5], blocks,
+                           *shape[5:])
     else:
-        plan, host = planned
-        if tuple(host[:4]) != (PLAN_MAGIC, n_cols, n_mt, ksteps) or plan.numel() != host.size:
-            raise ValueError(f"the fast entry's plan does not fit W {tuple(fb_t.shape)}: "
-                             f"header {tuple(host[:5])}")
-        blocks, pack = int(host[4]), 0
-    s_bin, s_col = fb_t.stride()
-    KERNEL_FAST.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(),
-                       fb_t.data_ptr(), s_bin, s_col, plan.data_ptr(), pack, out.data_ptr(),
-                       *shape[:5], blocks, *shape[5:])
+        KERNEL_MIXED.launch(y.device, *ptrs, plan.data_ptr(), out.data_ptr(), *shape)
     return out
 
 
@@ -376,21 +418,25 @@ def melspectrogram_fused(
     power: float = 2.0,
     fast_gemm: bool | None = None,
 ) -> torch.Tensor:
-    """``(B, L) -> (B, n_cols, F)`` through ``mel_fused_kernel`` on a CUDA
-    tensor, through the plain twin on a CPU tensor.
+    """``(B, L) -> (B, n_cols, F)`` through K1 on a CUDA tensor, through the
+    chosen entry's plain twin on a CPU tensor.
 
-    Requires the radix shape gate (`utils/dispatch.py::radix_shape_ok`) and
-    ``power`` in {1, 2}; any window and any dense ``fb_t`` (the contraction
-    walks ``ceil(n_cols / 16)`` column tiles, so shared memory does not grow
-    with the columns and time follows them). ``fast_gemm`` (None:
-    ``_config.ANALYSIS_FAST_GEMM``, read at call time; True by default)
-    takes the fast entry, ``mel_fused_fast_kernel``, and its twin: ~1e-5
-    of max of an exact product; False the dense entry, within ~1e-6. Under
-    both the backward differentiates the exact plain twin."""
-    if not radix_shape_ok(n_fft, hop_length):
+    Requires K1's gate (:func:`mel_shape_ok`) and ``power`` in {1, 2}; any
+    window and any dense ``fb_t`` (the contraction walks ``ceil(n_cols /
+    16)`` column tiles, so shared memory does not grow with the columns and
+    time follows them). ``fast_gemm`` (None: ``_config.ANALYSIS_FAST_GEMM``,
+    read at call time; True by default) takes the fast entry,
+    ``mel_fused_fast_kernel``, on the radix gate and K1m,
+    ``mel_fused_mixed_kernel``, off it: ~1e-5 of max of an exact product;
+    False the dense entry, within ~1e-6. Under both the backward
+    differentiates the exact plain twin."""
+    if fast_gemm is None:
+        fast_gemm = _config.ANALYSIS_FAST_GEMM
+    if not mel_shape_ok(n_fft, hop_length, fast_gemm):
         raise ValueError(
-            f"fused mel kernel requires pow2 n_fft = C*hop, hop = R2*128, "
-            f"C,R2 <= 8; got n_fft={n_fft}, hop={hop_length}"
+            f"fused mel kernel requires pow2 n_fft = C*hop, hop = R2*128, C,R2 <= 8, or in the "
+            f"fast mode n_fft in {MIXED_N_FFTS} and n_fft/8 <= hop <= n_fft; got n_fft={n_fft}, "
+            f"hop={hop_length}, fast_gemm={bool(fast_gemm)}"
         )
     if power not in (1.0, 2.0):
         raise ValueError(f"fused mel kernel supports power in {{1, 2}}, got {power}")
@@ -399,14 +445,16 @@ def melspectrogram_fused(
         raise ValueError(
             f"signal length ({y.shape[1]}) must be >= n_fft ({n_fft}) when center=False"
         )
-    if fast_gemm is None:
-        fast_gemm = _config.ANALYSIS_FAST_GEMM
     kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
               power=float(power))
-    cuda = on_cuda(y, win, fb_t)
-    if not (cuda or fast_gemm):
+    if on_cuda(y, win, fb_t):
+        forward = partial(_launch, fast_gemm=bool(fast_gemm))
+    elif not radix_shape_ok(n_fft, hop_length):
+        forward = melspectrogram_mixed_plain
+    elif fast_gemm:
+        forward = partial(melspectrogram_plain, fast_gemm=True)
+    else:
         return melspectrogram_plain(y, win, fb_t, **kw)
-    forward = partial(_launch if cuda else melspectrogram_plain, fast_gemm=bool(fast_gemm))
     return with_plain_backward(forward, melspectrogram_plain, y, win, fb_t, **kw)
 
 
@@ -547,91 +595,3 @@ def melspectrogram_mixed_plain(
     w = torch.complex(tw[:, 0], tw[:, 1])
     spec = 0.5 * (a + c) + w * ((a - c) * -0.5j)
     return _contract(spec, fb_t, power, fast_gemm=True)
-
-
-def device_plan(fb_t: torch.Tensor) -> torch.Tensor:
-    """The full-range plan of a W given per call (``band_plan_host(fb_t.T,
-    band=False)``'s words), packed with torch ops on W's device: nothing is
-    copied to the host."""
-    n_bins, n_cols = fb_t.shape
-    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
-    wp = fb_t.new_zeros(16 * n_mt, 16 * ksteps)
-    wp[:n_cols, :n_bins] = fb_t.t()
-    hi = wp.to(torch.bfloat16)
-    lo = (wp - hi.float()).to(torch.bfloat16)
-
-    def words(half: torch.Tensor) -> torch.Tensor:
-        # (column, k-step, q, pair): the even bin in the low 16 bits
-        u = (half.view(torch.int16).to(torch.int64) & 0xFFFF).reshape(16 * n_mt, ksteps, 4, 2, 2)
-        v = u[..., 0] | (u[..., 1] << 16)
-        return torch.where(v >= 2**31, v - 2**32, v)
-
-    head = torch.zeros(plan_w_offset(n_mt), dtype=torch.int64, device=fb_t.device)
-    head[:5] = torch.tensor([PLAN_MAGIC, n_cols, n_mt, ksteps, n_mt * ksteps])
-    head[PLAN_HEADER:PLAN_HEADER + n_mt + 1] = ksteps * torch.arange(n_mt + 1)
-    return torch.cat([head, torch.cat([words(hi), words(lo)], dim=-1).reshape(-1)]).to(torch.int32)
-
-
-def _launch_mixed(y, win, fb_t, *, n_fft, hop_length, center, pad_mode, power):
-    require(y, "y", torch.float32, 2)
-    require(win, "win", torch.float32, 1)
-    if fb_t.device != y.device or fb_t.dtype != torch.float32 or fb_t.dim() != 2:
-        raise ValueError(f"fb_t must be a 2-D float32 tensor on {y.device}; got "
-                         f"{fb_t.dtype} {tuple(fb_t.shape)} on {fb_t.device}")
-    B, L = y.shape
-    n_bins, n_cols = fb_t.shape
-    if win.shape[0] != n_fft or n_bins != n_fft // 2 + 1:
-        raise ValueError(
-            f"mel_fused_mixed_kernel needs win ({n_fft},) and fb_t ({n_fft // 2 + 1}, n_cols); "
-            f"got {tuple(win.shape)} and {tuple(fb_t.shape)}"
-        )
-    n_mt, ksteps = -(-n_cols // 16), -(-n_bins // 16)
-    planned = fast_plan(fb_t)
-    if planned is None:
-        plan = device_plan(fb_t)
-    else:
-        plan, host = planned
-        if host[:4].tolist() != [PLAN_MAGIC, n_cols, n_mt, ksteps] or plan.numel() != host.size:
-            raise ValueError(f"the plan does not fit W {tuple(fb_t.shape)}: header {tuple(host[:5])}")
-    pad = n_fft // 2 if center else 0
-    F = 1 + (L + 2 * pad - n_fft) // hop_length
-    tw = rfft_twiddles(n_fft, device=y.device)
-    out = torch.empty((B, n_cols, F), dtype=torch.float32, device=y.device)
-    KERNEL_MIXED.launch(y.device, y.data_ptr(), L, win.data_ptr(), tw.data_ptr(), plan.data_ptr(),
-                        out.data_ptr(), B, n_fft, hop_length, F, n_cols, pad, PAD_CODES[pad_mode],
-                        int(power))
-    return out
-
-
-@traced("kernels.mel_fused_mixed")
-def melspectrogram_fused_mixed(
-    y: torch.Tensor,
-    win: torch.Tensor,
-    fb_t: torch.Tensor,
-    *,
-    n_fft: int,
-    hop_length: int,
-    center: bool,
-    pad_mode: str,
-    power: float = 2.0,
-) -> torch.Tensor:
-    """``(B, L) -> (B, n_cols, F)`` through K1m, ``mel_fused_mixed_kernel``,
-    on a CUDA tensor, through its plain twin on a CPU tensor: the fast
-    entry's precision (~1e-5 of max of an exact product).
-
-    Requires the mixed-radix gate (`utils/dispatch.py::mixed_shape_ok`) and
-    ``power`` in {1, 2}; any window and any dense ``fb_t``. The backward
-    differentiates the exact plain composition."""
-    if not mixed_shape_ok(n_fft, hop_length):
-        raise ValueError(f"the mixed-radix mel kernel requires n_fft in {MIXED_N_FFTS} and "
-                         f"n_fft/8 <= hop <= n_fft; got n_fft={n_fft}, hop={hop_length}")
-    if power not in (1.0, 2.0):
-        raise ValueError(f"fused mel kernel supports power in {{1, 2}}, got {power}")
-    if y.shape[1] + (n_fft if center else 0) < n_fft:
-        raise ValueError(
-            f"signal length ({y.shape[1]}) must be >= n_fft ({n_fft}) when center=False"
-        )
-    kw = dict(n_fft=n_fft, hop_length=hop_length, center=center, pad_mode=pad_mode,
-              power=float(power))
-    forward = _launch_mixed if on_cuda(y, win, fb_t) else melspectrogram_mixed_plain
-    return with_plain_backward(forward, melspectrogram_plain, y, win, fb_t, **kw)

@@ -9,7 +9,7 @@ signatures and results:
   cached per device as float32 (bit-equal to the JAX package's table);
 * ``melspectrogram`` goes through :func:`filterbank_spectrogram`, which
   runs the fused mel kernel (K1, `kernels/mel_fused.py`) where the port's
-  gate admits (`utils/dispatch.py::mel_shape_ok`: the radix gate's shapes,
+  gate admits (`kernels/mel_fused.py::mel_shape_ok`: the radix gate's shapes,
   and K1's mixed-radix entry's, such as Whisper's n_fft 400 at hop 160) and
   ``power`` is 1 or 2, and the plain composition otherwise.
 """
@@ -23,8 +23,7 @@ import torch
 
 from .._config import FILTERBANK_CACHE_SIZE, REAL_DTYPE
 from ..kernels.dft import forward_basis
-from ..kernels.mel_fused import (melspectrogram_fused, melspectrogram_fused_mixed,
-                                 melspectrogram_plain)
+from ..kernels.mel_fused import mel_shape_ok, melspectrogram_fused, melspectrogram_plain
 from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.profiler import traced
@@ -205,10 +204,8 @@ def filterbank_spectrogram(
     if dispatch.route("filterbank_spectrogram", use_pallas, y.device,
                       fft_mode=fft_mode == "auto" or use_pallas is True,
                       power=power in (1.0, 2.0),
-                      gate=dispatch.mel_shape_ok(n_fft, hop_length)):
-        if dispatch.radix_shape_ok(n_fft, hop_length):
-            return melspectrogram_fused(y, win, fb_t, **kw)
-        return melspectrogram_fused_mixed(y, win, fb_t, **kw)
+                      gate=mel_shape_ok(n_fft, hop_length)):
+        return melspectrogram_fused(y, win, fb_t, **kw)
     matmul = _resolve_fft_mode(fft_mode, n_fft) == "matmul"
     basis = forward_basis(n_fft, device=y.device) if matmul else None
     return melspectrogram_plain(y, win, fb_t, basis=basis, **kw)

@@ -163,7 +163,9 @@ def radix_shape_ok(n_fft: int, hop_length: int) -> bool:
     ISTFT; `kernels/block_policy.py::radix_shape_ok`): power-of-two
     ``n_fft = C*hop``, ``hop = R2*128``, ``C, R2 <= 8``. The JAX kernels add
     VMEM budgets on top; those are TPU-only and have no counterpart here.
-    The port's kernels (K1-K3) take every shape this gate admits."""
+    The port's kernels (K1-K3) take every shape this gate admits; K1's own
+    gate, `kernels/mel_fused.py::mel_shape_ok`, adds its mixed-radix
+    entry's."""
     return (
         n_fft >= 128
         and n_fft & (n_fft - 1) == 0
@@ -173,27 +175,6 @@ def radix_shape_ok(n_fft: int, hop_length: int) -> bool:
         and n_fft // hop_length <= 8
         and hop_length // 128 <= 8
     )
-
-
-#: The n_fft values of K1's mixed-radix entry (`csrc/mel_fused_mixed.cu`, one
-#: instance each): Whisper's 400 = 2^4 * 5^2, off the radix gate
-MIXED_N_FFTS = (400,)
-
-
-def mixed_shape_ok(n_fft: int, hop_length: int) -> bool:
-    """The shape gate of K1's mixed-radix entry: an n_fft it is built for, at
-    any hop from ``n_fft // 8`` to ``n_fft`` (the hop need not divide it)."""
-    return n_fft in MIXED_N_FFTS and n_fft // 8 <= hop_length <= n_fft
-
-
-def mel_shape_ok(n_fft: int, hop_length: int) -> bool:
-    """The port's shape gate for K1 in ``filterbank_spectrogram``: the JAX
-    radix gate's shapes (:func:`radix_shape_ok`, K1's dense and fast
-    entries) and, while the fast contraction mode is on
-    (``_config.ANALYSIS_FAST_GEMM``, read at call time), the mixed-radix
-    entry's (:func:`mixed_shape_ok`), which has no exact mode."""
-    return radix_shape_ok(n_fft, hop_length) or (
-        _config.ANALYSIS_FAST_GEMM and mixed_shape_ok(n_fft, hop_length))
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

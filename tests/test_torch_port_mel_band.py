@@ -2,9 +2,10 @@
 
 `csrc/mel_fused.cu`'s fast entry (``mel_fused_fast_kernel``) reads its
 weight from a plan (`kernels/mel_fused.py::band_plan_host`, built once per
-cached table and device; the launcher packs a full-range one from a W given
-per call): W^T split into bf16 hi/lo in the order the A fragments load it,
-each 16-column m-tile's range of 16-bin k-steps outside which its columns
+cached table and device; ``plan_of`` packs a full-range one from a W given
+per call, for the fast entry and K1m; its layout is `csrc/k1_plan.cuh`'s):
+W^T split into bf16 hi/lo in the order the A fragments load it, each
+16-column m-tile's range of 16-bin k-steps outside which its columns
 are zero, and the blocks before each m-tile. The warps take equal shares of
 the (m-tile, k-step) blocks; a tile whose power rows hold a value that is
 not finite takes every k-step. A CUDA kernel cannot run here, so this file
@@ -16,7 +17,9 @@ checks the plan and repeats the kernel's work split in NumPy:
   takes every k-step, and the 128-mel table's plan is 73 of 520 blocks;
 - the packed words are ``_bf16_split`` of W^T bit for bit (JAX's and the
   port's), in the A fragments' k-step permutation, and the pack kernel's
-  thread map gives ``band_plan_host(band=False)`` word for word;
+  thread map gives ``band_plan_host(band=False)`` word for word, at K1m's
+  n_bins too; the layout's constants and the bf16 helpers are defined in
+  `csrc/k1_plan.cuh` alone;
 - the banded, balanced contraction (shares, segments, the parts held and
   stored, their sum in warp order; the parts' words, past what the
   contraction reads) covers each block once: exact on small
@@ -28,6 +31,9 @@ checks the plan and repeats the kernel's work split in NumPy:
 """
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -197,10 +203,29 @@ def pack_model(W: np.ndarray) -> np.ndarray:
     return plan.view(np.int32)
 
 
-@pytest.mark.parametrize("n_bins, n_cols", [(1025, 128), (257, 40), (65, 2), (129, 17), (1025, 12)])
+@pytest.mark.parametrize("n_bins, n_cols", [(1025, 128), (257, 40), (65, 2), (129, 17), (1025, 12),
+                                             (201, 128), (201, 80), (201, 12), (201, 1)])
 def test_the_pack_kernel_gives_the_full_range_plan(n_bins, n_cols):
+    """The one writer of a per-call plan, for the fast entry's n_bins and
+    K1m's (201 at n_fft 400)."""
     W = (signals(n_bins + n_cols, (n_bins, n_cols)) ** 2).astype(np.float32)
     assert np.array_equal(pack_model(W), k1.band_plan_host(np.ascontiguousarray(W.T), band=False))
+
+
+def test_the_plan_layout_has_one_home():
+    """The plan's constants and the bf16 contraction's helpers are defined
+    in `csrc/k1_plan.cuh` and in no other CUDA source; the Python words agree
+    with its constants."""
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    names = ("kPlanMagic", "kPlanHeader", "plan_w_offset", "mma_bf16", "split_bf16x2")
+    homes = {n: sorted(src.name for src in csrc.glob("*.cu*")
+                       if re.search(rf"\b(?:int|void) {n} ?[=(]", src.read_text())) for n in names}
+    assert homes == {n: ["k1_plan.cuh"] for n in names}
+    text = (csrc / "k1_plan.cuh").read_text()
+    assert int(re.search(r"kPlanMagic = (0x[0-9A-F]+);", text).group(1), 16) == k1.PLAN_MAGIC
+    assert f"kPlanHeader = {k1.PLAN_HEADER};" in text
+    for src in ("mel_fused.cu", "mel_fused_mixed.cu"):
+        assert '#include "k1_plan.cuh"' in (csrc / src).read_text()
 
 
 # -- the banded, balanced contraction ---------------------------------------
@@ -396,8 +421,9 @@ def test_inf_sample_gives_nan_columns_in_twin_and_jax():
 def test_a_cached_tables_plan_is_built_once():
     """The 128-mel table's plan is found through its transpose view (how the
     ops pass it) and the chroma and moments tables' as they are passed; a
-    second lookup hits the plan cache; a copy and a slice have no plan (the
-    launch packs theirs)."""
+    second lookup hits the plan cache; a copy and a slice have no plan
+    (``plan_of`` packs theirs), and ``plan_of`` hands out the cached plan
+    with its blocks."""
     fb = mel_filterbank(22050, 2048, 128, device="cpu")
     before = cache_stats()["k1_band_plan"]
     plan, host = k1.fast_plan(fb.t())
@@ -407,6 +433,8 @@ def test_a_cached_tables_plan_is_built_once():
     assert plan.dtype == torch.int32 and np.array_equal(plan.numpy(), host)
     assert np.array_equal(host, k1.band_plan_host(fb.numpy()))
     assert k1.contracted_blocks(fb.t()) == (73, 520)
+    got, blocks = k1.plan_of(fb.t())
+    assert got is plan and blocks == 73
     assert k1.fast_plan(fb.t().contiguous()) is None and k1.fast_plan(fb.t()[:, :64]) is None
     assert k1.contracted_blocks(fb.t().contiguous()) == (520, 520)
     chroma = chroma_filterbank(22050, 2048, device="cpu")

@@ -85,17 +85,8 @@ def test_k1m_twin_matches_the_rfft_composition(hop, center, pad_mode, power):
     got = k1.melspectrogram_mixed_plain(y, win, fb.t(), **kw)
     assert max_rel(got, k1.melspectrogram_plain(y, win, fb.t(), **kw)) <= TWIN_TOL
     assert max_rel(got, k1.melspectrogram_plain(y, win, fb.t(), fast_gemm=True, **kw)) <= TWIN_TOL
-    fused = k1.melspectrogram_fused_mixed(y, win, fb.t(), **kw)  # the wrapper on a CPU tensor
+    fused = k1.melspectrogram_fused(y, win, fb.t(), **kw)  # the wrapper on a CPU tensor
     assert torch.equal(fused, got)
-
-
-@pytest.mark.parametrize("n_cols", [128, 80, 12, 1])
-def test_device_plan_is_the_host_plan(n_cols):
-    """A W given per call is packed with torch ops on its device into the
-    words ``band_plan_host`` gives for the full range."""
-    w_t = torch.from_numpy(signals(n_cols, (201, n_cols)))
-    want = k1.band_plan_host(w_t.numpy().T, band=False)
-    assert np.array_equal(k1.device_plan(w_t).numpy(), want)
 
 
 def test_k1m_backward_is_the_exact_composition():
@@ -103,7 +94,7 @@ def test_k1m_backward_is_the_exact_composition():
     y = torch.from_numpy(whisper_audio(3, 4000)).requires_grad_(True)
     win = torch.hann_window(400, periodic=True)
     kw = dict(n_fft=400, hop_length=160, center=True, pad_mode="reflect", power=2.0)
-    k1.melspectrogram_fused_mixed(y, win, fb.t(), **kw).sum().backward()
+    k1.melspectrogram_fused(y, win, fb.t(), **kw).sum().backward()
     y2 = y.detach().clone().requires_grad_(True)
     k1.melspectrogram_plain(y2, win, fb.t(), **kw).sum().backward()
     assert torch.equal(y.grad, y2.grad)
@@ -118,8 +109,12 @@ def test_k1m_backward_is_the_exact_composition():
     (320, 160, True, False), (512, 160, True, False), (2048, 512, True, True),
     (2048, 512, False, True), (1024, 256, True, True), (128, 128, False, True)])
 def test_mel_gate(monkeypatch, n_fft, hop, fast, want):
+    """K1's gate in the mode ``_config.ANALYSIS_FAST_GEMM`` holds when it is
+    called, and in the mode it is given over the config's."""
     monkeypatch.setattr(_config, "ANALYSIS_FAST_GEMM", fast)
-    assert bool(dispatch.mel_shape_ok(n_fft, hop)) is want
+    assert k1.mel_shape_ok(n_fft, hop) is want
+    monkeypatch.setattr(_config, "ANALYSIS_FAST_GEMM", not fast)
+    assert k1.mel_shape_ok(n_fft, hop, fast) is want
 
 
 @pytest.mark.parametrize("fast", [True, False])
@@ -128,15 +123,15 @@ def test_mel_gate_holds_every_radix_shape(monkeypatch, fast):
     for n_fft in (128, 256, 512, 1024, 2048, 4096, 8192):
         for hop in range(128, 1025, 128):
             if dispatch.radix_shape_ok(n_fft, hop):
-                assert dispatch.mel_shape_ok(n_fft, hop)
+                assert k1.mel_shape_ok(n_fft, hop)
     assert not dispatch.radix_shape_ok(400, 160)
 
 
 @pytest.mark.parametrize("fast", [True, False])
 def test_filterbank_spectrogram_routes_400_160(monkeypatch, fast):
-    """With ``use_pallas=True`` a 400/160 call takes K1m's wrapper (its twin
+    """With ``use_pallas=True`` a 400/160 call takes K1's wrapper (K1m's twin
     on the CPU) in the fast mode, and the plain route for the gate in the
-    exact mode."""
+    exact mode, where the wrapper itself refuses the shape."""
     monkeypatch.setattr(_config, "ANALYSIS_FAST_GEMM", fast)
     y = whisper_audio(4, 8000)
     fb = mel_filterbank(16000, 400, 128, 0.0, 8000.0, device="cpu")
@@ -153,9 +148,12 @@ def test_filterbank_spectrogram_routes_400_160(monkeypatch, fast):
     key = ("dispatch.kernel.filterbank_spectrogram" if fast
            else "dispatch.plain.filterbank_spectrogram.gate")
     assert data["counters"].get(key) == 1
-    assert ("kernels.mel_fused_mixed" in data["spans"]) is fast
+    assert ("kernels.melspectrogram_fused" in data["spans"]) is fast
     plain = k1.melspectrogram_plain(torch.from_numpy(y), win, fb.t(), **kw)
     assert max_rel(got, plain) <= (TWIN_TOL if fast else 1e-6)
+    if not fast:
+        with pytest.raises(ValueError, match="fast mode"):
+            k1.melspectrogram_fused(torch.from_numpy(y), win, fb.t(), **kw)
 
 
 # -- K6's per-item form -----------------------------------------------------------
@@ -272,7 +270,7 @@ def test_front_end_span():
     finally:
         profiler.disable_profiling()
         profiler.clear_profiling()
-    for name in ("models.whisper_v3_logmel", "ops.melspectrogram", "kernels.mel_fused_mixed",
+    for name in ("models.whisper_v3_logmel", "ops.melspectrogram", "kernels.melspectrogram_fused",
                  "kernels.db_fused"):
         assert name in spans, name
 

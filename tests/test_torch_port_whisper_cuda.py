@@ -72,7 +72,7 @@ def test_k1m_is_its_twin(card, shape):
     y = audio(shape, card, seed=shape[0])
     fb = mel_filterbank(16000, 400, 128, 0.0, 8000.0, device=card)
     win = torch.hann_window(400, periodic=True, device=card)
-    got = k1.melspectrogram_fused_mixed(y, win, fb.t(), **KW)
+    got = k1.melspectrogram_fused(y, win, fb.t(), **KW)
     want = k1.melspectrogram_mixed_plain(y, win, fb.t(), **KW)
     assert got.shape == (shape[0], 128, 1 + shape[1] // 160)
     assert max_rel(got, want) <= TWIN_TOL
@@ -88,7 +88,7 @@ def test_k1m_over_its_class(card, hop, center, pad_mode, power):
     fb = mel_filterbank(16000, 400, 80, 0.0, 8000.0, device=card)
     win = torch.hann_window(400, periodic=True, device=card)
     kw = dict(n_fft=400, hop_length=hop, center=center, pad_mode=pad_mode, power=power)
-    got = k1.melspectrogram_fused_mixed(y, win, fb.t(), **kw)
+    got = k1.melspectrogram_fused(y, win, fb.t(), **kw)
     assert max_rel(got, k1.melspectrogram_mixed_plain(y, win, fb.t(), **kw)) <= TWIN_TOL
 
 
@@ -98,7 +98,7 @@ def test_k1m_with_a_weight_given_per_call(card):
     w_t = torch.rand((201, 40), generator=gen, device=card)
     y = audio((2, 16_000), card, seed=4)
     win = torch.hann_window(400, periodic=True, device=card)
-    got = k1.melspectrogram_fused_mixed(y, win, w_t, **KW)
+    got = k1.melspectrogram_fused(y, win, w_t, **KW)
     assert max_rel(got, k1.melspectrogram_mixed_plain(y, win, w_t, **KW)) <= TWIN_TOL
 
 
@@ -109,7 +109,7 @@ def test_k1m_on_values_that_are_not_finite(card):
     y[1, 8_000] = float("inf")
     fb = mel_filterbank(16000, 400, 128, 0.0, 8000.0, device=card)
     win = torch.hann_window(400, periodic=True, device=card)
-    got = k1.melspectrogram_fused_mixed(y, win, fb.t(), **KW)
+    got = k1.melspectrogram_fused(y, win, fb.t(), **KW)
     want = k1.melspectrogram_mixed_plain(y, win, fb.t(), **KW)
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     ok = torch.isfinite(want)
