@@ -60,7 +60,11 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
    a W given per call) and K6's
    per-item form (a floor per clip, ``/ 40 + 1``) on the mel's
    ``[..., :-1]`` view bit for bit its twin, also with NaN and +inf;
-   ``spectral_contrast`` on frames that hold NaN, card against CPU; K3, K4
+   ``spectral_contrast`` on frames that hold NaN, card against CPU; K7,
+   the frame statistics, at 64 x 30 s (frame 2048, hop 512), ZCR bit for
+   bit its twin and RMS within 1e-6 of max, both pad modes and no centre
+   pad, on clips with zeros, -0.0, NaN and +-inf, and at frame 400, hop
+   160 on clips whose starts are not 16-byte aligned; K3, K4
    and K5 at 65,537 clips; K1 at the pitch ACF's shapes, n_fft 4096, hop
    512, no centre pad, the boxcar window, 432 and 331 lag-basis columns,
    64 x 30 s, through the dense entry and through the ACF entry (the
@@ -91,7 +95,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
       30 s at 22,050 Hz (n_fft 2048, hop 512): MFCC (20) with deltas of
       order 1 and 2, centroid, bandwidth, rolloff, flatness, contrast,
       zero-crossing rate and RMS, the first 4 clips against a float64 CPU
-      oracle, with its launches counted (K1 2, K2m 1, K2s 3, K5 4);
+      oracle, with its launches counted (K1 2, K2m 1, K2s 3, K5 4, K6 2,
+      K7 2);
    c. ``istft`` and ``spectral_contrast`` on 65,537 small clips, past
       grid y's 65,535, with K3's and K5's launches counted;
    d. ``griffinlim`` at 64 x 30 s (32 iterations: K2 32 and K3 33
@@ -195,7 +200,8 @@ It needs one CUDA card of compute capability 9.0 and nvcc (CUDA_HOME or
 5. CUDA-event times of each path (kernels and plain), of the centroid
    against the route it does not take (K2m's magnitude and two
    reductions), of the bandwidth, rolloff and flatness against theirs
-   (K2m's magnitude and the plain passes K2s replaces), and of
+   (K2m's magnitude and the plain passes K2s replaces), of the ZCR and
+   RMS against theirs (the plain passes K7 replaces), and of
    each kernel alone against its plain twin and, where one PyTorch call
    computes the same function, that call (K2 also at 64 x 30 s, against
    ``torch.stft``); each kernel's bound from the bytes and operations of
@@ -246,6 +252,7 @@ line before them is a JSON object with one entry per kernel.
 from __future__ import annotations
 
 import importlib
+import itertools
 import json
 import os
 import re
@@ -309,13 +316,16 @@ WHISPER_KW = dict(n_fft=400, hop_length=160, center=True, pad_mode="reflect", po
 WHISPER_LAUNCHES = {K1M: 1, K6_ITEM: 2}
 #: the kernels each public path must launch
 LOG_MEL_PATH = (K1_MAIN, K1_EXACT, K6, "stft_kernel", "istft_kernel", "overlap_add_kernel")
-FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "stft_stats_kernel", "select_extremes_kernel")
+#: K7, the frame statistics: once a zero_crossing_rate / rms call on a
+#: non-empty CUDA signal
+K7 = "frame_stats_kernel"
+FEATURE_PATH = (K1_MAIN, K6, "stft_mag_kernel", "stft_stats_kernel", "select_extremes_kernel", K7)
 #: the feature path's launches: K1 for MFCC's mel and the centroid's
 #: moments, K6 twice for MFCC's dB (top_db 80), K2m for contrast, K2s for
 #: bandwidth, rolloff and flatness, K5 for the four contrast bands that
-#: take it
+#: take it, K7 for ZCR and RMS
 FEATURE_LAUNCHES = {K1_MAIN: 2, K6: 2, "stft_mag_kernel": 1, "stft_stats_kernel": 3,
-                    "select_extremes_kernel": 4}
+                    "select_extremes_kernel": 4, K7: 2}
 #: the rhythm-and-harmony path's launches per public call (phase 4e): K1
 #: and K6 once for onset_strength's mel and its dB (so once for beat_track
 #: of a signal),
@@ -330,15 +340,16 @@ RHYTHM_LAUNCHES = {"onset_strength": {K1_MAIN: 1, K6: 1}, "chroma_stft": {K1_MAI
 #: STFT -> op -> ISTFT effects, K2 three times for the reassignment's
 #: three windows, K2 once a push of the STFT stream and K1 once a push of
 #: the mel and chroma streams (K6 too for the log-mel and MFCC streams' dB),
-#: K6 once for trim's and split's frame dB; none for the rest, which run
-#: plain torch in either package
+#: K7 and K6 once for trim's and split's frame RMS and its dB; none for the
+#: rest, which run plain torch in either package
 _K2_K3 = {"stft_kernel": 1, "istft_kernel": 1}
 EFFECTS_LAUNCHES = {"harmonic": _K2_K3, "percussive": _K2_K3, "time_stretch": _K2_K3,
                     "pitch_shift": _K2_K3, "reassigned_spectrogram": {"stft_kernel": 3},
                     "StreamingSTFT": {"stft_kernel": 1}, "StreamingLogMel": {K1_MAIN: 1, K6: 1},
                     "StreamingMFCC": {K1_MAIN: 1, K6: 1}, "StreamingChroma": {K1_MAIN: 1},
                     "StreamingPCEN": {K1_MAIN: 1}, "StreamingISTFT": {}, "StreamingPitch": {},
-                    "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {K6: 1}, "split": {K6: 1},
+                    "StreamingResample": {}, "pyin": {}, "lpc": {}, "trim": {K6: 1, K7: 1},
+                    "split": {K6: 1, K7: 1},
                     "recurrence_matrix": {}, "nn_filter": {}, "decompose": {}}
 #: the streams of phase 4f: 30 pushes of 1 s (43 hops) at batch 64
 STREAM_CHUNK = 43 * HOP
@@ -913,6 +924,7 @@ def kernels_vs_plain(gen: torch.Generator) -> dict:
     errs[k4.KERNEL.name] = e
 
     k6_vs_plain(gen, run, errs)
+    k7_vs_plain(gen, run, errs)
     whisper_kernels_vs_plain(gen, run, errs)
     big_batch_vs_plain(gen, run, errs)
     k3_gate_sweep(gen, run, errs)
@@ -1022,6 +1034,47 @@ def k6_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
               f"{'' if special is None else f' ({special})'}: err {e:.3e} (limit 0, bit-equal)")
         check(e == 0.0, "K6 disagrees with its plain twin")
         errs[k6.KERNEL.name] = max(errs.get(k6.KERNEL.name, 0.0), e)
+
+
+def k7_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
+    """Phase 3's K7 checks: the frame statistics against their twin at the
+    feature path's 64 x 30 s (frame 2048, hop 512: the 16-byte path), each
+    statistic with the feature cell's pad mode, the other one and no centre
+    pad, on clips with runs of zeros and -0.0, a NaN in each and +-inf in
+    two; then at frame 400, hop 160 on clips of an odd length (their starts
+    are not 16-byte aligned: the scalar path). ZCR bit for bit (expected
+    error 0.0), RMS within 1e-6 of max, NaN where the twin's is."""
+    from mlx_audio_primitives_tpu_torch.kernels import frame_stats as k7
+
+    dev = torch.device("cuda", 0)
+    y = torch.randn(FEATURES, generator=gen, device=dev)
+    y[:, 100:180] = 0.0
+    y[:, 200:230] = -0.0
+    y[:, 181::97] = -0.0
+    y[:, 777] = float("nan")
+    y[0, 1500], y[-1, 2500] = float("inf"), float("-inf")
+    y_odd = torch.randn((64, 44_101), generator=gen, device=dev)
+    for clips, n, hop in ((y, N_FFT, HOP), (y_odd, 400, 160)):
+        for stat, center, pad_mode in itertools.product(("zero_crossing_rate", "rms"), (True, False),
+                                                        ("edge", "constant")):
+            if not center and pad_mode == "edge":
+                continue
+            kw = dict(stat=stat, frame_length=n, hop_length=hop, center=center, pad_mode=pad_mode)
+            got = run(k7.KERNEL, k7.frame_stats_fused, clips, **kw)
+            want = k7.frame_stats_plain(clips, **kw)
+            # RMS: the frames that hold an infinity or a NaN bit for bit, the
+            # others within 1e-6 of max
+            fin = torch.isfinite(want) if stat == "rms" else torch.ones_like(want, dtype=torch.bool)
+            odd_ok = exact_err(got[~fin], want[~fin]) == 0.0
+            e = exact_err(got, want) if stat == "zero_crossing_rate" else rel_err(got[fin], want[fin])
+            lim = 0.0 if stat == "zero_crossing_rate" else 1e-6
+            print(f"K7 {stat} {tuple(clips.shape)} frame {n} hop {hop} center={center} "
+                  f"{pad_mode}: err {e:.3e} (limit {lim:g}), {int((~fin).sum())} frames "
+                  f"that are not finite matched: {odd_ok}")
+            check(odd_ok and e <= lim, f"K7's {stat} disagrees with its twin")
+            # the kernels line: the ZCR under the kernel's own name
+            name = k7.KERNEL.name if stat == "zero_crossing_rate" else f"{k7.KERNEL.name}[rms]"
+            errs[name] = max(errs.get(name, 0.0), e)
 
 
 def whisper_kernels_vs_plain(gen: torch.Generator, run, errs: dict) -> None:
@@ -4276,6 +4329,7 @@ def times(gen: torch.Generator, card: str) -> dict:
     phase(f"5. times (CUDA-event medians after warm-up, ms) on {card}")
     import mlx_audio_primitives_tpu_torch as ap
     from mlx_audio_primitives_tpu_torch.kernels import db_fused as k6
+    from mlx_audio_primitives_tpu_torch.kernels import frame_stats as k7
     from mlx_audio_primitives_tpu_torch.kernels import istft_fused as k3
     from mlx_audio_primitives_tpu_torch.kernels import mel_fused as k1
     from mlx_audio_primitives_tpu_torch.kernels import overlap_add as k4
@@ -4355,6 +4409,13 @@ def times(gen: torch.Generator, card: str) -> dict:
         print(f"{op} 64 x 30 s: through K2s {s_a:.4f} / {s_b:.4f}, K2m and the plain passes "
               f"{m_a:.4f} / {m_b:.4f}")
 
+    # the zero-crossing rate and RMS of 64 x 30 s at the feature cell's pad
+    # modes: each through K7, against the plain passes it replaced
+    for op, pad_mode in (("zero_crossing_rate", "edge"), ("rms", "constant")):
+        fn = getattr(ap, op)
+        route_times(f"{op} 64 x 30 s ({pad_mode} pad), K7 against the plain passes",
+                    lambda fn=fn, pad_mode=pad_mode: fn(y_feat, pad_mode=pad_mode), 10)
+
     # each kernel alone against its plain twin and its library call, at the
     # main paths' shapes, with its bound at that shape
     fb_t = k1_weight(mel_filterbank(SR, N_FFT, N_MELS, device=dev))
@@ -4374,6 +4435,13 @@ def times(gen: torch.Generator, card: str) -> dict:
     # kernel's own name
     k2s_name = {stat: k2.KERNEL_STATS.name if stat == "bandwidth" else
                 f"{k2.KERNEL_STATS.name}[{stat}]" for stat in ("bandwidth", "rolloff", "flatness")}
+    # K7's two statistics at the feature cell's pad modes: the ZCR under the
+    # kernel's own name
+    k7_kw = {"zero_crossing_rate": dict(stat="zero_crossing_rate", frame_length=N_FFT, hop_length=HOP, center=True,
+                         pad_mode="edge"),
+             "rms": dict(stat="rms", frame_length=N_FFT, hop_length=HOP, center=True,
+                         pad_mode="constant")}
+    k7_name = {"zero_crossing_rate": k7.KERNEL.name, "rms": f"{k7.KERNEL.name}[rms]"}
     kw3 = dict(n_fft=N_FFT, hop_length=HOP, padded_length=T)
     # K3 and K4 at 64 x 30 s: the spectrum of the feature path's clips, and
     # their windowed frames at hop 441
@@ -4429,6 +4497,11 @@ def times(gen: torch.Generator, card: str) -> dict:
         # K6's per-item form as the front end calls it, on the mel less its
         # last frame: the same operations and the affine's two a value
         K6_ITEM: (8 * Bw * N_MELS * (Fw - 1), 8 * Bw * N_MELS * (Fw - 1)),
+        # K7: the clips read once, a float a frame written; a sign comparison
+        # and an add a sample of each frame (ZCR), a square and an add and a
+        # root a frame (RMS): bench_port/bounds/zero_crossing_rate.py, rms.py
+        k7_name["zero_crossing_rate"]: (4 * (Bf * Lf + Bf * R), 2 * Bf * R * N_FFT),
+        k7_name["rms"]: (4 * (Bf * Lf + Bf * R), Bf * R * (2 * N_FFT + 1)),
     }
     k1m_products = 3 * Bw * Fw * 2 * 201 * N_MELS
     mel64 = mel_powers(gen, (Bf, N_MELS, R))
@@ -4479,6 +4552,10 @@ def times(gen: torch.Generator, card: str) -> dict:
         (k6.KERNEL.name, f"64 x 30 s x {N_MELS} mels, top_db 80",
          lambda: k6.to_db_fused(mel64, 10.0, 1.0, 1e-10, 80.0),
          lambda: k6.to_db_plain(mel64, 10.0, 1.0, 1e-10, 80.0), None),
+        *((k7_name[stat], f"64 x 30 s, frame {N_FFT}, hop {HOP}, {k7_kw[stat]['pad_mode']} pad",
+           lambda stat=stat: k7.frame_stats_fused(y_feat, **k7_kw[stat]),
+           lambda stat=stat: k7.frame_stats_plain(y_feat, **k7_kw[stat]), None)
+          for stat in ("zero_crossing_rate", "rms")),
         (K1M, "Whisper's 64 x 30 s at 16 kHz, n_fft 400, hop 160, 128 mels",
          lambda: k1.melspectrogram_fused(y_wh, win_wh, fb_wh, **WHISPER_KW),
          lambda: k1.melspectrogram_mixed_plain(y_wh, win_wh, fb_wh, **WHISPER_KW), None),
@@ -4511,6 +4588,12 @@ def times(gen: torch.Generator, card: str) -> dict:
         ms = kernel_device_ms(lambda: k2.stft_stats_fused(y_feat, win, fq, stat=stat, **kw),
                               k2.KERNEL_STATS.name, 5)
         print(f"K2s {stat} device time, 64 x 30 s (torch.profiler, 5 calls): {ms:.4f} ms")
+    for stat in ("zero_crossing_rate", "rms"):
+        ms = kernel_device_ms(lambda: k7.frame_stats_fused(y_feat, **k7_kw[stat]), k7.KERNEL.name,
+                              20)
+        bound_ms, bound_by = _bound(*work[k7_name[stat]])
+        print(f"K7 {stat} device time, 64 x 30 s (torch.profiler, 20 calls): {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
     k1_split(y_scale, y_feat, win, fb_t, kw)
     for kernel, fast in ((k1.KERNEL, False), (k1.KERNEL_FAST, True)):
         ms = kernel_device_ms(lambda: k1.melspectrogram_fused(y_head, win, fb_t, fast_gemm=fast, **kw),

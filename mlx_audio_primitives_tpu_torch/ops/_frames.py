@@ -57,12 +57,16 @@ def frame_signal_batched(
 ) -> torch.Tensor:
     """Frame ``(B, L)`` -> ``(B, F, frame_length)`` with F full frames (a
     strided view of ``y``)."""
-    L = y.shape[-1]
-    if L < frame_length:
-        raise ValueError(
-            f"signal length ({L}) must be >= frame_length ({frame_length})"
-        )
+    check_frame_length(y.shape[-1], frame_length)
     return y.unfold(-1, frame_length, hop_length)
+
+
+def check_frame_length(signal_length: int, frame_length: int) -> None:
+    """Raise unless a (padded) signal holds at least one whole frame."""
+    if signal_length < frame_length:
+        raise ValueError(
+            f"signal length ({signal_length}) must be >= frame_length ({frame_length})"
+        )
 
 
 def windowed_frames(

@@ -26,7 +26,13 @@ kernels of this path are:
   a ``freq`` other than one value per bin, a ``p`` or ``power`` other than
   1 and 2 and a shape outside the radix gate take the magnitude route,
   counted as ``dispatch.plain.<op>.spectrum``, ``.centroid``, ``.freq``,
-  ``.power`` and ``.gate``.
+  ``.power`` and ``.gate``;
+* the zero-crossing rate of a non-empty signal: the frame statistics
+  kernel (K7, `kernels/frame_stats.py`), which reads the audio once and
+  writes one value a frame (``ops/framing.py::frame_stat``, shared with
+  ``rms``); a frame longer than K7 takes, or a signal of more than two
+  dimensions, goes to the plain composition, counted as
+  ``dispatch.plain.zero_crossing_rate.gate``.
 
 Elsewhere each takes its plain composition. The JAX package computes the
 dB and geometric-mean logs with its own polynomials
@@ -50,7 +56,7 @@ from ..utils import dispatch
 from ..utils.cache import table_cache
 from ..utils.profiler import traced
 from ..utils.validation import validate_positive, validate_range
-from ._frames import frame_signal_batched, pad_signal
+from .framing import frame_stat
 from .stft import _as_batched, _get_padded_window, _validate_stft_params, magnitude_spectrogram
 
 ArrayLike = Any
@@ -439,24 +445,7 @@ def zero_crossing_rate(
     (librosa's definition), the first position of a frame counting no
     crossing, edge padding by default."""
     del use_mlx
-    validate_positive(frame_length, "frame_length")
-    validate_positive(hop_length, "hop_length")
-    y = dispatch.to_tensor(y, REAL_DTYPE)
-    input_is_1d = y.dim() == 1
-    if input_is_1d:
-        y = y[None]
-    if center:
-        if pad_mode not in ("constant", "edge"):
-            raise ValueError(
-                f"Unknown pad_mode: '{pad_mode}'. Supported: 'constant', 'edge'"
-            )
-        y = pad_signal(y, frame_length // 2, pad_mode)
-    frames = frame_signal_batched(y, frame_length, hop_length)
-    sign = torch.signbit(frames)
-    crossings = (sign[..., 1:] != sign[..., :-1]).to(REAL_DTYPE)
-    zcr = torch.sum(crossings, dim=-1, keepdim=True) / frame_length
-    zcr = zcr.transpose(1, 2)
-    return zcr[0] if input_is_1d else zcr
+    return frame_stat("zero_crossing_rate", y, frame_length, hop_length, center, pad_mode)
 
 
 @table_cache("poly_basis", maxsize=8)

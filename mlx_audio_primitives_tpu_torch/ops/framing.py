@@ -3,7 +3,10 @@
 Counterpart of `mlx_audio_primitives_tpu/ops/framing.py`, with the same
 signatures and scipy ``lfilter`` state semantics. Every op runs on the
 device of its input tensor; a non-tensor input goes to the default device
-(`utils/dispatch.py::to_tensor`).
+(`utils/dispatch.py::to_tensor`). ``rms`` of a non-empty signal on the
+card runs the frame statistics kernel (K7, `kernels/frame_stats.py`), as
+``zero_crossing_rate`` does (:func:`frame_stat`); elsewhere, and for a frame
+longer than K7 takes, its plain twin.
 
 ``deemphasis`` is the first-order IIR ``out[n] = y[n] + coef*out[n-1]``.
 It keeps the JAX formulation and its numerics: blocks of 256 samples, each
@@ -23,10 +26,11 @@ import numpy as np
 import torch
 
 from .._config import REAL_DTYPE
+from ..kernels.frame_stats import frame_stats_fused, frame_stats_ok, frame_stats_plain
 from ..utils import dispatch
 from ..utils.profiler import traced
 from ..utils.validation import validate_positive
-from ._frames import frame_signal_batched, pad_signal
+from ._frames import frame_signal_batched
 
 ArrayLike = Any
 
@@ -52,6 +56,30 @@ def frame(y: ArrayLike, frame_length: int, hop_length: int, axis: int = -1) -> t
     return frames[0] if input_is_1d else frames
 
 
+def frame_stat(
+    op: str, y: ArrayLike, frame_length: int, hop_length: int, center: bool, pad_mode: str,
+) -> torch.Tensor:
+    """The body of ``op``, ``rms`` or ``zero_crossing_rate``: the argument
+    checks, then the per-frame statistic ``(..., 1, F)`` from the frame
+    statistics kernel (K7, ``frame_stats_fused``) for a non-empty ``(B, L)``
+    or ``(L,)`` signal on the card, from its plain twin otherwise."""
+    validate_positive(frame_length, "frame_length")
+    validate_positive(hop_length, "hop_length")
+    y, input_is_1d = _as_2d(y)
+    if center and pad_mode not in ("constant", "edge"):
+        raise ValueError(
+            f"Unknown pad_mode: '{pad_mode}'. Supported: 'constant', 'edge'"
+        )
+    kw = dict(stat=op, frame_length=frame_length, hop_length=hop_length, center=center,
+              pad_mode=pad_mode)
+    if dispatch.route(op, None, y.device, gate=frame_stats_ok(y, frame_length),
+                      nonempty=y.numel() > 0):
+        out = frame_stats_fused(y, **kw)
+    else:
+        out = frame_stats_plain(y, **kw)
+    return out[0] if input_is_1d else out
+
+
 @traced("ops.rms")
 def rms(
     y: ArrayLike,
@@ -61,19 +89,7 @@ def rms(
     pad_mode: str = "constant",
 ) -> torch.Tensor:
     """Root-mean-square energy per frame, ``(..., 1, F)``."""
-    validate_positive(frame_length, "frame_length")
-    validate_positive(hop_length, "hop_length")
-    y, input_is_1d = _as_2d(y)
-    if center:
-        if pad_mode not in ("constant", "edge"):
-            raise ValueError(
-                f"Unknown pad_mode: '{pad_mode}'. Supported: 'constant', 'edge'"
-            )
-        y = pad_signal(y, frame_length // 2, pad_mode)
-    frames = frame_signal_batched(y, frame_length, hop_length)
-    energy = torch.sqrt(torch.mean(frames**2, dim=-1, keepdim=True))
-    energy = energy.transpose(1, 2)
-    return energy[0] if input_is_1d else energy
+    return frame_stat("rms", y, frame_length, hop_length, center, pad_mode)
 
 
 def _normalize_zi(zi, batch_size: int, device: torch.device) -> torch.Tensor:

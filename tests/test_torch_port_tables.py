@@ -20,6 +20,7 @@ import mlx_audio_primitives_tpu as jap
 import mlx_audio_primitives_tpu_torch as tap
 from mlx_audio_primitives_tpu.ops.stft import _istft_envelope_table as jax_env_table
 from mlx_audio_primitives_tpu_torch.kernels.db_fused import to_db_fused
+from mlx_audio_primitives_tpu_torch.kernels.frame_stats import frame_stats_fused
 from mlx_audio_primitives_tpu_torch.kernels.mel_fused import acf_fused, melspectrogram_fused
 from mlx_audio_primitives_tpu_torch.kernels.select_extremes import quantile_extreme_means_fused
 from mlx_audio_primitives_tpu_torch.kernels.stft_radix import stft_stats_fused
@@ -210,7 +211,8 @@ def test_cpu_calls_launch_nothing():
     assert set(before) == {"mel_fused_kernel", "mel_fused_fast_kernel", "mel_fused_acf_kernel",
                            "mel_fused_mixed_kernel", "stft_kernel", "stft_mag_kernel",
                            "istft_kernel", "overlap_add_kernel", "select_extremes_kernel",
-                           "db_fused_kernel", "db_item_kernel", "stft_stats_kernel"}
+                           "db_fused_kernel", "db_item_kernel", "stft_stats_kernel",
+                           "frame_stats_kernel"}
     y = signals(3, (1, 2048))
     S = tap.stft(y, n_fft=512, hop_length=128, use_pallas=True)
     tap.istft(S, hop_length=128, use_pallas=True)
@@ -232,6 +234,11 @@ def test_cpu_calls_launch_nothing():
                        ("flatness", None)):
         stft_stats_fused(torch.from_numpy(y), torch.ones(512), freq, stat=stat, n_fft=512,
                          hop_length=128, center=True, pad_mode="constant")
+    tap.rms(y, frame_length=512, hop_length=128)
+    tap.zero_crossing_rate(y, frame_length=512, hop_length=128)
+    for stat in ("rms", "zero_crossing_rate"):
+        frame_stats_fused(torch.from_numpy(y), stat=stat, frame_length=512, hop_length=128,
+                          center=True, pad_mode="edge")
     assert launch_counts() == before
 
 
